@@ -1,0 +1,226 @@
+"""The LUDA compaction pipeline over tensors: unpack -> sort -> pack.
+
+The port of ``repro.core.compaction``.  The three phases map to the
+paper's kernels, here the port's CUDA kernels (``kernels.ops``):
+
+* phase 1 ``unpack``     -> CRC verify (``crc32_sections``) + prefix restore
+* phase 2 ``sort``       -> ``<K, ~meta, V_offset>`` tuples merged run by
+                            run (``merge_runs``, the default), or re-sorted
+                            (``xla``: a stable torch sort; ``cooperative``:
+                            a host sort)
+* phase 3 ``shared_key`` -> ``prefix_encode`` on the survivor keys
+          ``encode``     -> value gather + CRC
+          ``filter``     -> ``bloom_build``
+
+PyTorch runs eagerly, so there is no jit and no static-shape bucketing
+here; the engine still pads to the same block counts as the JAX engine,
+because the padding decides the output image's size.  Values move once:
+the sort carries the pair-buffer index, and phase 3 gathers each output
+slot's value by it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import formats
+from repro_torch.core.formats import SSTGeometry, SSTImage
+from repro_torch.kernels import ops
+
+
+class CompactionStats(NamedTuple):
+    n_input: int      # live entries in
+    n_live: int       # entries out
+    n_dropped: int    # stale, shadowed or collected tombstones
+    crc_ok: bool      # every input block verified
+    bytes_in: int     # wire bytes read
+    bytes_out: int    # wire bytes written (live blocks only)
+
+
+class Unpacked(NamedTuple):
+    keys: torch.Tensor    # [N, L] fully restored user keys
+    meta: torch.Tensor    # [N]
+    vals: torch.Tensor    # [N, Vw]  (the KV pair buffer)
+    valid: torch.Tensor   # bool [N]
+    crc_ok: torch.Tensor  # bool [n_blocks]
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: unpack
+# ---------------------------------------------------------------------------
+
+
+def unpack(img: SSTImage, geom: SSTGeometry) -> Unpacked:
+    b, k, lanes = img.keys.shape
+    crc_ok = ops.crc32_sections(formats.wire_sections(img)) == img.crc
+    keys = ops.prefix_decode(img.shared.reshape(b * k),
+                             img.keys.reshape(b * k, lanes),
+                             restart_interval=geom.restart_interval)
+    valid = formats.entry_validity(img).reshape(b * k)
+    return Unpacked(keys=keys, meta=img.meta.reshape(b * k),
+                    vals=img.vals.reshape(b * k, -1), valid=valid,
+                    crc_ok=crc_ok)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: delete + sort (lightweight tuples)
+# ---------------------------------------------------------------------------
+
+
+def build_tuples(up: Unpacked) -> torch.Tensor:
+    """``<K, ~meta, V_offset>`` rows; padding rows get the all-ones key so
+    they sort to the end of their run."""
+    n = up.keys.shape[0]
+    keys = torch.where(up.valid[:, None], up.keys, -1)
+    idx = torch.arange(n, dtype=torch.int32, device=up.keys.device)
+    return torch.cat([keys, (~up.meta)[:, None], idx[:, None]], dim=1)
+
+
+def cooperative_sort(rows: torch.Tensor) -> torch.Tensor:
+    """The paper's cooperative sort: tuples go to the host, are sorted
+    there, and come back."""
+    r = rows.cpu().numpy().view(np.uint32)
+    order = np.lexsort(tuple(r[:, lane]
+                             for lane in reversed(range(r.shape[1]))))
+    return torch.from_numpy(np.ascontiguousarray(r[order]).view(
+        np.int32)).to(rows.device)
+
+
+# mode -> (rows, run_lens) -> sorted rows
+SORTERS = {
+    "merge": lambda rows, run_lens: ops.merge_runs(rows, run_lens),
+    "xla": lambda rows, run_lens: ops.sort_tuples(rows),
+    "cooperative": lambda rows, run_lens: cooperative_sort(rows),
+}
+
+
+def sort_phase(rows: torch.Tensor, *, sort_mode: str,
+               run_lens: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Order the phase-2 tuples.  ``"merge"`` merges the sorted runs that
+    ``run_lens`` (entries per input SST) delimits, and requires it; the
+    other modes re-sort everything.  (``"device"``, the bitonic sort,
+    waits for its kernel.)"""
+    if sort_mode not in SORTERS:
+        raise ValueError(f"unknown sort_mode {sort_mode!r}")
+    if sort_mode == "merge" and run_lens is None:
+        raise ValueError(
+            'sort_mode="merge" requires run_lens (the per-input entry '
+            "counts; see formats.concat_images(..., with_runs=True))")
+    return SORTERS[sort_mode](rows, run_lens)
+
+
+def survivor_mask(rows: torch.Tensor, valid: torch.Tensor, key_lanes: int,
+                  *, bottom_level: bool) -> torch.Tensor:
+    """Keep the newest version of each user key; drop shadowed versions;
+    collect tombstones only at the bottom level."""
+    keys_s = rows[:, :key_lanes]
+    meta = ~rows[:, key_lanes]
+    valid_s = valid[rows[:, key_lanes + 1].to(torch.int64)]
+    first = torch.any(keys_s != torch.roll(keys_s, 1, dims=0), dim=1)
+    first[0] = True
+    live = valid_s & first
+    if bottom_level:
+        live = live & formats.meta_is_value(meta)
+    return live
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: pack
+# ---------------------------------------------------------------------------
+
+
+def pack(rows: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
+         geom: SSTGeometry) -> SSTImage:
+    n = rows.shape[0]
+    lanes = geom.key_lanes
+    k = geom.block_kvs
+    n_blocks = n // k
+    dev = rows.device
+
+    # compact survivors to the front: slot pos[i] takes sorted row i.  The
+    # dead rows are routed to one spare slot n, dropped with it.
+    pos = torch.cumsum(live.to(torch.int64), 0) - 1
+    tgt = torch.where(live, pos, n)
+    count = live.sum()
+    slot_row = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    slot_row.index_copy_(0, tgt, torch.arange(n, device=dev))
+    slot_row = slot_row[:n]
+    valid_c = torch.arange(n, device=dev) < count
+
+    src = rows[slot_row]
+    keys_c = torch.where(valid_c[:, None], src[:, :lanes], 0).contiguous()
+    meta_c = torch.where(valid_c, ~src[:, lanes], 0)
+    # lazy value movement: one gather from the pair buffer
+    vals_c = torch.where(valid_c[:, None],
+                         vals[src[:, lanes + 1].to(torch.int64)], 0)
+
+    shared = ops.prefix_encode(keys_c, restart_interval=geom.restart_interval)
+    shared = torch.where(valid_c, shared, 0)
+    # the canonical compressed form: shared prefix bytes zeroed in lanes
+    keys_wire = formats.zero_prefix_lanes(keys_c, shared)
+    nvalid = torch.clamp(count - torch.arange(n_blocks, device=dev) * k,
+                         0, k).to(torch.int32)
+
+    img = SSTImage(
+        keys=keys_wire.reshape(n_blocks, k, lanes),
+        meta=meta_c.reshape(n_blocks, k),
+        vals=vals_c.reshape(n_blocks, k, -1),
+        shared=shared.reshape(n_blocks, k),
+        nvalid=nvalid,
+        crc=torch.zeros(n_blocks, dtype=torch.int32, device=dev),
+        bloom=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+    )
+    crc = ops.crc32_sections(formats.wire_sections(img))
+
+    # filter: bloom per block or per SST, over the restored keys
+    if geom.bloom_granularity == "block":
+        groups, per = n_blocks, k
+    else:
+        per = min(geom.sst_kvs, n)
+        groups = n // per
+    bloom = ops.bloom_build(keys_c.reshape(groups, per, lanes),
+                            valid_c.reshape(groups, per),
+                            n_words=geom.bloom_words(per),
+                            n_probes=geom.bloom_probes)
+    return img._replace(crc=crc, bloom=bloom)
+
+
+# ---------------------------------------------------------------------------
+# End-to-end pipeline
+# ---------------------------------------------------------------------------
+
+
+def compact(img: SSTImage, *, geom: SSTGeometry, bottom_level: bool = False,
+            sort_mode: str = "merge",
+            run_lens: tuple[int, ...] | None = None, timer=None
+            ) -> tuple[SSTImage, CompactionStats]:
+    """Run one compaction over the concatenated input image.
+
+    ``run_lens`` (entries per input SST) keeps the sorted-run structure
+    of the concatenation for ``sort_mode="merge"``, which requires it.
+    ``timer`` (a ``DeviceTimer``) records phase 2 as its ``"sort"`` span.
+    The stats are read back to the host once, at the end."""
+    up = unpack(img, geom)
+    rows = build_tuples(up)
+    if timer is None:
+        rows_s = sort_phase(rows, sort_mode=sort_mode, run_lens=run_lens)
+    else:
+        with timer.span("sort"):
+            rows_s = sort_phase(rows, sort_mode=sort_mode,
+                                run_lens=run_lens)
+    live = survivor_mask(rows_s, up.valid, geom.key_lanes,
+                         bottom_level=bottom_level)
+    out = pack(rows_s, live, up.vals, geom)
+
+    wire_bytes = geom.wire_words_per_block * 4
+    n_in, n_live, crc_ok, live_blocks = torch.stack([
+        up.valid.sum(), live.sum(), up.crc_ok.all().to(torch.int64),
+        (out.nvalid > 0).sum()]).tolist()
+    stats = CompactionStats(
+        n_input=n_in, n_live=n_live, n_dropped=n_in - n_live,
+        crc_ok=bool(crc_ok), bytes_in=img.n_blocks * wire_bytes,
+        bytes_out=live_blocks * wire_bytes)
+    return out, stats

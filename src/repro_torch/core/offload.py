@@ -1,0 +1,127 @@
+"""Compaction executor and image building over tensors (the port of
+``repro.core.offload``).
+
+``CompactionExecutor`` is what the engine talks to: it owns the device and
+the sort mode, concatenates the input images, pads them to the requested
+block count and runs the pipeline.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import compaction, formats
+from repro_torch.core.formats import SSTGeometry, SSTImage
+from repro_torch.device import resolve_device
+from repro_torch.kernels import tables
+
+
+@dataclasses.dataclass
+class CompactionExecutor:
+    """Runs compactions and image builds on ``device`` (None: ``cuda``).
+
+    ``sort_mode="merge"`` (the default) is run-aware: ``compact`` derives
+    the run lengths from the image list, so each image must be one sorted
+    input SST.  ``debug_check_runs=True`` verifies that on the host for
+    every job."""
+    geom: SSTGeometry
+    device: object = None
+    sort_mode: str = "merge"       # "merge" | "xla" | "cooperative"
+    debug_check_runs: bool = False
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.sort_mode not in compaction.SORTERS:
+            raise ValueError(f"unknown sort_mode {self.sort_mode!r}")
+
+    def _check_device(self, img: SSTImage):
+        if img.keys.device.type != self.device.type:
+            raise ValueError(f"image on {img.keys.device}, executor on "
+                             f"{self.device}")
+
+    def compact(self, images: list[SSTImage], *, bottom_level: bool = False,
+                pad_blocks: int | None = None, timer=None
+                ) -> tuple[SSTImage, compaction.CompactionStats]:
+        """Compact the input set (tensor images on this executor's
+        device).  ``pad_blocks`` pads the concatenation to that block
+        count; the padding becomes a trailing all-sentinel run."""
+        for im in images:
+            self._check_device(im)
+        img, run_lens = formats.concat_images(images, with_runs=True)
+        if pad_blocks is not None:
+            img, run_lens = pad_image_blocks(img, pad_blocks, self.geom,
+                                             run_lens=run_lens)
+        if self.debug_check_runs and self.sort_mode == "merge":
+            self._check_runs(img, run_lens)
+        return compaction.compact(
+            img, geom=self.geom, bottom_level=bottom_level,
+            sort_mode=self.sort_mode,
+            run_lens=run_lens if self.sort_mode == "merge" else None,
+            timer=timer)
+
+    def _check_runs(self, img: SSTImage, run_lens: tuple[int, ...]):
+        from repro_torch.kernels import merge_path
+        up = compaction.unpack(img, self.geom)
+        rows = compaction.build_tuples(up)
+        merge_path.assert_runs_sorted(rows.cpu().numpy(), run_lens)
+
+    def build_image(self, keys, meta, vals, n_live=None) -> SSTImage:
+        """A fresh SST image from sorted entries (the memtable flush)."""
+        return build_image(keys, meta, vals, n_live, geom=self.geom)
+
+
+def build_image(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
+                n_live: int | None = None, *,
+                geom: SSTGeometry) -> SSTImage:
+    """Pack sorted entries (int32 ``keys [n, L]``, ``meta [n]``,
+    ``vals [n, Vw]``) into a wire SST image: phase 3 alone.  ``n_live``
+    rows are real (default all); the rest are padding."""
+    n = keys.shape[0]
+    k = geom.block_kvs
+    n_pad = max(k, -(-n // k) * k)
+    dev = keys.device
+    pad = n_pad - n
+    keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
+    meta = torch.cat([meta, meta.new_zeros(pad)])
+    vals = torch.cat([vals, vals.new_zeros((pad, vals.shape[1]))])
+    rows = torch.cat([keys, (~meta)[:, None],
+                      torch.arange(n_pad, dtype=torch.int32,
+                                   device=dev)[:, None]], dim=1)
+    live = torch.arange(n_pad, device=dev) < (n if n_live is None
+                                               else n_live)
+    return compaction.pack(rows, live, vals, geom)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+def pad_image_blocks(img: SSTImage, n_blocks: int, geom: SSTGeometry,
+                     run_lens: tuple[int, ...] | None = None):
+    """Append empty (nvalid=0) blocks up to ``n_blocks``.  Padding blocks
+    carry the CRC of an all-zero wire block, so phase 1 verifies them.
+    With ``run_lens`` returns ``(img, run_lens + (pad_entries,))``: the
+    padding is one trailing sentinel run, sorted by construction."""
+    b = img.keys.shape[0]
+    extra = n_blocks - b
+    if extra <= 0:
+        return img if run_lens is None else (img, run_lens)
+    zero_crc = tables.crc32_zero_message(geom.wire_words_per_block * 4)
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((extra, *a.shape[1:]))])
+
+    bloom = img.bloom
+    if bloom.shape[0] == b:  # block-granularity filters track blocks
+        bloom = pad(bloom)
+    crc_pad = torch.full((extra,), zero_crc, dtype=torch.int64,
+                         device=img.crc.device).to(torch.int32)
+    padded = SSTImage(keys=pad(img.keys), meta=pad(img.meta),
+                      vals=pad(img.vals), shared=pad(img.shared),
+                      nvalid=pad(img.nvalid),
+                      crc=torch.cat([img.crc, crc_pad]), bloom=bloom)
+    if run_lens is None:
+        return padded
+    return padded, tuple(run_lens) + (extra * geom.block_kvs,)

@@ -1,0 +1,88 @@
+"""Public API over the port's kernels.
+
+Dispatch goes by the device of the tensors: a CUDA tensor launches the
+hand-written Hopper kernel (or the launch raises), a CPU tensor takes the
+plain PyTorch version in ``ref``.  There is no other selection and no
+fallback.  Each kernel counts its launches (:func:`launch_counts`), so a
+run can show that its main path went through the kernels.
+
+Words are uint32 bit patterns carried in ``int32`` tensors (see ``ref``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import bloom as _bloom
+from repro_torch.kernels import crc32 as _crc32
+from repro_torch.kernels import merge_path as _merge_path
+from repro_torch.kernels import prefix as _prefix
+from repro_torch.kernels import ref
+
+launch_counts = _build.launch_counts
+reset_launch_counts = _build.reset_launch_counts
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def crc32_sections(sections) -> torch.Tensor:
+    """int32 ``[n_blocks]`` CRC-32 of the concatenated per-block sections
+    (each ``[n_blocks, w_i]``); equal to ``binascii.crc32`` per row."""
+    sections = list(sections)
+    if _on_card(sections[0]):
+        return _crc32.crc32_blocks_sections(sections)
+    return ref.crc32_words_sections(sections)
+
+
+def bloom_build(keys: torch.Tensor, valid: torch.Tensor | None = None, *,
+                n_words: int, n_probes: int) -> torch.Tensor:
+    """int32 ``[groups, n_words]`` bitmaps of keys ``[groups, per, L]``;
+    ``valid`` is a bool ``[groups, per]`` mask (None: every slot)."""
+    if valid is None:
+        valid = torch.ones(keys.shape[:-1], dtype=torch.bool,
+                           device=keys.device)
+    if _on_card(keys):
+        return _bloom.bloom_build(keys, valid, n_words=n_words,
+                                  n_probes=n_probes)
+    return ref.bloom_build(keys, n_words=n_words, n_probes=n_probes,
+                           valid=valid)
+
+
+def prefix_encode(keys: torch.Tensor, *,
+                  restart_interval: int = 16) -> torch.Tensor:
+    if _on_card(keys):
+        return _prefix.prefix_encode(keys, restart_interval=restart_interval)
+    return ref.prefix_encode(keys, restart_interval=restart_interval)
+
+
+def prefix_decode(shared: torch.Tensor, keys_raw: torch.Tensor, *,
+                  restart_interval: int = 16) -> torch.Tensor:
+    """Plain PyTorch on either device: JAX runs this as a ``lax.scan``
+    with no Pallas kernel, so the port has none yet either."""
+    return ref.prefix_decode(shared, keys_raw,
+                             restart_interval=restart_interval)
+
+
+def sort_tuples(rows: torch.Tensor, num_keys: int | None = None
+                ) -> torch.Tensor:
+    """Stable lexicographic sort (``sort_mode="xla"``; plain PyTorch, as
+    the JAX package leaves it to XLA's sort)."""
+    return ref.sort_tuples(rows, num_keys)
+
+
+def merge_runs(rows: torch.Tensor, run_lens=None) -> torch.Tensor:
+    """Merge ``k`` sorted runs stored back to back in int32 ``[n, L]``
+    rows; ``run_lens`` gives their lengths (None: one run).  With a
+    unique index lane the result equals a stable sort of the rows."""
+    n = rows.shape[0]
+    run_lens = (n,) if run_lens is None else tuple(int(r) for r in run_lens)
+    if _on_card(rows):
+        return _merge_path.merge_runs(rows, run_lens)
+    return ref.merge_runs(rows, run_lens)

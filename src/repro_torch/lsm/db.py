@@ -1,0 +1,441 @@
+"""The LSM key-value store over the port's compaction engine (the port of
+``repro.lsm.db``, synchronous mode).
+
+    put() -> WAL append -> memtable
+                |  (memtable full)
+                v
+        flush: the engine builds the L0 image on the device, then the
+        compaction cascade runs inline (``maybe_compact``)
+
+Every flush and compaction goes through ``TorchCompactionEngine`` on the
+store's device: ``cuda`` unless the caller passes ``device="cpu"``.  The
+store writes the same SST files, WAL and manifest as ``repro.lsm.db.LsmDB``
+for the same operations, so a directory written by either opens in the
+other.  Not here yet: async mode, failpoints, repair, ``multi_get``,
+snapshots, metrics and tracing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+import time
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch.core import formats
+from repro_torch.core.formats import SSTGeometry, SSTImage
+from repro_torch.core.scheduler import (CompactionJob, CompactionScheduler,
+                                        SchedulerConfig)
+from repro_torch.lsm import memtable, sstable, wal
+from repro_torch.lsm.engine import EngineStats, TorchCompactionEngine
+from repro_torch.lsm.sstable import BlockCache, FileMeta, TableCache
+from repro_torch.lsm.version import VersionEdit, VersionSet
+
+
+@dataclasses.dataclass
+class DBConfig:
+    geom: SSTGeometry = dataclasses.field(default_factory=SSTGeometry)
+    sort_mode: str = "merge"        # phase-2 mode: "merge" | "xla"
+    #   | "cooperative" (the paper's host sort)
+    memtable_bytes: int | None = None   # None: one SST's worth
+    scheduler: SchedulerConfig = dataclasses.field(
+        default_factory=SchedulerConfig)
+    table_cache: int = 64
+    block_cache_blocks: int = 4096  # host LRU of decoded blocks (0 = off)
+    sync_wal: bool = False          # fsync every WAL append
+    auto_compact: bool = True
+
+
+@dataclasses.dataclass
+class DBStats:
+    puts: int = 0
+    write_batches: int = 0
+    batch_ops: int = 0
+    gets: int = 0
+    deletes: int = 0
+    flushes: int = 0
+    compactions: int = 0
+    trivial_moves: int = 0
+    compact_bytes_in: int = 0
+    compact_bytes_out: int = 0
+    compact_entries_in: int = 0
+    compact_entries_dropped: int = 0
+    compact_host_seconds: float = 0.0
+    compact_device_seconds: float = 0.0   # CUDA events (0.0 on the CPU)
+    compact_sort_seconds: float = 0.0     # phase-2 share of the above
+    flush_host_seconds: float = 0.0
+    bloom_negative_skips: int = 0
+    orphans_removed: int = 0
+
+
+class CompactionRecord(NamedTuple):
+    """One compaction the store ran: its input level, input file count
+    and the engine's accounting."""
+    level: int
+    inputs: int
+    stats: EngineStats
+
+
+class LsmDB:
+    def __init__(self, path: str, cfg: DBConfig | None = None, *,
+                 device=None):
+        """Open (or create) the store at ``path``.  ``device``: where
+        flushes and compactions run; None means ``cuda``, which must be
+        present (pass ``device="cpu"`` to run on the CPU)."""
+        self.path = path
+        self.cfg = cfg or DBConfig()
+        self.geom = self.cfg.geom
+        self.engine = TorchCompactionEngine(self.geom, device=device,
+                                            sort_mode=self.cfg.sort_mode)
+        os.makedirs(path, exist_ok=True)
+        self.stats = DBStats()
+        self.compactions: list[CompactionRecord] = []
+        self.versions = VersionSet(path)
+        self.versions.open()
+        self.scheduler = CompactionScheduler(self.cfg.scheduler)
+        self.scheduler.compact_pointer = dict(self.versions.compact_pointer)
+        self.block_cache = BlockCache(self.cfg.block_cache_blocks)
+        self.cache = TableCache(self.cfg.table_cache, geom=self.geom,
+                                block_cache=self.block_cache)
+        self.mem = memtable.MemTable()
+        self._memtable_limit = self.cfg.memtable_bytes or self.geom.sst_bytes
+        self._wal_path = os.path.join(path, "wal.log")
+        self._extra_wals: list[str] = []
+        self._replay_wal()
+        self._gc_orphans()
+        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+        self._closed = False
+
+    @property
+    def device(self):
+        return self.engine.device
+
+    def _replay_wal(self):
+        """Replay rotated WAL segments (an async-mode store leaves them),
+        oldest first, then the active WAL.  They stay on disk until the
+        recovered memtable flushes."""
+        segs = sorted(glob.glob(os.path.join(self.path, "wal-*.log")))
+        self._extra_wals = list(segs)
+        for p in segs + [self._wal_path]:
+            for kind, seq, key, value in wal.replay(p):
+                if kind == wal.PUT:
+                    self.mem.put(key, seq, value)
+                else:
+                    self.mem.delete(key, seq)
+                self.versions.last_seq = max(self.versions.last_seq, seq)
+
+    def _gc_orphans(self):
+        """Delete crash leftovers: stale ``*.tmp`` files and SSTs that no
+        version references (their data is in the WAL just replayed, or in
+        installed compaction outputs)."""
+        live = {fm.file_no for _, fm in self.versions.current.all_files()}
+        for name in os.listdir(self.path):
+            p = os.path.join(self.path, name)
+            if not os.path.isfile(p):
+                continue
+            stale = name.endswith(".tmp")
+            if name.endswith(".sst"):
+                try:
+                    stale = int(name[:-4]) not in live
+                except ValueError:
+                    continue
+            if stale:
+                os.remove(p)
+                self.stats.orphans_removed += 1
+
+    # ------------------------------------------------------------------
+    # writes
+    # ------------------------------------------------------------------
+
+    def _check_key(self, key: bytes):
+        if len(key) > self.geom.key_bytes:
+            raise ValueError(f"key too long ({len(key)} > "
+                             f"{self.geom.key_bytes} bytes)")
+        if key.endswith(b"\x00") or not key:
+            raise ValueError("keys must be non-empty and not end with NUL "
+                             "(fixed-width key format)")
+
+    def _check_value(self, value: bytes):
+        if len(value) > self.geom.value_bytes - 4:
+            raise ValueError(f"value too long ({len(value)} > "
+                             f"{self.geom.value_bytes - 4} bytes)")
+
+    def _check_open(self):
+        if self._closed:
+            raise IOError("database is closed")
+
+    def _next_seq(self) -> int:
+        self.versions.last_seq += 1
+        return self.versions.last_seq
+
+    def put(self, key: bytes, value: bytes):
+        self._check_key(key)
+        self._check_value(value)
+        self._check_open()
+        seq = self._next_seq()
+        self._wal.append(wal.PUT, seq, key, value)
+        self.mem.put(key, seq, value)
+        self.stats.puts += 1
+        self._maybe_flush()
+
+    def delete(self, key: bytes):
+        self._check_key(key)
+        self._check_open()
+        seq = self._next_seq()
+        self._wal.append(wal.DELETE, seq, key)
+        self.mem.delete(key, seq)
+        self.stats.deletes += 1
+        self._maybe_flush()
+
+    def write_batch(self, ops) -> int:
+        """Apply ``("put", key, value)`` / ``("delete", key)`` ops in order
+        as ONE CRC-framed WAL record: replay after a crash recovers every
+        op or none.  Returns the number of ops applied."""
+        rows = []
+        for op in ops:
+            if op[0] == "put":
+                _, key, value = op
+                self._check_key(key)
+                self._check_value(value)
+                rows.append((wal.PUT, key, value))
+            elif op[0] == "delete":
+                self._check_key(op[1])
+                rows.append((wal.DELETE, op[1], b""))
+            else:
+                raise ValueError(f"unknown batch op {op[0]!r} "
+                                 "(want 'put' or 'delete')")
+        if not rows:
+            return 0
+        self._check_open()
+        first_seq = self.versions.last_seq + 1
+        self.versions.last_seq += len(rows)
+        self._wal.append_batch(rows, first_seq)
+        for i, (kind, key, value) in enumerate(rows):
+            if kind == wal.PUT:
+                self.mem.put(key, first_seq + i, value)
+            else:
+                self.mem.delete(key, first_seq + i)
+        self.stats.write_batches += 1
+        self.stats.batch_ops += len(rows)
+        self._maybe_flush()
+        return len(rows)
+
+    def _maybe_flush(self):
+        if self.mem.approx_bytes < self._memtable_limit:
+            return
+        self.flush()
+        if self.cfg.auto_compact:
+            self.maybe_compact()
+
+    # ------------------------------------------------------------------
+    # reads
+    # ------------------------------------------------------------------
+
+    def get(self, key: bytes, opts=None) -> bytes | None:
+        """The value, or None if absent or deleted."""
+        self.stats.gets += 1
+        found, value = self.mem.get(key)
+        if found:
+            return value
+        version = self.versions.current
+        # L0: overlapping files, newest first
+        for fm in sorted(version.levels[0], key=lambda f: -f.file_no):
+            if fm.smallest <= key <= fm.largest:
+                found, value = self._table_get(fm, key, opts)
+                if found:
+                    return value
+        # deeper levels: disjoint ranges
+        for level in range(1, len(version.levels)):
+            for fm in version.levels[level]:
+                if fm.smallest <= key <= fm.largest:
+                    found, value = self._table_get(fm, key, opts)
+                    if found:
+                        return value
+                    break
+        return None
+
+    def _table_get(self, fm: FileMeta, key: bytes, opts=None):
+        found, value, pruned = self.cache.reader(fm).probe(key, opts)
+        if pruned:
+            self.stats.bloom_negative_skips += 1
+        return found, value
+
+    def scan(self, start: bytes, end: bytes, opts=None):
+        """[(key, value)] for start <= key < end: newest versions, no
+        tombstones."""
+        best: dict[bytes, tuple[int, bytes | None]] = {}
+        for k, seq, v in self.mem.sorted_entries():
+            if start <= k < end:
+                best[k] = (seq, v)
+        for _, fm in self.versions.current.all_files():
+            if fm.largest < start or fm.smallest >= end:
+                continue
+            for k, seq, v in self.cache.reader(fm).scan(start, end, opts):
+                if k not in best or best[k][0] < seq:
+                    best[k] = (seq, v)
+        return [(k, v) for k, (_, v) in sorted(best.items())
+                if v is not None]
+
+    # ------------------------------------------------------------------
+    # flush + compaction
+    # ------------------------------------------------------------------
+
+    def _pack_entries(self, entries):
+        keys = np.stack([formats.pack_key_bytes(k, self.geom.key_bytes)
+                         for k, _, _ in entries])
+        meta = np.array([formats.make_meta(s, v is not None)
+                         for _, s, v in entries], np.uint32)
+        vals = np.stack([formats.pack_value_bytes(v or b"",
+                                                  self.geom.value_bytes)
+                         for _, _, v in entries])
+        return keys, meta, vals
+
+    def flush(self):
+        """Persist the memtable as L0 SST(s) and start a fresh WAL."""
+        self._check_open()
+        if len(self.mem) == 0:
+            return
+        t0 = time.perf_counter()
+        keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
+        img = self.engine.build_image(keys, meta, vals)
+        self._install_ssts(img, level=0)
+        self.mem = memtable.MemTable()
+        self._wal.close()
+        for p in self._extra_wals + [self._wal_path]:
+            try:
+                os.remove(p)
+            except FileNotFoundError:
+                pass
+        self._extra_wals = []
+        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+        self.stats.flushes += 1
+        self.stats.flush_host_seconds += time.perf_counter() - t0
+
+    def _install_ssts(self, img: SSTImage, level: int,
+                      edit: VersionEdit | None = None) -> list[FileMeta]:
+        """Split a (possibly multi-SST) image into files of at most
+        ``blocks_per_sst`` live blocks and install them; when ``edit`` is
+        given the caller logs it."""
+        img = sstable.trim_image(img)
+        live_blocks = max(1, int((img.nvalid > 0).sum()))
+        bps = self.geom.blocks_per_sst
+        own_edit = edit is None
+        edit = edit or VersionEdit()
+        metas = []
+        per_block_bloom = img.bloom.shape[0] == img.keys.shape[0]
+        for start in range(0, live_blocks, bps):
+            stop = min(start + bps, live_blocks)
+            sub = SSTImage(
+                keys=img.keys[start:stop], meta=img.meta[start:stop],
+                vals=img.vals[start:stop], shared=img.shared[start:stop],
+                nvalid=img.nvalid[start:stop], crc=img.crc[start:stop],
+                bloom=img.bloom[start:stop] if per_block_bloom
+                else img.bloom)
+            no = self.versions.new_file_no()
+            fm = sstable.write_sst(os.path.join(self.path, f"{no:06d}.sst"),
+                                   sub, no)
+            edit.added.append((level, fm))
+            metas.append(fm)
+        if own_edit:
+            self._log_edit(edit)
+        return metas
+
+    def _log_edit(self, edit: VersionEdit):
+        """Stamp the counters and make the edit durable (the files it
+        names are already on disk)."""
+        edit.last_seq = self.versions.last_seq
+        edit.next_file_no = self.versions.next_file_no
+        self.versions.log_and_apply(edit)
+
+    def maybe_compact(self):
+        """Run compactions until no level is over its trigger (at most 16
+        jobs; one in ``paper_faithful`` mode)."""
+        if self.cfg.scheduler.paper_faithful:
+            self.compact_once()
+            return
+        for _ in range(16):
+            if not self.compact_once():
+                return
+
+    def compact_once(self) -> bool:
+        """Run the next compaction job, if one is due."""
+        self._check_open()
+        job = self.scheduler.pick(self.versions.current)
+        if job is None:
+            return False
+        self.compact_job(job)
+        return True
+
+    def _pointer_edit(self, level: int):
+        ptr = self.scheduler.compact_pointer.get(level)
+        return (level, ptr.hex()) if ptr is not None else None
+
+    @staticmethod
+    def is_trivial_move(job: CompactionJob) -> bool:
+        # single input, nothing overlapping below
+        return len(job.inputs_lo) == 1 and not job.inputs_hi and job.level > 0
+
+    def compact_job(self, job: CompactionJob):
+        if self.is_trivial_move(job):
+            fm = job.inputs_lo[0]
+            self.versions.log_and_apply(VersionEdit(
+                added=[(job.level + 1, fm)], deleted=[(job.level, fm.file_no)],
+                compact_pointer=self._pointer_edit(job.level)))
+            self.stats.trivial_moves += 1
+            return
+        out, es = self.engine.compact_paths(
+            [f.path for f in job.all_inputs], bottom_level=job.bottom_level)
+        self.apply_compaction(job, out, es)
+
+    def apply_compaction(self, job: CompactionJob, out: SSTImage,
+                         es: EngineStats):
+        """Install a compaction result: verify the CRC verdict, install the
+        outputs at ``level+1``, log one edit bundling them with the input
+        deletions, then drop the inputs."""
+        if not es.crc_ok:
+            # a corrupt input must leave the store exactly as it was
+            raise IOError("compaction input failed CRC verification; "
+                          "inputs retained")
+        edit = VersionEdit(
+            deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
+                    [(job.level + 1, f.file_no) for f in job.inputs_hi],
+            compact_pointer=self._pointer_edit(job.level))
+        self._install_ssts(out, level=job.level + 1, edit=edit)
+        self._log_edit(edit)
+        for f in job.all_inputs:
+            self.cache.drop(f.file_no)
+        s = self.stats
+        s.compactions += 1
+        s.compact_bytes_in += es.bytes_in
+        s.compact_bytes_out += es.bytes_out
+        s.compact_entries_in += es.n_input
+        s.compact_entries_dropped += es.n_dropped
+        s.compact_host_seconds += es.host_seconds
+        s.compact_device_seconds += es.device_seconds
+        s.compact_sort_seconds += es.sort_seconds
+        self.compactions.append(CompactionRecord(
+            level=job.level, inputs=len(job.all_inputs), stats=es))
+        for f in job.all_inputs:
+            try:
+                os.remove(f.path)
+            except FileNotFoundError:
+                pass
+
+    # ------------------------------------------------------------------
+
+    def close(self):
+        """Close the WAL and manifest (the memtable stays in the WAL and
+        is replayed on reopen).  A second close is a no-op."""
+        if self._closed:
+            return
+        self._closed = True
+        self.engine.close()
+        self._wal.flush()
+        self._wal.close()
+        self.versions.close()
+
+    def level_sizes(self) -> list[int]:
+        return [len(files) for files in self.versions.current.levels]

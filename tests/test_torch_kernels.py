@@ -1,0 +1,288 @@
+"""The port's kernels against the JAX package: each plain PyTorch version
+(``repro_torch.kernels.ref``, what the wrappers run on CPU tensors) is held
+bit for bit against the Pallas kernel in interpret mode, the jnp oracle in
+``repro.kernels.ref`` and, for the CRC, ``binascii.crc32``.  The Pallas
+merge does not run on this jax (``pl.Unblocked``), so the merge is held
+against ``repro.kernels.ref.merge_runs``.
+
+The CUDA kernels themselves run only on the card: see
+``test_torch_cuda.py``.
+"""
+
+import binascii
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as jformats
+from repro.kernels import bloom as jbloom
+from repro.kernels import crc32 as jcrc32
+from repro.kernels import prefix as jprefix
+from repro.kernels import ref as jref
+from repro_torch.core import formats
+from repro_torch.kernels import merge_path, ops, ref
+from repro_torch.kernels import crc32 as tcrc32
+from repro_torch.kernels import prefix as tprefix
+
+
+def t(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy -> int32 bit-pattern tensor on the CPU."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a).astype(np.uint32)).view(np.int32))
+
+
+def u(x: torch.Tensor) -> np.ndarray:
+    return x.numpy().view(np.uint32)
+
+
+def rand_words(rng, shape) -> np.ndarray:
+    return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+
+def sorted_keys(rng, n: int, lanes: int, distinct: int = 64) -> np.ndarray:
+    """Sorted keys with long shared prefixes and duplicates."""
+    k = rng.integers(0, distinct, (n, lanes)).astype(np.uint32)
+    k[:, 0] = 0x75736572
+    k[:, -1] = rng.integers(0, 2**32, n, dtype=np.uint32) >> \
+        rng.integers(0, 32, n).astype(np.uint32)
+    return k[np.lexsort(tuple(k[:, i] for i in reversed(range(lanes))))]
+
+
+def lexsorted(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(tuple(rows[:, i]
+                                 for i in reversed(range(rows.shape[1]))))]
+
+
+# ---------------------------------------------------------------------------
+# CRC-32
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_blocks,n_words", [(1, 4), (3, 16), (8, 64),
+                                              (5, 128), (17, 33)])
+def test_crc32_words_matches_binascii(n_blocks, n_words):
+    rng = np.random.default_rng(n_blocks * 1000 + n_words)
+    words = rand_words(rng, (n_blocks, n_words))
+    want = np.array([binascii.crc32(r.astype("<u4").tobytes()) & 0xFFFFFFFF
+                     for r in words], np.uint32)
+    np.testing.assert_array_equal(u(ref.crc32_words(t(words))), want)
+    np.testing.assert_array_equal(
+        np.asarray(jref.crc32_words(jnp.asarray(words))), want)
+
+
+@pytest.mark.parametrize("widths,pallas", [
+    ((1, 4, 3), True), ((16, 16), False), ((2, 30, 12, 20), False),
+    ((1, 16, 4, 32, 4), True)])
+def test_crc32_sections_match_pallas_and_ref(widths, pallas):
+    rng = np.random.default_rng(sum(widths))
+    parts = [rand_words(rng, (6, w)) for w in widths]
+    got = u(ops.crc32_sections([t(p) for p in parts]))
+    concat = np.concatenate(parts, axis=1)
+    want = np.array([binascii.crc32(r.astype("<u4").tobytes()) & 0xFFFFFFFF
+                     for r in concat], np.uint32)
+    np.testing.assert_array_equal(got, want)
+    oracle = np.asarray(jax.jit(jref.crc32_words_sections)(
+        [jnp.asarray(p) for p in parts]))
+    np.testing.assert_array_equal(oracle, want)
+    if pallas:   # interpret mode is slow: two of the width sets
+        np.testing.assert_array_equal(np.asarray(
+            jcrc32.crc32_blocks_sections(
+                tuple(jnp.asarray(p) for p in parts), interpret=True)), want)
+
+
+def test_crc32_detects_a_flipped_bit():
+    rng = np.random.default_rng(3)
+    words = rand_words(rng, (4, 40))
+    good = u(ref.crc32_words(t(words)))
+    words[2, 17] ^= np.uint32(1 << 9)
+    bad = u(ref.crc32_words(t(words)))
+    assert (good != bad).tolist() == [False, False, True, False]
+
+
+# ---------------------------------------------------------------------------
+# shared-prefix encode / decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,lanes,restart", [(16, 4, 16), (64, 4, 16),
+                                             (96, 2, 8), (256, 4, 16)])
+def test_prefix_encode_matches_pallas_and_ref(n, lanes, restart):
+    rng = np.random.default_rng(n + lanes)
+    keys = sorted_keys(rng, n, lanes)
+    got = ops.prefix_encode(t(keys), restart_interval=restart).numpy()
+    pallas = np.asarray(jprefix.prefix_encode(
+        jnp.asarray(keys), restart_interval=restart, interpret=True))
+    oracle = np.asarray(jref.prefix_encode(jnp.asarray(keys),
+                                           restart_interval=restart))
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, oracle)
+    assert got.dtype == np.int32 and got[::restart].max() == 0
+
+
+@pytest.mark.parametrize("n,lanes", [(32, 4), (128, 4), (64, 2)])
+def test_prefix_decode_matches_ref(n, lanes):
+    rng = np.random.default_rng(7 * n + lanes)
+    keys = sorted_keys(rng, n, lanes)
+    shared = np.asarray(jref.prefix_encode(jnp.asarray(keys),
+                                           restart_interval=16))
+    raw = np.asarray(jformats.zero_prefix_lanes(jnp.asarray(keys),
+                                                jnp.asarray(shared)))
+    # garbage in the shared prefix bytes must not leak through
+    raw_dirty = raw | (rand_words(rng, raw.shape) &
+                       ~np.asarray(jformats.zero_prefix_lanes(
+                           jnp.full(raw.shape, 0xFFFFFFFF, jnp.uint32),
+                           jnp.asarray(shared))))
+    got = u(ops.prefix_decode(torch.from_numpy(shared.copy()), t(raw_dirty),
+                              restart_interval=16))
+    want = np.asarray(jax.jit(functools.partial(
+        jref.prefix_decode, restart_interval=16))(
+            jnp.asarray(shared), jnp.asarray(raw_dirty)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, keys)
+
+
+def test_zero_prefix_lanes_and_bytes_match_jax():
+    rng = np.random.default_rng(0)
+    keys = rand_words(rng, (64, 4))
+    shared = rng.integers(0, 17, 64).astype(np.int32)
+    got = u(formats.zero_prefix_lanes(t(keys), torch.from_numpy(shared)))
+    want = np.asarray(jformats.zero_prefix_lanes(jnp.asarray(keys),
+                                                 jnp.asarray(shared)))
+    np.testing.assert_array_equal(got, want)
+    kb = ref.u32_to_bytes(t(keys))
+    np.testing.assert_array_equal(
+        kb.numpy(), np.asarray(jref.u32_to_bytes(jnp.asarray(keys))))
+    np.testing.assert_array_equal(u(ref.bytes_to_u32(kb)), keys)
+
+
+# ---------------------------------------------------------------------------
+# bloom build
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("groups,per,lanes,n_words,probes,p_valid", [
+    (4, 16, 4, 5, 6, 1.0), (7, 16, 4, 5, 6, 0.7), (2, 256, 4, 80, 6, 0.9),
+    (1, 512, 2, 160, 3, 0.5), (3, 16, 4, 2, 1, 0.0)])
+def test_bloom_build_matches_pallas_and_ref(groups, per, lanes, n_words,
+                                            probes, p_valid):
+    rng = np.random.default_rng(groups * per + probes)
+    keys = rand_words(rng, (groups, per, lanes))
+    valid = rng.random((groups, per)) < p_valid
+    got = u(ops.bloom_build(t(keys), torch.from_numpy(valid),
+                            n_words=n_words, n_probes=probes))
+    pallas = np.asarray(jbloom.bloom_build(
+        jnp.asarray(keys), jnp.asarray(valid.astype(np.uint32)),
+        n_words=n_words, n_probes=probes, interpret=True))
+    oracle = np.asarray(jref.bloom_build(
+        jnp.asarray(keys), n_words=n_words, n_probes=probes,
+        valid=jnp.asarray(valid)))
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, oracle)
+
+
+def test_bloom_hashes_match_ref():
+    rng = np.random.default_rng(11)
+    keys = rand_words(rng, (3, 50, 4))
+    h1, h2 = ref.bloom_hashes(t(keys))
+    j1, j2 = jref.bloom_hashes(jnp.asarray(keys))
+    np.testing.assert_array_equal(h1.numpy(), np.asarray(j1).astype(np.int64))
+    np.testing.assert_array_equal(h2.numpy(), np.asarray(j2).astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# run-aware merge and tuple sort
+# ---------------------------------------------------------------------------
+
+
+def _runs(rng, lens, lanes=6, distinct=4, pad_runs=()):
+    """Sorted runs back to back; runs whose index is in ``pad_runs`` are
+    all-ones sentinel rows.  Keys repeat across and within runs."""
+    parts = []
+    for i, n in enumerate(lens):
+        if i in pad_runs:
+            parts.append(np.full((n, lanes), 0xFFFFFFFF, np.uint32))
+        else:
+            r = rng.integers(0, distinct, (n, lanes)).astype(np.uint32)
+            r[:, 1] = rng.integers(0, 2**32, n, dtype=np.uint32) | \
+                (np.uint32(1) << np.uint32(31))   # above int32 range
+            parts.append(lexsorted(r))
+    return np.concatenate(parts) if parts else np.zeros((0, lanes),
+                                                        np.uint32)
+
+
+@pytest.mark.parametrize("lens,pad_runs", [
+    ((40,), ()),                      # k = 1: passthrough
+    ((32, 32), ()),
+    ((10, 0, 25, 7), ()),             # zero-length run
+    ((16, 16, 16, 16, 48), (4,)),     # trailing padding run
+    ((20, 20), (0, 1)),               # all padding
+    ((5, 9, 13, 2, 30, 1), ()),
+])
+def test_merge_runs_matches_ref(lens, pad_runs):
+    rng = np.random.default_rng(sum(lens) + len(lens))
+    rows = _runs(rng, lens, pad_runs=pad_runs)
+    got = u(ops.merge_runs(t(rows), lens))
+    want = np.asarray(jax.jit(functools.partial(
+        jref.merge_runs, run_lens=tuple(lens)))(jnp.asarray(rows)))
+    np.testing.assert_array_equal(got, want)
+    assert merge_path.rows_sorted(got)
+
+
+def test_merge_runs_with_index_lane_equals_stable_sort():
+    rng = np.random.default_rng(5)
+    lens = (30, 17, 50)
+    rows = _runs(rng, lens, lanes=5)
+    rows = np.concatenate(
+        [rows, np.arange(rows.shape[0], dtype=np.uint32)[:, None]], axis=1)
+    got = u(ops.merge_runs(t(rows), lens))
+    np.testing.assert_array_equal(got, u(ops.sort_tuples(t(rows))))
+    np.testing.assert_array_equal(got, lexsorted(rows))
+
+
+def test_merge_runs_rejects_bad_run_lens():
+    with pytest.raises(ValueError):
+        ops.merge_runs(t(np.zeros((10, 6), np.uint32)), (4, 4))
+
+
+def test_assert_runs_sorted():
+    rows = np.array([[1, 2], [1, 3], [0, 9], [5, 0]], np.uint32)
+    merge_path.assert_runs_sorted(rows, (2, 2))
+    with pytest.raises(AssertionError):
+        merge_path.assert_runs_sorted(rows, (3, 1))
+
+
+@pytest.mark.parametrize("num_keys", [None, 2, 6])
+def test_sort_tuples_matches_ref(num_keys):
+    rng = np.random.default_rng(9)
+    rows = rng.integers(0, 3, (200, 6)).astype(np.uint32)
+    rows[:, 2] = rng.integers(0, 2**32, 200, dtype=np.uint32)
+    got = u(ops.sort_tuples(t(rows), num_keys))
+    want = np.asarray(jref.sort_tuples(jnp.asarray(rows),
+                                       num_keys or rows.shape[1]))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    before = ops.launch_counts()
+    rng = np.random.default_rng(1)
+    ops.crc32_sections([t(rand_words(rng, (2, 8)))])
+    ops.prefix_encode(t(sorted_keys(rng, 16, 4)))
+    ops.bloom_build(t(rand_words(rng, (2, 16, 4))), n_words=5, n_probes=6)
+    ops.merge_runs(t(_runs(rng, (8, 8))), (8, 8))
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tcrc32.crc32_blocks(torch.zeros((2, 4), dtype=torch.int32)),
+    lambda: tprefix.prefix_encode(torch.zeros((16, 4), dtype=torch.int32)),
+    lambda: merge_path.merge_runs(torch.zeros((4, 6), dtype=torch.int32),
+                                  (2, 2)),
+], ids=["crc32", "prefix_encode", "merge_runs"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """A kernel wrapper launches or raises: it never computes on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
