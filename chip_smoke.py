@@ -7,13 +7,17 @@ Phases, any fault exits non-zero:
 
 1. identify the card and build the CUDA kernels from ``src/repro_torch``;
 2. hold each kernel against its plain PyTorch version at the shapes of the
-   store's main path, bit for bit, and time both (CUDA events);
+   store's main paths, bit for bit, and time both (CUPTI device time and
+   CUDA events around one call);
 3. drive the store (``repro_torch.lsm.db.LsmDB``) at the paper's geometry:
-   a seeded bulk load, a YCSB-A mix, deletes, compactions, reads checked
-   against a dict of acknowledged writes, close, reopen, and the reads
-   again; every kernel must have launched during this phase;
+   a seeded bulk load, a YCSB-A mix, deletes, compactions, reads and
+   batched ``multi_get``s (one through a snapshot) checked against the
+   ``get`` loop and a dict of acknowledged writes, close, reopen (cold
+   block cache), and the reads again; every kernel of the write and read
+   paths must have launched during this phase;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
-   and on ``cpu``: the output images must be byte-identical.
+   (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
+   ``cpu``: the output images must be byte-identical.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -41,7 +45,7 @@ from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.lsm import sstable  # noqa: E402
+from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
 
@@ -70,7 +74,27 @@ KERNELS = {
     "bloom_build": ("bloom_build", "bloom_build",
                     "src/repro_torch/kernels/csrc/bloom.cu",
                     "src/repro/kernels/bloom.py:25"),
+    "bloom_multi_probe": ("bloom_multi_probe", "bloom_multi_probe/256",
+                          "src/repro_torch/kernels/csrc/bloom.cu",
+                          "src/repro/kernels/bloom.py:138"),
+    "lookup_blocks": ("lookup_blocks", "lookup_blocks/256",
+                      "src/repro_torch/kernels/csrc/lookup.cu",
+                      "src/repro/kernels/lookup.py:48"),
+    "bloom_query": ("bloom_query", "bloom_query",
+                    "src/repro_torch/kernels/csrc/bloom.cu",
+                    "src/repro/kernels/bloom.py:83"),
+    "bitonic_sort": ("bitonic_sort", "bitonic_sort/65536",
+                     "src/repro_torch/kernels/csrc/bitonic.cu",
+                     "src/repro/kernels/bitonic_sort.py:55"),
 }
+# kernels of the write path (flush, compaction) and of multi_get, which
+# phase 3 drives; the bitonic sort runs in phase 4 (sort_mode="device"),
+# and no path calls bloom_query (as in the JAX package)
+STORE_PATH = ("crc32_sections", "merge_pair", "prefix_encode",
+              "bloom_build", "bloom_multi_probe", "lookup_blocks")
+# why each kernel has no library_ms
+NO_LIBRARY = "no single PyTorch call computes it"
+MULTI_GET_BATCH = 256
 
 
 def log(*a):
@@ -212,19 +236,135 @@ def kernel_cases(rng, dev):
     return cases, sections
 
 
+def probes_evaluated(filters: torch.Tensor, keys: torch.Tensor,
+                     n_probes: int) -> int:
+    """Probes that a test stopping at the first zero bit evaluates, summed
+    over keys ``[G, Q, L]`` against filters ``[G, W]``: the probed words
+    these inputs need."""
+    h1, h2 = ref.bloom_hashes(keys)
+    m = filters.shape[-1] * 32
+    fw = ref.u32(filters)
+    alive = torch.ones(h1.shape, dtype=torch.bool, device=keys.device)
+    count = torch.zeros(h1.shape, dtype=torch.int64, device=keys.device)
+    for i in range(n_probes):
+        count += alive
+        pos = ((h1 + i * h2) & ref.MASK32) % m
+        word = torch.gather(fw, 1, pos >> 5)
+        alive &= ((word >> (pos & 31)) & 1) == 1
+    return int(count.sum())
+
+
+def read_kernel_cases(rng, dev):
+    """The read path's kernels at a wave of 256 candidates of the paper
+    geometry (K = 16 rows a block, L = 4, Vw = 68, 5 filter words and 6
+    probes a block) -- the largest wave that ``multi_get``'s 256-key
+    batches give, one candidate a key -- and again at 1,024 candidates;
+    ``bloom_query`` at 1,024 groups x 256 queries; the bitonic sort of
+    65,536 and 262,144 phase-2 rows.  The probe and lookup bounds count
+    the bytes these inputs need, not the stacked rows: per candidate its
+    key lanes and the probed words (the probes until the first zero bit),
+    or its key lanes, the rows a binary search reads (log2 K + 1), the
+    meta word and the value row where found.  The sort's bound counts the
+    rows read once and written once, and the n log2 n row comparisons a
+    sort needs (not the network's larger count)."""
+    g = PAPER_GEOM
+    K, L, Vw = g.block_kvs, g.key_lanes, g.value_words
+    nw, probes = g.bloom_words(K), g.bloom_probes
+    hash_ops = L * 6 + 12
+    G = 1024
+    all_keys = as_i32(sorted_keys(rng, G * K, L).reshape(G, K, L), dev)
+    all_filters = ref.bloom_build(all_keys, n_words=nw, n_probes=probes)
+    cases = []
+    for C in (MULTI_GET_BATCH, 1024):
+        block_keys, filters = all_keys[:C], all_filters[:C]
+        present = rng.random(C) < 0.5
+        pick = block_keys[torch.arange(C, device=dev),
+                          torch.from_numpy(rng.integers(0, K, C)).to(dev)]
+        q = torch.where(torch.from_numpy(present).to(dev)[:, None], pick,
+                        as_i32(sorted_keys(rng, C, L), dev))
+        evaluated = probes_evaluated(filters, q[:, None], probes)
+        cases.append((
+            f"bloom_multi_probe/{C}",
+            lambda f=filters, q=q: ops.bloom_multi_probe(f, q,
+                                                         n_probes=probes),
+            lambda f=filters, q=q: ref.bloom_multi_probe(f, q,
+                                                         n_probes=probes),
+            C * L * 4 + evaluated * 4 + C, C * hash_ops + evaluated * 5))
+
+        # decoded blocks under the sentinel contract: nvalid < K in some,
+        # 0 in one in sixteen; queries present (70 %) or absent
+        nvalid_np = np.where(rng.random(C) < 0.2, rng.integers(1, K, C),
+                             K).astype(np.int32)
+        nvalid_np[rng.random(C) < 1 / 16] = 0
+        keys_np = block_keys.cpu().numpy().view(np.uint32).copy()
+        for i in range(C):
+            keys_np[i, nvalid_np[i]:] = 0xFFFFFFFF
+        lk = as_i32(keys_np, dev)
+        meta = as_i32(rng.integers(0, 2**32, (C, K), dtype=np.uint32), dev)
+        vals = as_i32(rng.integers(0, 2**32, (C, K, Vw), dtype=np.uint32),
+                      dev)
+        nvalid = torch.from_numpy(nvalid_np).to(dev)
+        lq = torch.where(
+            torch.from_numpy(rng.random(C) < 0.7).to(dev)[:, None],
+            block_keys[:, 0], as_i32(sorted_keys(rng, C, L), dev))
+        args = (lk, meta, vals, nvalid, lq)
+        n_found = int(ref.lookup_blocks(*args)[0].sum())
+        steps = K.bit_length()
+        cases.append((
+            f"lookup_blocks/{C}", lambda a=args: ops.lookup_blocks(*a),
+            lambda a=args: ref.lookup_blocks(*a),
+            C * (L * 4 + steps * L * 4 + 4) + n_found * (4 + Vw * 4) +
+            C * (1 + 4 + Vw * 4), C * steps * 2 * L + n_found * Vw))
+
+    Q = 256
+    gq = as_i32(rng.integers(0, 2**32, (G, Q, L), dtype=np.uint32), dev)
+    gq[:, :K] = all_keys
+    evaluated = probes_evaluated(all_filters, gq, probes)
+    cases.append(("bloom_query",
+                  lambda: ops.bloom_query(all_filters, gq, n_probes=probes),
+                  lambda: ref.bloom_query(all_filters, gq, n_probes=probes),
+                  G * nw * 4 + G * Q * (L * 4 + 1),
+                  G * Q * hash_ops + evaluated * 5))
+
+    for n in (65_536, 262_144):
+        rows = torch.from_numpy(tuple_runs(rng, [n], 0, L).view(np.int32))
+        rows = rows[torch.from_numpy(rng.permutation(n))].contiguous().to(dev)
+        # n log2 n row comparisons of up to L + 2 lanes, two operations a
+        # lane
+        cases.append((f"bitonic_sort/{n}",
+                      lambda r=rows: ops.bitonic_sort(r),
+                      lambda r=rows: ref.sort_tuples(r),
+                      2 * n * (L + 2) * 4,
+                      n * (n.bit_length() - 1) * 2 * (L + 2)))
+    return cases
+
+
+def compare_outputs(name: str, got, want) -> tuple[int, str]:
+    """Raise unless a kernel's output (a tensor or a tuple of them) equals
+    its plain version's bit for bit; returns the max abs error over the
+    unsigned words and the output shapes."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((ref.u32(a) - ref.u32(b)).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
+    if len(got) != len(want) or \
+            not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    return err, " ".join(str(tuple(a.shape)) for a in got)
+
+
 def check_kernels(dev, card: str) -> dict:
     """Phase 2.  Returns per-kernel results keyed by kernel name; ``card``
     (name, power limit) goes beside every time."""
     rng = np.random.default_rng(2020)
     cases, sections = kernel_cases(rng, dev)
+    cases += read_kernel_cases(rng, dev)
     results = {}
     for name, kern, plain, nbytes, nops in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = int((ref.u32(got) - ref.u32(want)).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel differs from its plain "
-                                 f"version (max abs err {err})")
+        err, shapes = compare_outputs(name, got, want)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / SCALAR_OPS_PER_S * 1e3
         res = dict(max_abs_err=err, ms=device_ms(kern, 50),
@@ -233,12 +373,15 @@ def check_kernels(dev, card: str) -> dict:
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=None, call_ms=call_ms(kern, 50),
                    plain_call_ms=call_ms(plain, 5))
-        log(f"  {name:22s} shape {tuple(got.shape)}: bit-identical; device "
+        log(f"  {name:22s} shape {shapes}: bit-identical; device "
             f"time kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
             f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); one "
             f"call {res['call_ms']:.4f} ms, plain {res['plain_call_ms']:.4f}"
             f" ms [{card}]")
         results[name] = res
+    log(f"  library_ms: none for every kernel: {NO_LIBRARY} (a sectioned "
+        "CRC, a lexicographic 6-lane merge or sort, a prefix count, a bloom"
+        " build or 6-probe test, a lower-bound search with a gather)")
     # the CRC chain anchored to binascii on sampled rows
     crc = ops.crc32_sections(sections).cpu().numpy().view(np.uint32)
     host = [s.cpu().numpy().view(np.uint32) for s in sections]
@@ -263,13 +406,87 @@ def zipf_ranks(rng, n: int, size: int, theta: float = 0.99) -> np.ndarray:
     return rng.permutation(n)[ranks]
 
 
+def multi_get_batches(rng, keys: list, deleted: list, n_batches: int
+                      ) -> list[list[bytes]]:
+    """Batches of ``MULTI_GET_BATCH`` keys: zipfian (0.99) over the loaded
+    keys with about 10 % never written (inside the files' key ranges), then
+    the deleted keys."""
+    n_never = MULTI_GET_BATCH // 10
+    hot = zipf_ranks(rng, len(keys), n_batches * (MULTI_GET_BATCH - n_never))
+    batches = []
+    for b in range(n_batches):
+        ks = [keys[i] for i in hot[b * (MULTI_GET_BATCH - n_never):
+                                   (b + 1) * (MULTI_GET_BATCH - n_never)]]
+        ks += [keys[i][:-1] + b"x" for i in
+               rng.choice(len(keys), n_never, replace=False)]
+        rng.shuffle(ks)
+        batches.append(ks)
+    for i in range(0, len(deleted), MULTI_GET_BATCH):
+        batches.append(deleted[i:i + MULTI_GET_BATCH])
+    return batches
+
+
+def check_multi_gets(store, batches, model: dict, when: str) -> dict:
+    """Every batch through ``multi_get`` must equal the ``get`` loop and
+    the acknowledged writes; the first batch also through a snapshot.
+    Returns the batch latencies (host clock, us) and the store's counts
+    of waves, staged bytes and device-stage seconds over the pass (the
+    ``get`` loop adds none)."""
+    lat, pruned, n_keys = [], 0, 0
+    st = store.stats
+    start = (st.multi_get_waves, st.multi_get_staged_bytes,
+             st.multi_get_stage_seconds)
+    for b in batches:
+        skips = st.bloom_negative_skips
+        c0 = time.perf_counter_ns()
+        got = store.multi_get(b)
+        lat.append((time.perf_counter_ns() - c0) / 1e3)
+        pruned += st.bloom_negative_skips - skips
+        n_keys += len(b)
+        if got != [model.get(k) for k in b]:
+            raise AssertionError(f"{when}: multi_get disagrees with the "
+                                 "acknowledged writes")
+        if got != [store.get(k) for k in b]:
+            raise AssertionError(f"{when}: multi_get disagrees with get")
+    so = ReadOptions(snapshot=store.snapshot())
+    b = batches[0]
+    got = store.multi_get(b, so)
+    if got != [store.get(k, so) for k in b] or \
+            got != [model.get(k) for k in b]:
+        raise AssertionError(f"{when}: snapshot multi_get disagrees")
+    return dict(lat_us=lat, keys=n_keys, pruned=pruned,
+                waves=st.multi_get_waves - start[0],
+                staged_bytes=st.multi_get_staged_bytes - start[1],
+                stage_s=st.multi_get_stage_seconds - start[2])
+
+
+def multi_get_line(when: str, m: dict) -> str:
+    """The phase-3 report of one pass of ``check_multi_gets``."""
+    lat = m["lat_us"]
+    p50, p99, p999 = (float(np.percentile(lat, q)) for q in (50, 99, 99.9))
+    total_s = sum(lat) / 1e6
+    return (f"[3] multi_get ({when} block cache): {len(lat)} batches of <= "
+            f"{MULTI_GET_BATCH} keys equal the get loop and the acknowledged"
+            f" writes (and one batch through a snapshot); latency per batch "
+            f"p50 {p50:.1f} us, p99 {p99:.1f} us, p99.9 {p999:.1f} us (host "
+            f"clock); {m['keys'] / total_s:.0f} keys/s; "
+            f"{m['waves'] / (len(lat) + 1):.2f} waves a batch; "
+            f"bloom_negative_skips +{m['pruned']} (candidates pruned by "
+            f"the bloom probe); device "
+            f"stages (stack, copy over, kernel, copy back) "
+            f"{m['stage_s'] * 1e3:.1f} ms for {m['staged_bytes']} staged "
+            f"bytes = {m['stage_s'] / total_s:.1%} of multi_get time")
+
+
 def run_store(path: str, *, device, geom: SSTGeometry,
               sched: SchedulerConfig, records: int, operations: int,
               deletes: int, value_size: int, batch: int, sample: int,
-              scan_keys: int, keep_dir: str, seed: int = 7) -> dict:
-    """Phase 3: load, YCSB-A, deletes, compaction, checked reads, close,
-    reopen, checked reads.  The first L0->L1 job's input files are copied
-    to ``keep_dir`` for phase 4.  Returns the counts it saw."""
+              scan_keys: int, mg_batches: int, keep_dir: str,
+              seed: int = 7) -> dict:
+    """Phase 3: load, YCSB-A, deletes, compaction, checked reads and
+    ``multi_get`` batches, close, reopen, the same checks again.  The first
+    L0->L1 job's input files are copied to ``keep_dir`` for phase 4.
+    Returns the counts it saw."""
     rng = np.random.default_rng(seed)
     cfg = DBConfig(geom=geom, scheduler=sched)
     keys = [b"user%012d" % i for i in range(records)]
@@ -332,6 +549,7 @@ def run_store(path: str, *, device, geom: SSTGeometry,
     lo = int(rng.integers(0, records - scan_keys))
     start, end = keys[lo], keys[lo + scan_keys]
     want_scan = sorted((k, v) for k, v in model.items() if start <= k < end)
+    batches = multi_get_batches(rng, keys, deleted, mg_batches)
 
     def check_reads(store, when):
         for k in probe + deleted:
@@ -341,14 +559,16 @@ def run_store(path: str, *, device, geom: SSTGeometry,
             raise AssertionError(f"{when}: scan disagrees")
 
     check_reads(db, "before reopen")
-    counts = ops.launch_counts()
+    mg = {"warm": check_multi_gets(db, batches, model, "before reopen")}
     stats = db.stats
     jobs = list(db.compactions)
     levels = db.level_sizes()
     db.close()
-    db = LsmDB(path, cfg, device=device)
+    db = LsmDB(path, cfg, device=device)   # cold block cache
+    mg["cold"] = check_multi_gets(db, batches, model, "after reopen")
     check_reads(db, "after reopen")
     db.close()
+    counts = ops.launch_counts()
 
     l0 = [r for r in jobs if r.level == 0]
     l1 = [r for r in jobs if r.level == 1]
@@ -366,7 +586,7 @@ def run_store(path: str, *, device, geom: SSTGeometry,
         dropped=stats.compact_entries_dropped,
         latency_us={op: [float(np.percentile(v, q)) for q in (50, 99, 99.9)]
                     for op, v in lat.items()},
-        kept=kept)
+        multi_get=mg, kept=kept)
 
 
 # ---------------------------------------------------------------------------
@@ -374,18 +594,23 @@ def run_store(path: str, *, device, geom: SSTGeometry,
 # ---------------------------------------------------------------------------
 
 
-def compare_job(kept: dict, geom: SSTGeometry, device) -> int:
-    """Run the kept job through the engine on ``device`` and on the CPU;
-    raise unless the images are byte-identical.  Returns live rows."""
+def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
+    """Run the kept job through the engine on ``device`` with
+    ``sort_mode="merge"`` and ``"device"`` (the bitonic sort), and on the
+    CPU; raise unless the merge images are byte-identical across devices
+    and the device-sort image (trimmed as ``write_sst`` trims it: the two
+    modes pad the job differently) equals the merge one.  Returns the live
+    rows and the launch counts of the device-sort run."""
     images = [sstable.read_sst(p) for p in kept["paths"]]
-    outs = []
-    for dev in (device, "cpu"):
-        eng = TorchCompactionEngine(geom, device=dev)
+
+    def run(dev, sort_mode):
+        eng = TorchCompactionEngine(geom, device=dev, sort_mode=sort_mode)
         out, es = eng.compact(images, bottom_level=kept["bottom_level"])
         if not es.crc_ok:
-            raise AssertionError(f"{dev}: kept job failed CRC")
-        outs.append((out, es))
-    (a, sa), (b, sb) = outs
+            raise AssertionError(f"{dev} {sort_mode}: kept job failed CRC")
+        return out, es
+
+    (a, sa), (b, sb) = run(device, "merge"), run("cpu", "merge")
     for name, x, y in zip(formats.SSTImage._fields, a, b):
         if x.dtype != y.dtype or x.shape != y.shape or \
                 x.tobytes() != y.tobytes():
@@ -393,7 +618,18 @@ def compare_job(kept: dict, geom: SSTGeometry, device) -> int:
                                  f"{device} vs cpu")
     if (sa.n_input, sa.n_live) != (sb.n_input, sb.n_live):
         raise AssertionError("job stats differ between devices")
-    return sa.n_live
+    ops.reset_launch_counts()
+    c, sc = run(device, "device")
+    launches = ops.launch_counts()
+    for name, x, y in zip(formats.SSTImage._fields, sstable.trim_image(c),
+                          sstable.trim_image(a)):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            raise AssertionError(f"job output {name} differs: sort_mode "
+                                 "device vs merge")
+    if (sc.n_input, sc.n_live) != (sa.n_input, sa.n_live):
+        raise AssertionError("job stats differ between sort modes")
+    return sa.n_live, launches
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +660,8 @@ def main() -> int:
         if line.startswith("==") or "registers" in line or "stack" in line:
             log(f"    {line.strip()}")
 
-    log("[2] kernels against their plain versions (65,536-row job shapes)")
+    log("[2] kernels against their plain versions (65,536-row job shapes, "
+        "256- and 1,024-candidate read waves)")
     checks = check_kernels(dev, card)
 
     log("[3] store at the paper geometry")
@@ -437,7 +674,7 @@ def main() -> int:
                        sched=PAPER_SCHED, records=330_000,
                        operations=20_000, deletes=2_000, value_size=256,
                        batch=1_000, sample=20_000, scan_keys=5_000,
-                       keep_dir=os.path.join(work, "job"))
+                       mg_batches=32, keep_dir=os.path.join(work, "job"))
         log(f"[3] load {st['load_s']:.1f} s, ycsb+deletes+compact "
             f"{st['ops_s']:.1f} s; {st['flushes']} flushes, "
             f"{st['compactions']} compactions ({st['l0_jobs']} L0->L1, each "
@@ -451,37 +688,49 @@ def main() -> int:
             log(f"[3] {op} latency p50 {p50:.1f} us, p99 {p99:.1f} us, "
                 f"p99.9 {p999:.1f} us (host clock)")
         log(f"[3] {st['checked']} reads and a {st['scan_rows']}-row scan "
-            f"agree before and after reopen; launches {st['launches']}")
+            f"agree before and after reopen")
+        for when, m in st["multi_get"].items():
+            log(multi_get_line(when, m))
+        log(f"[3] launches {st['launches']}")
         if st["l0_jobs"] < 4 or st["l0_min_inputs"] < 4:
             raise AssertionError("expected >= 4 L0->L1 compactions of >= 4 "
                                  "inputs each")
         if st["l1_jobs"] < 1:
             raise AssertionError("expected >= 1 L1->L2 compaction")
-        idle = [k for k, n in st["launches"].items() if n == 0]
+        idle = [k for k in STORE_PATH if st["launches"][k] == 0]
         if idle:
-            raise AssertionError(f"kernels not launched on the main path: "
-                                 f"{idle}")
+            raise AssertionError(f"kernels not launched on the store's "
+                                 f"paths: {idle}")
 
-        log("[4] one real L0->L1 job on cuda and on cpu")
-        live = compare_job(st["kept"], PAPER_GEOM, dev)
+        log("[4] one real L0->L1 job on cuda (merge and device sort) and on "
+            "cpu")
+        live, job_launches = compare_job(st["kept"], PAPER_GEOM, dev)
         log(f"[4] {len(st['kept']['paths'])} input SSTs -> {live} live "
-            "entries: output images byte-identical")
+            "entries: output images byte-identical (merge cuda = cpu; "
+            f"device sort = merge); device-sort launches {job_launches}")
+        if job_launches["bitonic_sort"] == 0:
+            raise AssertionError("bitonic_sort not launched by the "
+                                 'sort_mode="device" job')
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    path_launches = dict(st["launches"],
+                         bitonic_sort=job_launches["bitonic_sort"])
     kernels = []
     for name, (entry, case, source, replaces) in KERNELS.items():
         r = checks[case]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=st["launches"][entry], max_abs_err=r["max_abs_err"],
+            launches=path_launches[entry], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], plain_call_ms=r["plain_call_ms"]))
-    big = checks["merge_runs/262144"]
-    log(f"merge_runs at 262,144 rows: device time kernel {big['ms']:.4f} "
-        f"ms, plain {big['plain_ms']:.4f} ms, bound {big['bound_ms']:.4f} ms;"
-        f" one call {big['call_ms']:.4f} ms")
+    for case in ("merge_runs/262144", "bitonic_sort/262144",
+                 "bloom_multi_probe/1024", "lookup_blocks/1024"):
+        big = checks[case]
+        log(f"{case}: device time kernel {big['ms']:.4f} ms, plain "
+            f"{big['plain_ms']:.4f} ms, bound {big['bound_ms']:.4f} ms; one "
+            f"call {big['call_ms']:.4f} ms")
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

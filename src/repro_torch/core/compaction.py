@@ -6,8 +6,9 @@ paper's kernels, here the port's CUDA kernels (``kernels.ops``):
 * phase 1 ``unpack``     -> CRC verify (``crc32_sections``) + prefix restore
 * phase 2 ``sort``       -> ``<K, ~meta, V_offset>`` tuples merged run by
                             run (``merge_runs``, the default), or re-sorted
-                            (``xla``: a stable torch sort; ``cooperative``:
-                            a host sort)
+                            (``device``: ``bitonic_sort``; ``xla``: a
+                            stable torch sort; ``cooperative``: a host
+                            sort)
 * phase 3 ``shared_key`` -> ``prefix_encode`` on the survivor keys
           ``encode``     -> value gather + CRC
           ``filter``     -> ``bloom_build``
@@ -92,6 +93,7 @@ def cooperative_sort(rows: torch.Tensor) -> torch.Tensor:
 # mode -> (rows, run_lens) -> sorted rows
 SORTERS = {
     "merge": lambda rows, run_lens: ops.merge_runs(rows, run_lens),
+    "device": lambda rows, run_lens: ops.bitonic_sort(rows),
     "xla": lambda rows, run_lens: ops.sort_tuples(rows),
     "cooperative": lambda rows, run_lens: cooperative_sort(rows),
 }
@@ -101,8 +103,7 @@ def sort_phase(rows: torch.Tensor, *, sort_mode: str,
                run_lens: tuple[int, ...] | None = None) -> torch.Tensor:
     """Order the phase-2 tuples.  ``"merge"`` merges the sorted runs that
     ``run_lens`` (entries per input SST) delimits, and requires it; the
-    other modes re-sort everything.  (``"device"``, the bitonic sort,
-    waits for its kernel.)"""
+    other modes re-sort everything."""
     if sort_mode not in SORTERS:
         raise ValueError(f"unknown sort_mode {sort_mode!r}")
     if sort_mode == "merge" and run_lens is None:

@@ -28,7 +28,7 @@ class CompactionExecutor:
     every job."""
     geom: SSTGeometry
     device: object = None
-    sort_mode: str = "merge"       # "merge" | "xla" | "cooperative"
+    sort_mode: str = "merge"  # "merge" | "device" | "xla" | "cooperative"
     debug_check_runs: bool = False
 
     def __post_init__(self):

@@ -27,7 +27,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("crc32.cu", "merge_path.cu", "prefix.cu", "bloom.cu")
+SOURCES = ("crc32.cu", "merge_path.cu", "prefix.cu", "bloom.cu", "lookup.cu",
+           "bitonic.cu")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -42,6 +43,10 @@ SIGNATURES = {
     "merge_pair": (_P, _LL, _P, _LL, _P, _I, _P),
     "prefix_encode": (_P, _LL, _I, _I, _P, _P),
     "bloom_build": (_P, _P, _LL, _I, _I, _I, _I, _P, _P),
+    "bloom_multi_probe": (_P, _P, _LL, _I, _I, _I, _P, _P),
+    "bloom_query": (_P, _P, _LL, _LL, _I, _I, _I, _P, _P),
+    "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
+    "bitonic_sort": (_P, _LL, _I, _P, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.
@@ -142,16 +147,18 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` (which launches one kernel on the
-    current stream), raise on its error code, and count the launch."""
+def launch(name: str, *args, launched: ctypes.c_int | None = None) -> None:
+    """Call C entry point ``name`` (which launches its kernels on the
+    current stream), raise on its error code, and count the launches: one,
+    or, for an entry point that enqueues several kernels, the number it
+    wrote to ``launched`` (passed to it by address)."""
     lib = library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(error {err})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += 1 if launched is None else launched.value
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,7 +1,8 @@
-"""Bloom filter construction on the card (``csrc/bloom.cu``).
+"""Bloom filter build and probes on the card (``csrc/bloom.cu``).
 
-The port's counterpart of ``repro.kernels.bloom.bloom_build``; the plain
-version is ``ref.bloom_build``.  Query and multi-probe are not ported yet.
+The port's counterparts of ``repro.kernels.bloom`` ``bloom_build``,
+``multi_probe`` and ``bloom_query``; the plain versions are
+``ref.bloom_build``, ``ref.bloom_multi_probe`` and ``ref.bloom_query``.
 """
 
 from __future__ import annotations
@@ -24,5 +25,39 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, *, n_words: int,
     out = torch.empty((g, n_words), dtype=torch.int32, device=keys.device)
     _build.launch("bloom_build", keys.data_ptr(), valid.data_ptr(), g, per,
                   lanes, n_words, n_probes, out.data_ptr(),
+                  _build.stream_handle(out))
+    return out
+
+
+def bloom_multi_probe(filters: torch.Tensor, keys: torch.Tensor, *,
+                      n_probes: int) -> torch.Tensor:
+    """Key row ``i`` of int32 ``[C, lanes]`` against filter row ``i`` of
+    int32 ``[C, W]``.  Returns bool ``[C]`` (True = maybe present)."""
+    _build.check_cuda(filters, "bloom_multi_probe filters", torch.int32, 2)
+    _build.check_cuda(keys, "bloom_multi_probe keys", torch.int32, 2)
+    c, lanes = keys.shape
+    if filters.shape[0] != c or filters.device != keys.device:
+        raise ValueError("bloom_multi_probe: one filter row per key row, "
+                         "on the keys' device")
+    out = torch.empty(c, dtype=torch.bool, device=keys.device)
+    _build.launch("bloom_multi_probe", filters.data_ptr(), keys.data_ptr(),
+                  c, lanes, filters.shape[1], n_probes, out.data_ptr(),
+                  _build.stream_handle(out))
+    return out
+
+
+def bloom_query(filters: torch.Tensor, keys: torch.Tensor, *,
+                n_probes: int) -> torch.Tensor:
+    """Each of the Q keys of group ``g`` (int32 ``[G, Q, lanes]``) against
+    filter ``g`` (int32 ``[G, W]``).  Returns bool ``[G, Q]``."""
+    _build.check_cuda(filters, "bloom_query filters", torch.int32, 2)
+    _build.check_cuda(keys, "bloom_query keys", torch.int32, 3)
+    g, q, lanes = keys.shape
+    if filters.shape[0] != g or filters.device != keys.device:
+        raise ValueError("bloom_query: one filter row per group, on the "
+                         "keys' device")
+    out = torch.empty((g, q), dtype=torch.bool, device=keys.device)
+    _build.launch("bloom_query", filters.data_ptr(), keys.data_ptr(), g, q,
+                  lanes, filters.shape[1], n_probes, out.data_ptr(),
                   _build.stream_handle(out))
     return out

@@ -14,8 +14,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import bitonic_sort as _bitonic
 from repro_torch.kernels import bloom as _bloom
 from repro_torch.kernels import crc32 as _crc32
+from repro_torch.kernels import lookup as _lookup
 from repro_torch.kernels import merge_path as _merge_path
 from repro_torch.kernels import prefix as _prefix
 from repro_torch.kernels import ref
@@ -55,6 +57,35 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor | None = None, *,
                            valid=valid)
 
 
+def bloom_query(filters: torch.Tensor, keys: torch.Tensor, *,
+                n_probes: int) -> torch.Tensor:
+    """bool ``[G, Q]``: keys ``[G, Q, L]`` probed against filters
+    ``[G, W]`` (True = maybe present)."""
+    if _on_card(keys):
+        return _bloom.bloom_query(filters, keys, n_probes=n_probes)
+    return ref.bloom_query(filters, keys, n_probes=n_probes)
+
+
+def bloom_multi_probe(filters: torch.Tensor, keys: torch.Tensor, *,
+                      n_probes: int) -> torch.Tensor:
+    """bool ``[C]``: key row ``i`` of ``[C, L]`` probed against filter row
+    ``i`` of ``[C, W]`` (the ``multi_get`` prune)."""
+    if _on_card(keys):
+        return _bloom.bloom_multi_probe(filters, keys, n_probes=n_probes)
+    return ref.bloom_multi_probe(filters, keys, n_probes=n_probes)
+
+
+def lookup_blocks(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
+                  nvalid: torch.Tensor, queries: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(found [C], meta [C], value [C, Vw])`` of query row ``i`` in
+    block ``i`` (the ``multi_get`` gather); contract as
+    ``ref.lookup_blocks``."""
+    if _on_card(keys):
+        return _lookup.lookup_blocks(keys, meta, vals, nvalid, queries)
+    return ref.lookup_blocks(keys, meta, vals, nvalid, queries)
+
+
 def prefix_encode(keys: torch.Tensor, *,
                   restart_interval: int = 16) -> torch.Tensor:
     if _on_card(keys):
@@ -75,6 +106,15 @@ def sort_tuples(rows: torch.Tensor, num_keys: int | None = None
     """Stable lexicographic sort (``sort_mode="xla"``; plain PyTorch, as
     the JAX package leaves it to XLA's sort)."""
     return ref.sort_tuples(rows, num_keys)
+
+
+def bitonic_sort(rows: torch.Tensor) -> torch.Tensor:
+    """Ascending lexicographic sort over all lanes (``sort_mode=
+    "device"``).  On the card there is no row cap: the JAX package's
+    2**17 (``ops.sort_tuples(device_sort_max=...)``) is a VMEM limit."""
+    if _on_card(rows):
+        return _bitonic.bitonic_sort(rows)
+    return ref.sort_tuples(rows)
 
 
 def merge_runs(rows: torch.Tensor, run_lens=None) -> torch.Tensor:

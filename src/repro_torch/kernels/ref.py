@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the compaction path.
+"""Plain PyTorch versions of the port's kernels (compaction and read paths).
 
 These are the port's counterparts of ``repro.kernels.ref``: the CPU tests
 hold them bit for bit against the JAX functions, the kernel wrappers use
@@ -142,6 +142,29 @@ def bloom_build(keys: torch.Tensor, *, n_words: int, n_probes: int,
     bits = bits[:, :m].reshape(g, n_words, 32).to(torch.int64)
     shifts = torch.arange(32, device=keys.device)
     return as_i32((bits << shifts).sum(-1))
+
+
+def bloom_query(filters: torch.Tensor, keys: torch.Tensor, *,
+                n_probes: int) -> torch.Tensor:
+    """Membership probe of ``keys`` ``[G, Q, L]`` against the filters
+    ``[G, W]`` (m = 32 * W bits, any W): bool ``[G, Q]``, True = maybe
+    present.  The probe position wraps at 2**32 before the modulo."""
+    h1, h2 = bloom_hashes(keys)
+    m = filters.shape[-1] * 32
+    fw = u32(filters)
+    ok = torch.ones(h1.shape, dtype=torch.bool, device=keys.device)
+    for i in range(n_probes):
+        pos = ((h1 + i * h2) & MASK32) % m
+        word = torch.gather(fw, 1, pos >> 5)
+        ok &= ((word >> (pos & 31)) & 1) == 1
+    return ok
+
+
+def bloom_multi_probe(filters: torch.Tensor, keys: torch.Tensor, *,
+                      n_probes: int) -> torch.Tensor:
+    """Pairwise probe: key row ``i`` (``[C, L]``) against filter row ``i``
+    (``[C, W]``).  Returns bool ``[C]``."""
+    return bloom_query(filters, keys[:, None, :], n_probes=n_probes)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -312,3 +335,31 @@ def sort_tuples(rows: torch.Tensor, num_keys: int | None = None
         o = torch.sort(u32(rows[order, lane]), stable=True).indices
         order = order[o]
     return rows[order]
+
+
+def lookup_blocks(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
+                  nvalid: torch.Tensor, queries: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Query row ``i`` (``[C, L]``) searched in block ``i``: ``keys``
+    ``[C, K, L]`` sorted, with the all-ones sentinel at and after
+    ``nvalid[i]``; ``meta`` ``[C, K]``; ``vals`` ``[C, K, Vw]``.  Returns
+    ``(found bool [C], meta int32 [C], value int32 [C, Vw])``, zeroed
+    where not found.  The match is the lower bound (the leftmost equal
+    row, the newest version); a row with ``nvalid = 0`` finds nothing."""
+    c, k, _ = keys.shape
+    uk, uq = u32(keys), u32(queries)
+    rows = torch.arange(c, device=keys.device)
+    lo = torch.zeros(c, dtype=torch.int64, device=keys.device)
+    hi = torch.full_like(lo, k)
+    for _ in range((k + 1).bit_length()):
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        descend = lex_less(uk[rows, torch.clamp(mid, 0, k - 1)], uq)
+        lo = torch.where(go & descend, mid + 1, lo)
+        hi = torch.where(go & ~descend, mid, hi)
+    idx = torch.clamp(lo, 0, k - 1)
+    found = (keys[rows, idx] == queries).all(-1) & \
+        (lo < nvalid.to(torch.int64))
+    m = torch.where(found, meta[rows, idx], 0)
+    v = torch.where(found[:, None], vals[rows, idx], 0)
+    return found, m, v

@@ -2,24 +2,45 @@
 ``repro.lsm``): memtable + WAL + leveled SST files + manifest, with every
 flush and compaction running through ``engine.TorchCompactionEngine``.
 
-Read options mirror ``repro.lsm.ReadOptions`` for the parts this store
-has (no snapshots and no kernel backend choice yet).
+The read surface mirrors ``repro.lsm``: ``LsmDB`` and ``TableReader``
+expose ``get(key, opts=None)``, ``multi_get(keys, opts=None)`` and
+``scan(start, end, opts=None)`` taking the same frozen ``ReadOptions``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+#: ``ReadOptions.backend`` values: the batched stages on the store's
+#: device (kernels on ``cuda``, their plain versions on ``cpu``), or numpy.
+BACKENDS = ("device", "host")
+
 
 @dataclasses.dataclass(frozen=True)
 class ReadOptions:
-    """* ``fill_cache`` -- insert blocks decoded for this read into the
+    """* ``snapshot`` -- a read view from ``LsmDB.snapshot()``: pins the
+      SST version and the memtable as of capture.  The memtable captured
+      stays live until it is flushed; files compacted away while the
+      snapshot is held raise ``FileNotFoundError``.  ``None`` reads the
+      latest state.
+    * ``fill_cache`` -- insert blocks decoded for this read into the
       host block cache (results are identical either way).
     * ``verify_crc`` -- re-verify the per-block CRC when a block is
-      decoded (the whole-file checksum is always verified at load)."""
+      decoded (the whole-file checksum is always verified at load).
+    * ``backend`` -- where ``multi_get`` runs its batched bloom prune and
+      block gather: ``"device"`` on the store's device (the CUDA kernels
+      on ``cuda``, their plain PyTorch versions on ``cpu``), or
+      ``"host"``, numpy on the host.  Both give the same answers."""
 
+    snapshot: object | None = None
     fill_cache: bool = True
     verify_crc: bool = False
+    backend: str = "device"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown read backend {self.backend!r} "
+                             f"(want one of {BACKENDS})")
 
 
 #: Default options singleton (avoids per-get allocation on the hot path).

@@ -11,8 +11,9 @@ Every flush and compaction goes through ``TorchCompactionEngine`` on the
 store's device: ``cuda`` unless the caller passes ``device="cpu"``.  The
 store writes the same SST files, WAL and manifest as ``repro.lsm.db.LsmDB``
 for the same operations, so a directory written by either opens in the
-other.  Not here yet: async mode, failpoints, repair, ``multi_get``,
-snapshots, metrics and tracing.
+other.  Reads: ``get``, ``scan`` and the batched ``multi_get``
+(``lsm.read``), each through an optional pinned ``snapshot()``.  Not here
+yet: async mode, failpoints, repair, metrics and tracing.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from repro_torch.core import formats
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.core.scheduler import (CompactionJob, CompactionScheduler,
                                         SchedulerConfig)
-from repro_torch.lsm import memtable, sstable, wal
+from repro_torch.lsm import DEFAULT_READ_OPTIONS, ReadOptions, memtable, \
+    sstable, wal
+from repro_torch.lsm import read as lsm_read
 from repro_torch.lsm.engine import EngineStats, TorchCompactionEngine
 from repro_torch.lsm.sstable import BlockCache, FileMeta, TableCache
 from repro_torch.lsm.version import VersionEdit, VersionSet
@@ -38,8 +41,8 @@ from repro_torch.lsm.version import VersionEdit, VersionSet
 @dataclasses.dataclass
 class DBConfig:
     geom: SSTGeometry = dataclasses.field(default_factory=SSTGeometry)
-    sort_mode: str = "merge"        # phase-2 mode: "merge" | "xla"
-    #   | "cooperative" (the paper's host sort)
+    sort_mode: str = "merge"        # phase-2 mode: "merge" | "device"
+    #   (the bitonic kernel) | "xla" | "cooperative" (the paper's host sort)
     memtable_bytes: int | None = None   # None: one SST's worth
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
@@ -55,6 +58,11 @@ class DBStats:
     write_batches: int = 0
     batch_ops: int = 0
     gets: int = 0
+    multi_gets: int = 0
+    multi_get_keys: int = 0
+    multi_get_waves: int = 0               # stacked prune -> gather passes
+    multi_get_staged_bytes: int = 0        # copied to the device stages
+    multi_get_stage_seconds: float = 0.0   # device stages, host clock
     deletes: int = 0
     flushes: int = 0
     compactions: int = 0
@@ -69,6 +77,17 @@ class DBStats:
     flush_host_seconds: float = 0.0
     bloom_negative_skips: int = 0
     orphans_removed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    """Pinned read view from ``LsmDB.snapshot()``: the SST version and the
+    memtable as of capture.  The memtable is held by reference, so it
+    stays live until it is flushed; files compacted away while the
+    snapshot is held raise ``FileNotFoundError`` on access."""
+
+    mems: tuple          # newest first (this store has one memtable)
+    version: object      # pinned lsm.version.Version
 
 
 class CompactionRecord(NamedTuple):
@@ -99,7 +118,8 @@ class LsmDB:
         self.scheduler.compact_pointer = dict(self.versions.compact_pointer)
         self.block_cache = BlockCache(self.cfg.block_cache_blocks)
         self.cache = TableCache(self.cfg.table_cache, geom=self.geom,
-                                block_cache=self.block_cache)
+                                block_cache=self.block_cache,
+                                device=self.engine.device)
         self.mem = memtable.MemTable()
         self._memtable_limit = self.cfg.memtable_bytes or self.geom.sst_bytes
         self._wal_path = os.path.join(path, "wal.log")
@@ -234,13 +254,78 @@ class LsmDB:
     # reads
     # ------------------------------------------------------------------
 
-    def get(self, key: bytes, opts=None) -> bytes | None:
+    def snapshot(self) -> Snapshot:
+        """Capture a pinned read view (pass as ``ReadOptions.snapshot``)."""
+        return Snapshot(mems=(self.mem,), version=self.versions.current)
+
+    def _read(self, opts: ReadOptions, read):
+        """``read(mems, version)`` on the snapshot's view or the latest one.
+        A file compacted away under the latest view is retried on a fresh
+        one; under a pinned snapshot it is gone for good and re-raises.
+        (The retry is the JAX store's, whose background compactions can
+        remove a file during a read; this store compacts between calls.)"""
+        err = None
+        for _ in range(8):
+            if opts.snapshot is not None:
+                mems, version = opts.snapshot.mems, opts.snapshot.version
+            else:
+                mems, version = (self.mem,), self.versions.current
+            try:
+                return read(mems, version)
+            except FileNotFoundError as e:
+                if opts.snapshot is not None:
+                    raise
+                err = e
+        raise err
+
+    def get(self, key: bytes, opts: ReadOptions | None = None
+            ) -> bytes | None:
         """The value, or None if absent or deleted."""
         self.stats.gets += 1
-        found, value = self.mem.get(key)
-        if found:
-            return value
-        version = self.versions.current
+        opts = opts or DEFAULT_READ_OPTIONS
+
+        def read(mems, version):
+            for m in mems:
+                found, value = m.get(key)
+                if found:
+                    return value
+            return self._search_version(version, key, opts)
+
+        return self._read(opts, read)
+
+    def multi_get(self, keys, opts: ReadOptions | None = None
+                  ) -> list[bytes | None]:
+        """Batched ``get``: the keys not in the memtable resolve in
+        rank-ordered waves of one stacked bloom prune and one stacked
+        search and gather each (``lsm.read``).  Returns the values in
+        order, equal to ``[self.get(k, opts) for k in keys]``."""
+        keys = list(keys)
+        opts = opts or DEFAULT_READ_OPTIONS
+        self.stats.multi_gets += 1
+        self.stats.multi_get_keys += len(keys)
+        return self._read(opts, lambda mems, version: self._multi_get_inner(
+            keys, opts, mems, version))
+
+    def _multi_get_inner(self, keys: list, opts: ReadOptions, mems,
+                         version) -> list[bytes | None]:
+        out: list[bytes | None] = [None] * len(keys)
+        unresolved: list[tuple[int, bytes]] = []
+        for i, key in enumerate(keys):
+            for m in mems:
+                found, value = m.get(key)
+                if found:
+                    out[i] = value
+                    break
+            else:
+                unresolved.append((i, key))
+        cands = lsm_read.version_candidates(version, unresolved, self.cache)
+        resolved = lsm_read.resolve_candidates(
+            cands, self.geom, opts, self.device, stats=self.stats)
+        for slot, (_, value) in resolved.items():
+            out[slot] = value
+        return out
+
+    def _search_version(self, version, key: bytes, opts: ReadOptions):
         # L0: overlapping files, newest first
         for fm in sorted(version.levels[0], key=lambda f: -f.file_no):
             if fm.smallest <= key <= fm.largest:
@@ -257,27 +342,36 @@ class LsmDB:
                     break
         return None
 
-    def _table_get(self, fm: FileMeta, key: bytes, opts=None):
+    def _table_get(self, fm: FileMeta, key: bytes, opts: ReadOptions):
         found, value, pruned = self.cache.reader(fm).probe(key, opts)
         if pruned:
             self.stats.bloom_negative_skips += 1
         return found, value
 
-    def scan(self, start: bytes, end: bytes, opts=None):
+    def scan(self, start: bytes, end: bytes,
+             opts: ReadOptions | None = None):
         """[(key, value)] for start <= key < end: newest versions, no
         tombstones."""
-        best: dict[bytes, tuple[int, bytes | None]] = {}
-        for k, seq, v in self.mem.sorted_entries():
-            if start <= k < end:
-                best[k] = (seq, v)
-        for _, fm in self.versions.current.all_files():
-            if fm.largest < start or fm.smallest >= end:
-                continue
-            for k, seq, v in self.cache.reader(fm).scan(start, end, opts):
-                if k not in best or best[k][0] < seq:
-                    best[k] = (seq, v)
-        return [(k, v) for k, (_, v) in sorted(best.items())
-                if v is not None]
+        opts = opts or DEFAULT_READ_OPTIONS
+
+        def read(mems, version):
+            best: dict[bytes, tuple[int, bytes | None]] = {}
+            for m in reversed(mems):   # oldest first: newer seqs win
+                for k, seq, v in m.sorted_entries():
+                    if start <= k < end and (k not in best or
+                                             best[k][0] < seq):
+                        best[k] = (seq, v)
+            for _, fm in version.all_files():
+                if fm.largest < start or fm.smallest >= end:
+                    continue
+                for k, seq, v in self.cache.reader(fm).scan(start, end,
+                                                            opts):
+                    if k not in best or best[k][0] < seq:
+                        best[k] = (seq, v)
+            return [(k, v) for k, (_, v) in sorted(best.items())
+                    if v is not None]
+
+        return self._read(opts, read)
 
     # ------------------------------------------------------------------
     # flush + compaction

@@ -35,7 +35,9 @@ import numpy as np
 
 from repro_torch.core import formats
 from repro_torch.core.formats import SSTGeometry, SSTImage
+from repro_torch.device import resolve_device
 from repro_torch.lsm import DEFAULT_READ_OPTIONS, engine
+from repro_torch.lsm import read as lsm_read
 from repro_torch.lsm.fs import fsync_dir
 
 MAGIC = b"LUDASST1"
@@ -209,13 +211,16 @@ def _pack_rows(keys_u32: np.ndarray) -> np.ndarray:
 class TableReader:
     """The single decode entry point for reads on one SST.  Constructing a
     reader touches nothing; the first read loads the file, and blocks
-    decode on demand through the shared ``BlockCache``."""
+    decode on demand through the shared ``BlockCache``.  ``device`` is
+    where ``multi_get``'s ``"device"`` backend stages (None: ``cuda``,
+    which must then be present)."""
 
     def __init__(self, meta: FileMeta, geom: SSTGeometry, *,
-                 block_cache: BlockCache | None = None):
+                 block_cache: BlockCache | None = None, device=None):
         self.meta = meta
         self.geom = geom
         self.block_cache = block_cache
+        self.device = device
         self._img: SSTImage | None = None
         self._first_keys: list[bytes] | None = None
 
@@ -318,6 +323,23 @@ class TableReader:
         _, value, _ = self.probe(key, opts)
         return value
 
+    def multi_get(self, keys, opts=None) -> list[bytes | None]:
+        """Batched ``get`` over this one table: one stacked bloom prune,
+        then one stacked search and gather (see ``lsm.read``)."""
+        opts = opts or DEFAULT_READ_OPTIONS
+        keys = list(keys)
+        out: list[bytes | None] = [None] * len(keys)
+        cands = [lsm_read.Candidate(slot=i, rank=0, reader=self, key=k)
+                 for i, k in enumerate(keys)
+                 if self.meta.smallest <= k <= self.meta.largest]
+        device = resolve_device(self.device) if opts.backend == "device" \
+            else None
+        resolved = lsm_read.resolve_candidates(cands, self.geom, opts,
+                                               device)
+        for slot, (_, value) in resolved.items():
+            out[slot] = value
+        return out
+
     def scan(self, start: bytes, end: bytes, opts=None
              ) -> list[tuple[bytes, int, bytes | None]]:
         """``[(key, seq, value|None)]`` for start <= key < end in key order,
@@ -344,13 +366,15 @@ class TableReader:
 
 
 class TableCache:
-    """LRU cache of per-file ``TableReader``s plus the shared block cache."""
+    """LRU cache of per-file ``TableReader``s plus the shared block cache;
+    its readers stage batched reads on ``device``."""
 
     def __init__(self, capacity: int = 64, *, geom: SSTGeometry,
-                 block_cache: BlockCache | None = None):
+                 block_cache: BlockCache | None = None, device=None):
         self.capacity = capacity
         self.geom = geom
         self.block_cache = block_cache
+        self.device = device
         self._c: OrderedDict[int, TableReader] = OrderedDict()
 
     def reader(self, meta: FileMeta) -> TableReader:
@@ -360,7 +384,8 @@ class TableCache:
         if rdr is not None:
             self._c.move_to_end(meta.file_no)
             return rdr
-        rdr = TableReader(meta, self.geom, block_cache=self.block_cache)
+        rdr = TableReader(meta, self.geom, block_cache=self.block_cache,
+                          device=self.device)
         self._c[meta.file_no] = rdr
         while len(self._c) > self.capacity:
             self._c.popitem(last=False)

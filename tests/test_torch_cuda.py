@@ -91,3 +91,90 @@ def test_build_image_on_card_equals_cpu(dev):
                               geom=geom)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def sorted_blocks(rng, c, k, lanes, dev):
+    """Sorted blocks with duplicate keys and the all-ones sentinel at and
+    after ``nvalid`` (some 0), and queries present, past ``nvalid`` and
+    absent."""
+    keys = rng.integers(0, 6, (c, k, lanes)).astype(np.uint32)
+    for i in range(c):
+        keys[i] = keys[i][np.lexsort(tuple(keys[i][:, j]
+                                           for j in reversed(range(lanes))))]
+    nvalid = rng.integers(0, k + 1, c).astype(np.int32)
+    nvalid[: c // 16] = 0
+    queries = keys[np.arange(c), rng.integers(0, k, c)].copy()
+    absent = rng.random(c) < 0.2
+    queries[absent] = rng.integers(0, 6, (absent.sum(), lanes))
+    for i in range(c):
+        keys[i, nvalid[i]:] = 0xFFFFFFFF
+    meta = rng.integers(0, 2**32, (c, k), dtype=np.uint32)
+    vals = rng.integers(0, 2**32, (c, k, 68), dtype=np.uint32)
+    return [torch.from_numpy(a.view(np.int32)).to(dev)
+            for a in (keys, meta, vals, nvalid, queries)]
+
+
+@pytest.mark.parametrize("c,k,lanes", [(1024, 16, 4), (37, 70, 2),
+                                       (5, 1, 4)])
+def test_lookup_blocks(dev, c, k, lanes):
+    args = sorted_blocks(np.random.default_rng(c), c, k, lanes, dev)
+    before = ops.launch_counts()["lookup_blocks"]
+    got, want = ops.lookup_blocks(*args), ref.lookup_blocks(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].any() and not got[0].all()
+    assert ops.launch_counts()["lookup_blocks"] == before + 1
+
+
+@pytest.mark.parametrize("c,n_words,lanes,probes", [
+    (1024, 5, 4, 6), (300, 5120, 4, 6), (7, 13, 2, 3)])
+def test_bloom_multi_probe(dev, c, n_words, lanes, probes):
+    rng = np.random.default_rng(c)
+    keys = words(rng, (c, 16, lanes), dev)
+    filters = ref.bloom_build(keys, n_words=n_words, n_probes=probes)
+    q = torch.where(torch.from_numpy(rng.random(c) < 0.5).to(dev)[:, None],
+                    keys[:, 0], words(rng, (c, lanes), dev))
+    before = ops.launch_counts()["bloom_multi_probe"]
+    got = ops.bloom_multi_probe(filters, q, n_probes=probes)
+    assert torch.equal(got, ref.bloom_multi_probe(filters, q,
+                                                  n_probes=probes))
+    assert ops.launch_counts()["bloom_multi_probe"] == before + 1
+
+
+@pytest.mark.parametrize("g,q,n_words", [(1024, 256, 5), (3, 1000, 5120),
+                                         (2, 1, 7)])
+def test_bloom_query(dev, g, q, n_words):
+    rng = np.random.default_rng(g + q)
+    keys = words(rng, (g, q, 4), dev)
+    filters = ref.bloom_build(keys[:, : max(1, q // 2)], n_words=n_words,
+                              n_probes=6)
+    assert torch.equal(ops.bloom_query(filters, keys, n_probes=6),
+                       ref.bloom_query(filters, keys, n_probes=6))
+
+
+def _bitonic_kernels(n: int, lanes: int) -> int:
+    """Kernels ``csrc/bitonic.cu`` enqueues for ``n`` rows: one shared-memory
+    pass over the tiles (1,024 rows, or fewer to fit 48 KB), then for each
+    larger k its global stages j >= tile and one shared-memory pass."""
+    n_pad = 1 << max(1, (n - 1).bit_length())
+    tile = min(n_pad, 1024)
+    while tile * lanes * 4 > 48 * 1024:
+        tile //= 2
+    s, t = n_pad.bit_length() - 1, tile.bit_length() - 1
+    return 1 + sum(k - t + 1 for k in range(t + 1, s + 1))
+
+
+@pytest.mark.parametrize("n,index_lane", [(65_536, True), (262_144, True),
+                                          (300_001, True), (3, False),
+                                          (1000, False)])
+def test_bitonic_sort(dev, n, index_lane):
+    rng = np.random.default_rng(n)
+    rows = rng.integers(0, 4, (n, 6)).astype(np.uint32)
+    if index_lane:
+        rows[:, -1] = rng.permutation(n)
+    rows = torch.from_numpy(rows.view(np.int32)).to(dev)
+    before = ops.launch_counts()["bitonic_sort"]
+    got = ops.bitonic_sort(rows)
+    assert torch.equal(got, ref.sort_tuples(rows))
+    assert ops.launch_counts()["bitonic_sort"] == \
+        before + _bitonic_kernels(n, 6)

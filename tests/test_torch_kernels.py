@@ -24,6 +24,9 @@ from repro.kernels import crc32 as jcrc32
 from repro.kernels import prefix as jprefix
 from repro.kernels import ref as jref
 from repro_torch.core import formats
+from repro_torch.kernels import bitonic_sort as tbitonic
+from repro_torch.kernels import bloom as tbloom
+from repro_torch.kernels import lookup as tlookup
 from repro_torch.kernels import merge_path, ops, ref
 from repro_torch.kernels import crc32 as tcrc32
 from repro_torch.kernels import prefix as tprefix
@@ -273,6 +276,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.prefix_encode(t(sorted_keys(rng, 16, 4)))
     ops.bloom_build(t(rand_words(rng, (2, 16, 4))), n_words=5, n_probes=6)
     ops.merge_runs(t(_runs(rng, (8, 8))), (8, 8))
+    ops.bloom_multi_probe(t(rand_words(rng, (3, 5))),
+                          t(rand_words(rng, (3, 4))), n_probes=6)
+    ops.bloom_query(t(rand_words(rng, (2, 5))),
+                    t(rand_words(rng, (2, 3, 4))), n_probes=6)
+    z = torch.zeros
+    ops.lookup_blocks(z((2, 16, 4), dtype=torch.int32),
+                      z((2, 16), dtype=torch.int32),
+                      z((2, 16, 3), dtype=torch.int32),
+                      z(2, dtype=torch.int32), z((2, 4), dtype=torch.int32))
+    ops.bitonic_sort(t(_runs(rng, (8,))))
     assert ops.launch_counts() == before
 
 
@@ -281,7 +294,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lambda: tprefix.prefix_encode(torch.zeros((16, 4), dtype=torch.int32)),
     lambda: merge_path.merge_runs(torch.zeros((4, 6), dtype=torch.int32),
                                   (2, 2)),
-], ids=["crc32", "prefix_encode", "merge_runs"])
+    lambda: tbloom.bloom_multi_probe(torch.zeros((2, 5), dtype=torch.int32),
+                                     torch.zeros((2, 4), dtype=torch.int32),
+                                     n_probes=6),
+    lambda: tbloom.bloom_query(torch.zeros((2, 5), dtype=torch.int32),
+                               torch.zeros((2, 3, 4), dtype=torch.int32),
+                               n_probes=6),
+    lambda: tlookup.lookup_blocks(*(torch.zeros(s, dtype=torch.int32) for s in
+                                    ((2, 16, 4), (2, 16), (2, 16, 3), (2,),
+                                     (2, 4)))),
+    lambda: tbitonic.bitonic_sort(torch.zeros((4, 6), dtype=torch.int32)),
+], ids=["crc32", "prefix_encode", "merge_runs", "bloom_multi_probe",
+        "bloom_query", "lookup_blocks", "bitonic_sort"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches or raises: it never computes on the CPU."""
     with pytest.raises(ValueError, match="CUDA tensor"):

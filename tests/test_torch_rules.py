@@ -74,6 +74,22 @@ def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
     assert not (tmp_path / "db").exists()
 
 
+def test_table_reader_multi_get_runs_on_the_card_unless_asked(tmp_path):
+    db = LsmDB(str(tmp_path / "db"), device="cpu")
+    db.put(b"k1", b"v1")
+    db.flush()
+    fm = db.versions.current.levels[0][0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        from repro_torch.lsm import ReadOptions, sstable
+        rdr = sstable.TableReader(fm, db.geom)         # no device: cuda
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            rdr.multi_get([b"k1"])
+        assert rdr.multi_get([b"k1"], ReadOptions(backend="host")) == [b"v1"]
+        assert db.cache.reader(fm).multi_get([b"k1"]) == [b"v1"]   # cpu
+    db.close()
+
+
 def test_cpu_runs_only_when_asked(tmp_path, no_cuda):
     assert resolve_device("cpu").type == "cpu"
     db = LsmDB(str(tmp_path / "db"), device="cpu")
@@ -99,7 +115,10 @@ def _chip_smoke():
 def test_chip_smoke_store_phase_rehearsal(tmp_path):
     """Phase 3 and 4 on the CPU at 1/64 of the paper scale, with the same
     ratios of records to SST size and L1 quota: the run must show the
-    compactions the card run asserts, and the kept job must compare."""
+    compactions the card run asserts, every ``multi_get`` batch must agree
+    before and after the reopen (the bloom prune running on the cold
+    cache), and the kept job must compare across devices and with
+    ``sort_mode="device"``."""
     cs = _chip_smoke()
     div = 64
     geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
@@ -110,11 +129,46 @@ def test_chip_smoke_store_phase_rehearsal(tmp_path):
                       sched=sched, records=330_000 // div,
                       operations=20_000 // div, deletes=2_000 // div,
                       value_size=256, batch=16, sample=300, scan_keys=80,
-                      keep_dir=str(tmp_path / "job"))
+                      mg_batches=4, keep_dir=str(tmp_path / "job"))
     assert st["l0_jobs"] >= 4 and st["l0_min_inputs"] >= 4
     assert st["l1_jobs"] >= 1
     assert st["launches"] == before   # CPU tensors launch no kernel
-    assert cs.compare_job(st["kept"], geom, "cpu") > 0
+    for when in ("warm", "cold"):
+        mg = st["multi_get"][when]
+        assert len(mg["lat_us"]) == 5 and mg["waves"] >= 6
+        assert mg["staged_bytes"] > 0
+    assert st["multi_get"]["cold"]["pruned"] > 0
+    assert "keys/s" in cs.multi_get_line("cold", st["multi_get"]["cold"])
+    live, launches = cs.compare_job(st["kept"], geom, "cpu")
+    assert live > 0 and launches == before
+
+
+def test_chip_smoke_read_kernel_cases_rehearsal():
+    """Phase 2's read-path and sort cases built on the CPU at the card's
+    shapes: each kernel call (here its plain version) equals the plain
+    call, and the bounds count bytes and operations."""
+    import numpy as np
+    cs = _chip_smoke()
+    cases = cs.read_kernel_cases(np.random.default_rng(2020), "cpu")
+    assert [c[0] for c in cases] == [
+        "bloom_multi_probe/256", "lookup_blocks/256",
+        "bloom_multi_probe/1024", "lookup_blocks/1024", "bloom_query",
+        "bitonic_sort/65536", "bitonic_sort/262144"]
+    for name, kern, plain, nbytes, nops in cases:
+        assert cs.compare_outputs(name, kern(), plain())[0] == 0
+        assert nbytes > 0 and nops > 0
+        if name.startswith("bitonic_sort"):
+            # a sort's bound is moving the rows once, not the network
+            assert nbytes / cs.HBM_BYTES_PER_S > nops / cs.SCALAR_OPS_PER_S
+    # the read waves at the store's batch size: one candidate a key
+    assert cases[0][1]().shape[0] == cs.MULTI_GET_BATCH
+    with pytest.raises(AssertionError, match="differs"):
+        cs.compare_outputs("x", torch.zeros(3, dtype=torch.int32),
+                           torch.ones(3, dtype=torch.int32))
+    found = cases[1][1]()[0]
+    hit = cases[0][1]()
+    assert 0 < int(found.sum()) < found.numel()
+    assert 0 < int(hit.sum()) < hit.numel()
 
 
 def _run(args, cwd, env_extra=None):
