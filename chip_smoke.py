@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port of the LUDA store on one GPU.
+"""Smoke run of the PyTorch / CUDA port of the LUDA store (and of the
+falcon-mamba-7b server beside it) on one GPU.
 
     python3 chip_smoke.py        (from the repository root)
 
@@ -17,7 +18,14 @@ Phases, any fault exits non-zero:
    paths must have launched during this phase;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
    (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
-   ``cpu``: the output images must be byte-identical.
+   ``cpu``: the output images must be byte-identical;
+5. serve falcon-mamba-7b at full width and depth
+   (``repro_torch.serving.engine.ServeEngine``): the selective-scan kernel
+   against its plain version at the serving shapes (and at one long
+   sequence), 4 requests of 512 prompt tokens and 16 new tokens with one
+   kernel launch per layer of the prefill, prefill-then-decode against a
+   longer prefill, and the prefill with the kernel against the prefill
+   with the plain scan.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -34,6 +42,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -41,6 +50,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
@@ -48,6 +58,9 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models.convert import tree_leaves  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
 # LUDA §IV-A (src/repro/configs/luda_paper.py): 16 B keys, 256 B values
 # (+16 B slot header room), 4 KB blocks, 4 MB SSTs, 10 bloom bits per key
@@ -56,9 +69,13 @@ PAPER_GEOM = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
 PAPER_SCHED = SchedulerConfig(l0_trigger=4, base_bytes=32 * 1024 * 1024)
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the scalar (non-tensor-core)
-# 32-bit rate, used for integer work
+# 32-bit rate, used for integer and fp32 work; the special-function units
+# give 16 exponentials a clock per SM (compute capability 9.0), at the clock
+# nvidia-smi reports
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+SFU_PER_CLOCK_PER_SM = 16
+H100_SMS = 132
 
 KERNELS = {
     # name: (C entry point, phase-2 case, source, the TPU kernel replaced)
@@ -86,6 +103,9 @@ KERNELS = {
     "bitonic_sort": ("bitonic_sort", "bitonic_sort/65536",
                      "src/repro_torch/kernels/csrc/bitonic.cu",
                      "src/repro/kernels/bitonic_sort.py:55"),
+    "selective_scan": ("selective_scan", "selective_scan/4x512",
+                       "src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:31"),
 }
 # kernels of the write path (flush, compaction) and of multi_get, which
 # phase 3 drives; the bitonic sort runs in phase 4 (sort_mode="device"),
@@ -95,6 +115,21 @@ STORE_PATH = ("crc32_sections", "merge_pair", "prefix_encode",
 # why each kernel has no library_ms
 NO_LIBRARY = "no single PyTorch call computes it"
 MULTI_GET_BATCH = 256
+# phase 5: falcon-mamba-7b serving 4 requests of 512 prompt tokens, 16 new
+# tokens each; the scan also at one request of 4,096 tokens
+FALCON = "falcon-mamba-7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 512, 16
+SCAN_SHAPES = ((SERVE_BATCH, SERVE_PROMPT), (1, 4096))
+# the kernel against its plain version: max abs error <= SCAN_TOL of the
+# largest |y| (and of the largest |h_last|): both scan in fp32, and differ
+# in expf's last bits and the order of the h . C sum
+SCAN_TOL = 1e-4
+# last logits of two routes through the bf16 model (prefill-then-decode
+# against prefill; kernel scan against plain scan): max abs difference <=
+# LOGIT_TOL of the largest |logit|.  The routes round bf16 activations at
+# other places (other GEMM shapes, expf against torch.exp), and a flipped
+# bf16 ulp (2**-8) travels through the residual stream of all 64 layers
+LOGIT_TOL = 5e-2
 
 
 def log(*a):
@@ -633,6 +668,198 @@ def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: serve falcon-mamba-7b at full width
+# ---------------------------------------------------------------------------
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_cases(rng, dev, shapes=SCAN_SHAPES, di: int = 8192, ds: int = 16,
+               u_dtype=torch.bfloat16):
+    """(name, args, bytes, exponentials, other fp32 operations) of the scan
+    at falcon-mamba's widths: ``u`` in the compute dtype, the rest fp32, at
+    the scales of the model's prefill (softplus dt, ``A_log = log(1..ds)``
+    plus noise).  Bytes count each input read once and each output written
+    once; the exponentials are one per (b, t, i, s) and one per A entry;
+    the other operations are per (b, t, i, s) a multiply for dt * A, a
+    multiply and an add for the state, a multiply and an add for y, and per
+    (b, t, i) dt * u and D * u plus its add."""
+    cases = []
+    for b, s in shapes:
+        def normal(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+        u = normal(b, s, di).to(u_dtype)
+        dt = torch.nn.functional.softplus(normal(b, s, di) - 2.0)
+        a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                       device=dev).repeat(di, 1)) \
+            + 0.1 * normal(di, ds)
+        args = (u, dt, normal(b, s, ds), normal(b, s, ds), a_log, normal(di))
+        nbytes = sum(a.numel() * a.element_size() for a in args) \
+            + 4 * (b * s * di + b * di * ds)
+        cases.append((f"selective_scan/{b}x{s}", args, nbytes,
+                      b * s * di * ds + di * ds,
+                      5 * b * s * di * ds + 3 * b * s * di))
+    return cases
+
+
+def check_scan(dev, card: str, clock_hz: float, cases) -> dict:
+    """The kernel against its plain version at each case, timed as in
+    phase 2; raises beyond ``SCAN_TOL``."""
+    results = {}
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * H100_SMS * clock_hz
+    for name, args, nbytes, n_exp, n_ops in cases:
+        (y, h), (want_y, want_h) = ops.selective_scan(*args), \
+            ref.selective_scan(*args)
+        torch.cuda.synchronize()
+        err_y = float((y - want_y).abs().max())
+        err_h = float((h - want_h).abs().max())
+        lim_y = SCAN_TOL * float(want_y.abs().max())
+        lim_h = SCAN_TOL * float(want_h.abs().max())
+        if not (err_y <= lim_y and err_h <= lim_h):
+            raise AssertionError(
+                f"{name}: kernel differs from its plain version: max abs "
+                f"err y {err_y:.3g} (limit {lim_y:.3g}), h_last {err_h:.3g}"
+                f" (limit {lim_h:.3g})")
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "exponentials": n_exp / sfu_per_s * 1e3,
+                 "fp32 operations": n_ops / SCALAR_OPS_PER_S * 1e3}
+        worst = max(times, key=times.get)
+
+        def kern(a=args):
+            return ops.selective_scan(*a)
+
+        def plain(a=args):
+            return ref.selective_scan(*a)
+
+        res = dict(max_abs_err=err_y, h_err=err_h, ms=device_ms(kern, 20),
+                   plain_ms=device_ms(plain, 2), bound_ms=times[worst],
+                   bound_by="bytes" if worst == "bytes" else "operations",
+                   library_ms=None, call_ms=call_ms(kern, 20),
+                   plain_call_ms=call_ms(plain, 2))
+        log(f"  {name:22s} y {tuple(y.shape)}: max abs err y {err_y:.3g} "
+            f"(limit {lim_y:.3g}), h_last {err_h:.3g} (limit {lim_h:.3g}); "
+            f"device time kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms by "
+            f"{worst} (bytes {times['bytes']:.4f}, exponentials "
+            f"{times['exponentials']:.4f} at {clock_hz / 1e6:.0f} MHz, fp32 "
+            f"operations {times['fp32 operations']:.4f}); one call "
+            f"{res['call_ms']:.4f} ms, plain {res['plain_call_ms']:.4f} ms "
+            f"[{card}]")
+        results[name] = res
+    return results
+
+
+def last_logits_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """Max abs difference of two logit tensors over the largest |b|, and
+    the share of rows whose argmax agrees."""
+    ratio = float((a - b).abs().max()) / float(b.abs().max())
+    return ratio, float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+
+def prefill_device_share(eng, prompts) -> tuple[float, float]:
+    """Device time of one prefill and of its selective-scan kernels (ms),
+    from the profiler's CUPTI trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lm.prefill(eng.params, {"tokens": prompts}, eng.cfg, eng.max_len)
+        torch.cuda.synchronize()
+    total = scan = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            total += us
+            if "selective_scan" in e.name:
+                scan += us
+    return total / 1e3, scan / 1e3
+
+
+def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
+                seed: int = 0) -> dict:
+    """Build ``cfg`` from a seed on ``dev``, serve ``batch`` requests of
+    ``prompt_len`` tokens through ``ServeEngine.generate`` (the launch
+    counts are reset just before it and read just after), time prefill and
+    decode, and compare prefill-then-decode with the longer prefill and the
+    kernel's prefill with the plain scan's."""
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(seed, cfg, device=dev)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    eng = ServeEngine(cfg, params, max_len=prompt_len + max_new, device=dev)
+    del params   # the engine keeps its cast copy only
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() if on_card else None
+    card_bytes = sum(a.numel() * a.element_size()
+                     for a in tree_leaves(eng.params))
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    eng.generate(prompts[:, :8], max_new=2)   # warm-up, not counted
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens, cache, pos = eng.generate(prompts, max_new)
+    sync(dev)
+    gen_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    prefill_s, decode_s = [], []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        logit, cache, pos = lm.prefill(eng.params, {"tokens": prompts}, cfg,
+                                       eng.max_len)
+        sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logit).all()):
+        raise AssertionError("prefill logits are not all finite")
+    tok = logit.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(max_new - 1):
+        t0 = time.perf_counter()
+        step, cache = lm.decode_step(eng.params, cache, tok, pos, cfg)
+        sync(dev)
+        decode_s.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(step).all()):
+            raise AssertionError("decode logits are not all finite")
+        tok, pos = step[:, 0].argmax(-1)[:, None].to(torch.int32), pos + 1
+
+    # the last prompt token decoded onto the shorter prefill's state
+    _, c1, p1 = lm.prefill(eng.params, {"tokens": prompts[:, :-1]}, cfg,
+                           eng.max_len)
+    dec, _ = lm.decode_step(eng.params, c1, prompts[:, -1:], p1, cfg)
+    decode_gap = last_logits_gap(dec[:, 0], logit)
+    # the same prefill with the plain scan in the kernel's place
+    with mock.patch.object(ops, "selective_scan", ref.selective_scan):
+        plain, _, _ = lm.prefill(eng.params, {"tokens": prompts}, cfg,
+                                 eng.max_len)
+    plain_gap = last_logits_gap(logit, plain)
+    share = prefill_device_share(eng, prompts) if on_card else None
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    return dict(n_params=n_params, card_bytes=card_bytes, init_s=init_s,
+                allocated=allocated, peak=peak,
+                tokens=tokens, gen_s=gen_s, launches=launches,
+                prefill_ms=statistics.median(prefill_s) * 1e3,
+                decode_ms=statistics.median(decode_s) * 1e3,
+                tokens_per_s=tokens.size / gen_s, decode_gap=decode_gap,
+                plain_gap=plain_gap, prefill_device=share)
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -714,8 +941,59 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    cfg = get_config(FALCON)
+    log(f"[5] serve {FALCON} at full width: d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, ssm_state {cfg.ssm_state}, dt_rank {cfg.dt_rank}, "
+        f"{cfg.n_layers} layers, vocab {cfg.vocab} padded to "
+        f"{lm.padded_vocab(cfg)}; {cfg.dtype} compute, fp32 scan")
+    clock_hz = sm_clock_hz()
+    scans = check_scan(dev, card, clock_hz, scan_cases(
+        np.random.default_rng(2026), dev, di=cfg.d_inner, ds=cfg.ssm_state))
+    checks.update(scans)
+    sv = serve_phase(cfg, dev, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                     max_new=SERVE_NEW)
+    log(f"[5] {sv['n_params']:,} parameters (config count "
+        f"{cfg.param_count():,}; the embedding and head cover the padded "
+        f"vocab), built in {sv['init_s']:.1f} s; the engine holds "
+        f"{sv['card_bytes'] / 1e9:.2f} GB on the card (the mixers' matrices "
+        f"and the embedding in {cfg.dtype}, the rest fp32), "
+        f"{sv['allocated'] / 1e9:.2f} GB allocated after the build, peak "
+        f"{sv['peak'] / 1e9:.2f} GB (the fp32 init and the cast copy)")
+    prefills = 1
+    n_scan = sv["launches"]["selective_scan"]
+    log(f"[5] generate: {SERVE_BATCH} requests x {SERVE_PROMPT} prompt "
+        f"tokens, {SERVE_NEW} new tokens each in {sv['gen_s'] * 1e3:.1f} ms "
+        f"= {sv['tokens_per_s']:.1f} tokens/s; prefill {sv['prefill_ms']:.1f}"
+        f" ms, decode {sv['decode_ms']:.2f} ms/token (host clock after a "
+        f"synchronize, median) [{card}]; selective_scan launches {n_scan} "
+        f"for {prefills} prefill of {cfg.n_layers} layers")
+    first = sv["tokens"][0].tolist()
+    log(f"[5] req0 tokens {first}")
+    if n_scan != cfg.n_layers * prefills:
+        raise AssertionError(f"selective_scan launched {n_scan} times, not "
+                             f"{cfg.n_layers} x {prefills} prefill")
+    if not ((sv["tokens"] >= 0) & (sv["tokens"] < lm.padded_vocab(cfg))
+            ).all():
+        raise AssertionError("generated tokens outside the padded vocab")
+    total, scan_ms = sv["prefill_device"]
+    log(f"[5] one prefill: {total:.2f} ms of device time, of it "
+        f"{scan_ms:.2f} ms in selective_scan ({scan_ms / total:.1%}) "
+        f"[{card}]")
+    for what, (ratio, agree) in (
+            (f"prefill of {SERVE_PROMPT - 1} + decode of token "
+             f"{SERVE_PROMPT} vs prefill of {SERVE_PROMPT}", sv["decode_gap"]),
+            ("prefill with the kernel vs with the plain scan",
+             sv["plain_gap"])):
+        log(f"[5] {what}: last logits max abs diff {ratio:.3g} of the "
+            f"largest |logit| (limit {LOGIT_TOL}); greedy tokens agree in "
+            f"{agree:.0%} of requests")
+        if not ratio <= LOGIT_TOL:
+            raise AssertionError(f"{what}: last logits differ by {ratio:.3g}"
+                                 f" of their largest magnitude")
+
     path_launches = dict(st["launches"],
-                         bitonic_sort=job_launches["bitonic_sort"])
+                         bitonic_sort=job_launches["bitonic_sort"],
+                         selective_scan=n_scan)
     kernels = []
     for name, (entry, case, source, replaces) in KERNELS.items():
         r = checks[case]
@@ -726,7 +1004,8 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], plain_call_ms=r["plain_call_ms"]))
     for case in ("merge_runs/262144", "bitonic_sort/262144",
-                 "bloom_multi_probe/1024", "lookup_blocks/1024"):
+                 "bloom_multi_probe/1024", "lookup_blocks/1024",
+                 "selective_scan/1x4096"):
         big = checks[case]
         log(f"{case}: device time kernel {big['ms']:.4f} ms, plain "
             f"{big['plain_ms']:.4f} ms, bound {big['bound_ms']:.4f} ms; one "

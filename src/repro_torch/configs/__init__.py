@@ -1,0 +1,3 @@
+from repro_torch.configs.registry import (  # noqa: F401
+    ARCHS, SHAPES, get_config, get_smoke_config, shape_supported,
+    skip_reason)

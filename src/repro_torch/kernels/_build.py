@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("crc32.cu", "merge_path.cu", "prefix.cu", "bloom.cu", "lookup.cu",
-           "bitonic.cu")
+           "bitonic.cu", "selective_scan.cu")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -47,6 +47,8 @@ SIGNATURES = {
     "bloom_query": (_P, _P, _LL, _LL, _I, _I, _I, _P, _P),
     "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
     "bitonic_sort": (_P, _LL, _I, _P, _P),
+    "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

@@ -6,7 +6,8 @@ plain PyTorch version in ``ref``.  There is no other selection and no
 fallback.  Each kernel counts its launches (:func:`launch_counts`), so a
 run can show that its main path went through the kernels.
 
-Words are uint32 bit patterns carried in ``int32`` tensors (see ``ref``).
+Words are uint32 bit patterns carried in ``int32`` tensors (see ``ref``);
+the selective scan works on floats.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.kernels import lookup as _lookup
 from repro_torch.kernels import merge_path as _merge_path
 from repro_torch.kernels import prefix as _prefix
 from repro_torch.kernels import ref
+from repro_torch.kernels import selective_scan as _scan
 
 launch_counts = _build.launch_counts
 reset_launch_counts = _build.reset_launch_counts
@@ -126,3 +128,15 @@ def merge_runs(rows: torch.Tensor, run_lens=None) -> torch.Tensor:
     if _on_card(rows):
         return _merge_path.merge_runs(rows, run_lens)
     return ref.merge_runs(rows, run_lens)
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
+                   h0: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 forward recurrence in fp32: ``(y [B, S, di],
+    h_last [B, di, ds])``, ``y`` with the ``D * u`` skip added; ``h0`` is
+    a carried state (None: zeros).  Contract as ``ref.selective_scan``."""
+    if _on_card(u):
+        return _scan.selective_scan(u, dt, b, c, a_log, d_skip, h0)
+    return ref.selective_scan(u, dt, b, c, a_log, d_skip, h0)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels (compaction and read paths).
+"""Plain PyTorch versions of the port's kernels (compaction, read and
+model paths).
 
 These are the port's counterparts of ``repro.kernels.ref``: the CPU tests
 hold them bit for bit against the JAX functions, the kernel wrappers use
@@ -12,6 +13,8 @@ below widen words to ``int64`` holding the unsigned value
 (:func:`u32`), do their arithmetic there, mask back to 32 bits after each
 ``+``, ``*`` and ``<<``, and return ``int32`` bit patterns
 (:func:`as_i32`).  Unsigned order is the order of the widened values.
+The selective scan (:func:`selective_scan`) works on floats and is held
+against the JAX oracle within a stated tolerance instead.
 """
 
 from __future__ import annotations
@@ -363,3 +366,29 @@ def lookup_blocks(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
     m = torch.where(found, meta[rows, idx], 0)
     v = torch.where(found[:, None], vals[rows, idx], 0)
     return found, m, v
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
+                   h0: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 forward recurrence, one step at a time in fp32 (the
+    port's ``selective_scan_ref``).  ``u``/``dt`` ``[B, S, di]``, ``b``/``c``
+    ``[B, S, ds]``, ``a_log`` ``[di, ds]``, ``d_skip`` ``[di]``, ``h0``
+    ``[B, di, ds]`` or None (zeros).  Returns ``(y [B, S, di],
+    h_last [B, di, ds])``, both fp32; ``y`` includes the ``D * u`` skip."""
+    bsz, seq, di = u.shape
+    ds = b.shape[-1]
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    h = torch.zeros((bsz, di, ds), dtype=f32, device=u.device) \
+        if h0 is None else h0.to(f32)
+    u, dt, b, c = (x.to(f32) for x in (u, dt, b, c))
+    d_skip = d_skip.to(f32)
+    y = torch.empty((bsz, seq, di), dtype=f32, device=u.device)
+    for t in range(seq):
+        da = torch.exp(dt[:, t, :, None] * a)
+        dbu = (dt[:, t] * u[:, t])[..., None] * b[:, t, None, :]
+        h = da * h + dbu
+        y[:, t] = (h * c[:, t, None, :]).sum(-1) + d_skip * u[:, t]
+    return y, h

@@ -1,0 +1,55 @@
+"""Trees of tensors: mapping over them, and carrying the JAX package's
+params, caches and states across to the port.
+
+A tree is nested dicts, lists and tuples whose leaves are arrays (or
+None), the layout of the JAX package's pytrees.  ``params_from_numpy``
+takes such a tree with numpy leaves -- the JAX side makes it with
+``jax.tree.map(np.asarray, params)`` -- and returns the port's tree of
+tensors.  This module imports neither ``jax`` nor ``repro``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the leaves at the same place
+    in each tree of ``rest``), keeping the structure; None stays None."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tensor_from_numpy(a, device, dtype: torch.dtype | None = None
+                      ) -> torch.Tensor:
+    """One numpy array (bf16 arrays too, as JAX hands them out) as a tensor
+    on ``device``; floating arrays cast to ``dtype`` when it is given."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # numpy's bf16 extension type
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                             .copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+    """The JAX package's params (or cache, or state), as nested dicts and
+    lists of numpy arrays, as the port's tree of tensors on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)

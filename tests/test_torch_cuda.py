@@ -178,3 +178,70 @@ def test_bitonic_sort(dev, n, index_lane):
     assert torch.equal(got, ref.sort_tuples(rows))
     assert ops.launch_counts()["bitonic_sort"] == \
         before + _bitonic_kernels(n, 6)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan and the Mamba serving path
+# ---------------------------------------------------------------------------
+
+
+def scan_inputs(rng, b, s, di, ds, dev, u_dtype, with_h0=False):
+    """Inputs at the scales of falcon-mamba's prefill (softplus dt,
+    A_log = log(1..ds) plus noise)."""
+    f32 = torch.float32
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    u = normal(b, s, di).to(u_dtype)
+    dt = torch.nn.functional.softplus(normal(b, s, di) - 2.0)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=f32, device=dev)
+                      .repeat(di, 1)) + 0.1 * normal(di, ds)
+    h0 = normal(b, di, ds) if with_h0 else None
+    return u, dt, normal(b, s, ds), normal(b, s, ds), a_log, normal(di), h0
+
+
+@pytest.mark.parametrize("b,s,di,ds,u_dtype,with_h0", [
+    (4, 512, 8192, 16, torch.bfloat16, False),
+    (2, 37, 100, 5, torch.float32, True)])
+def test_selective_scan(dev, b, s, di, ds, u_dtype, with_h0):
+    """Kernel against the plain version: max abs error <= 1e-4 of the
+    largest |y| (and of the largest |h_last|); both scan in fp32 and differ
+    in expf's last bits and the order of the h . C sum."""
+    args = scan_inputs(np.random.default_rng(s), b, s, di, ds, dev, u_dtype,
+                       with_h0)
+    before = ops.launch_counts()["selective_scan"]
+    y, h = ops.selective_scan(*args)
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    want_y, want_h = ref.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32
+    assert float((y - want_y).abs().max()) <= \
+        1e-4 * float(want_y.abs().max())
+    assert float((h - want_h).abs().max()) <= \
+        1e-4 * float(want_h.abs().max())
+
+
+def test_falcon_prefill_then_decode_equals_prefill(dev):
+    """falcon-mamba-7b at full width and 4 layers: prefilling 63 tokens and
+    decoding the 64th gives the 64-token prefill's last logits within
+    5e-2 of their largest magnitude (bf16 activations; the scan state
+    carried from the kernel's h_last and the conv state into the plain
+    decode step).  The prefill launches the kernel once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServeEngine
+    cfg = get_config("falcon-mamba-7b").with_(n_layers=4)
+    eng = ServeEngine(cfg, model.init(0, cfg, device=dev), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)).to(dev)
+    before = ops.launch_counts()["selective_scan"]
+    full, _, _ = model.prefill(eng.params, {"tokens": toks}, cfg, 128)
+    assert ops.launch_counts()["selective_scan"] == before + 4
+    _, cache, pos = model.prefill(eng.params, {"tokens": toks[:, :-1]}, cfg,
+                                  128)
+    dec, _ = model.decode_step(eng.params, cache, toks[:, -1:], pos, cfg)
+    assert torch.isfinite(full).all()
+    assert float((dec[:, 0] - full).abs().max()) <= \
+        5e-2 * float(full.abs().max())

@@ -30,6 +30,7 @@ from repro_torch.kernels import lookup as tlookup
 from repro_torch.kernels import merge_path, ops, ref
 from repro_torch.kernels import crc32 as tcrc32
 from repro_torch.kernels import prefix as tprefix
+from repro_torch.kernels import selective_scan as tscan
 
 
 def t(a: np.ndarray) -> torch.Tensor:
@@ -286,6 +287,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                       z((2, 16, 3), dtype=torch.int32),
                       z(2, dtype=torch.int32), z((2, 4), dtype=torch.int32))
     ops.bitonic_sort(t(_runs(rng, (8,))))
+    ops.selective_scan(*(torch.ones(s) for s in ((1, 4, 8), (1, 4, 8),
+                                                 (1, 4, 2), (1, 4, 2), (8, 2),
+                                                 (8,))))
     assert ops.launch_counts() == before
 
 
@@ -304,8 +308,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                     ((2, 16, 4), (2, 16), (2, 16, 3), (2,),
                                      (2, 4)))),
     lambda: tbitonic.bitonic_sort(torch.zeros((4, 6), dtype=torch.int32)),
+    lambda: tscan.selective_scan(*(torch.ones(s) for s in (
+        (1, 4, 8), (1, 4, 8), (1, 4, 2), (1, 4, 2), (8, 2), (8,)))),
 ], ids=["crc32", "prefix_encode", "merge_runs", "bloom_multi_probe",
-        "bloom_query", "lookup_blocks", "bitonic_sort"])
+        "bloom_query", "lookup_blocks", "bitonic_sort", "selective_scan"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches or raises: it never computes on the CPU."""
     with pytest.raises(ValueError, match="CUDA tensor"):

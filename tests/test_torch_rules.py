@@ -13,13 +13,17 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import offload
 from repro_torch.core.formats import SSTGeometry
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.lsm.db import LsmDB
+from repro_torch.launch import serve
 from repro_torch.lsm.engine import TorchCompactionEngine
+from repro_torch.models import model
+from repro_torch.serving.engine import ServeEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -66,7 +70,12 @@ def no_cuda(monkeypatch):
     lambda tmp: offload.CompactionExecutor(SSTGeometry()),
     lambda tmp: resolve_device(None),
     lambda tmp: resolve_device("cuda"),
-], ids=["LsmDB", "engine", "executor", "default", "cuda"])
+    lambda tmp: model.init(0, get_smoke_config("falcon-mamba-7b")),
+    lambda tmp: model.init_cache(get_smoke_config("falcon-mamba-7b"), 1, 8),
+    lambda tmp: ServeEngine(get_smoke_config("falcon-mamba-7b"), {}),
+    lambda tmp: serve.main(["--arch", "falcon-mamba-7b", "--smoke"]),
+], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
+        "model.init_cache", "ServeEngine", "launch.serve"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -189,3 +198,34 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run(["chip_smoke.py"], tmp_path, {"PYTHONPATH": ""})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_serve_phase_rehearsal():
+    """Phase 5 on the CPU at falcon-mamba-7b's smoke config: the scan cases
+    are built at the card's dtypes (bf16 ``u``) and counted, the serve run
+    goes through ``ServeEngine.generate`` (CPU tensors launch no kernel),
+    and both logit comparisons hold their limit."""
+    import numpy as np
+    cs = _chip_smoke()
+    cases = cs.scan_cases(np.random.default_rng(0), "cpu",
+                          shapes=((2, 24), (1, 40)), di=128, ds=16)
+    assert [c[0] for c in cases] == ["selective_scan/2x24",
+                                     "selective_scan/1x40"]
+    for _name, args, nbytes, n_exp, n_ops in cases:
+        assert args[0].dtype == torch.bfloat16
+        y, h = ops.selective_scan(*args)
+        assert torch.isfinite(y).all() and torch.isfinite(h).all()
+        # bf16 u (2 bytes), fp32 dt and y (4 each) dominate the bytes
+        b, s, di = args[0].shape
+        assert nbytes > 10 * b * s * di and n_exp > b * s * di * 16
+        assert n_ops > n_exp
+    cfg = get_smoke_config("falcon-mamba-7b")
+    sv = cs.serve_phase(cfg, "cpu", batch=2, prompt_len=12, max_new=3)
+    assert not any(sv["launches"].values())
+    assert sv["tokens"].shape == (2, 3)
+    assert sv["n_params"] > cfg.param_count() and sv["card_bytes"] > 0
+    # no device time and no device memory on the CPU
+    assert sv["prefill_device"] is sv["allocated"] is sv["peak"] is None
+    for ratio, agree in (sv["decode_gap"], sv["plain_gap"]):
+        assert 0 <= ratio <= cs.LOGIT_TOL and 0 <= agree <= 1
+    assert sv["plain_gap"][0] == 0.0   # on the CPU both are the plain scan
