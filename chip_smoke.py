@@ -18,7 +18,8 @@ Phases, any fault exits non-zero:
    paths must have launched during this phase;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
    (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
-   ``cpu``: the output images must be byte-identical;
+   ``cpu``: the output images must be byte-identical; split the ``cuda``
+   merge job's device time by kernel (CUPTI trace);
 5. serve falcon-mamba-7b at full width and depth
    (``repro_torch.serving.engine.ServeEngine``): the selective-scan kernel
    against its plain version at the serving shapes (and at one long
@@ -168,19 +169,10 @@ def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn`` in ms: the summed durations of the
     kernels (and copies) it runs, from the profiler's CUPTI trace, so the
     host's launch path is left out."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / reps / 1e3
+    by_name = device_breakdown(lambda: [fn() for _ in range(reps)])
+    return sum(by_name.values()) / reps
 
 
 def sorted_keys(rng, n: int, lanes: int) -> np.ndarray:
@@ -207,27 +199,22 @@ def tuple_runs(rng, run_rows: list[int], pad_rows: int,
     return np.concatenate([rows, idx], axis=1)
 
 
-def set_bits(words: np.ndarray) -> int:
-    return int(np.unpackbits(np.ascontiguousarray(words).view(
-        np.uint8)).sum())
-
-
 def kernel_cases(rng, dev):
     """(name, kernel call, plain call, bytes, operations) at the main
     path's shapes: a 4-SST L0 job of the paper geometry (4096 blocks,
     65,536 rows) and a 16-SST merge (262,144 rows).  Bytes count each
     input read once and each output written once; operations count what
-    these inputs need (the CRC loop runs once per set bit, the prefix loop
-    stops at the first differing lane, the bloom skips invalid slots)."""
+    these inputs need (the CRC one table step a byte, whatever implements
+    it; the prefix loop stops at the first differing lane, the bloom skips
+    invalid slots)."""
     g = PAPER_GEOM
     B, K, L, Vw = 4096, g.block_kvs, g.key_lanes, g.value_words
     widths = (1, K * L, K, K * Vw, K)
     host = [rng.integers(0, 2**32, (B, w), dtype=np.uint32) for w in widths]
     sections = [as_i32(h, dev) for h in host]
     W = sum(widths)
-    crc_bytes = 4 * B * W + 4 * W * 32 + 4 * B
-    # per set bit: load, xor, clear lowest; per word: load, test
-    crc_ops = 3 * sum(set_bits(h) for h in host) + 2 * B * W
+    crc_bytes = 4 * B * W + 4 * B
+    crc_ops = 4 * B * W   # one table step a byte
     cases = [("crc32_sections", lambda: ops.crc32_sections(sections),
               lambda: ref.crc32_words_sections(sections),
               crc_bytes, crc_ops)]
@@ -628,6 +615,83 @@ def run_store(path: str, *, device, geom: SSTGeometry,
 # phase 4: one real job, device against CPU
 # ---------------------------------------------------------------------------
 
+# the __global__ functions of src/repro_torch/kernels/csrc, by the kernel
+# (wrapper) they belong to
+HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
+                "merge_pair_kernel": "merge_runs",
+                "prefix_encode_kernel": "prefix_encode",
+                "bloom_build_kernel": "bloom_build",
+                "bloom_probe_kernel": "bloom probes",
+                "lookup_kernel": "lookup_blocks",
+                "bitonic_stage": "bitonic_sort",
+                "bitonic_tile": "bitonic_sort",
+                "selective_scan_kernel": "selective_scan"}
+OTHER = "not hand-written"
+
+
+def device_breakdown(fn, attempts: int = 3) -> dict[str, float]:
+    """Device time (ms) of one call of ``fn`` by kernel or copy name, from
+    the profiler's CUPTI trace.  A trace that comes back without device
+    events (CUPTI drops one now and then on this machine) is taken again,
+    up to ``attempts`` times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        if by:
+            return by
+    raise RuntimeError(f"the profiler recorded no device time in "
+                       f"{attempts} traces")
+
+
+def split_device_time(by_name: dict[str, float]) -> dict[str, float]:
+    """Device time by hand-written kernel, everything else (copies, PyTorch's
+    own kernels) under ``OTHER``."""
+    out: dict[str, float] = {}
+    for name, ms in by_name.items():
+        key = next((k for fn, k in HAND_WRITTEN.items() if fn in name), OTHER)
+        out[key] = out.get(key, 0.0) + ms
+    return out
+
+
+def job_breakdown(kept: dict, geom: SSTGeometry, device) -> dict:
+    """The kept L0->L1 job through the engine on ``device`` (merge mode),
+    once to warm up and once traced: its device time split by kernel, and
+    the largest names that are not a hand-written kernel."""
+    images = [sstable.read_sst(p) for p in kept["paths"]]
+    eng = TorchCompactionEngine(geom, device=device, sort_mode="merge")
+
+    def job():
+        return eng.compact(images, bottom_level=kept["bottom_level"])
+
+    job()
+    by_name = device_breakdown(job)
+    split = split_device_time(by_name)
+    other = sorted(((ms, n) for n, ms in by_name.items()
+                    if not any(fn in n for fn in HAND_WRITTEN)), reverse=True)
+    return dict(total_ms=sum(split.values()), split=split, other=other)
+
+
+def breakdown_line(b: dict, card: str) -> str:
+    """The phase-4 report of ``job_breakdown``."""
+    total = b["total_ms"]
+    parts = ", ".join(f"{k} {ms:.4f} ms ({ms / total:.1%})" for k, ms in
+                      sorted(b["split"].items(), key=lambda x: -x[1]))
+    top = "; ".join(f"{n[:60]} {ms:.4f} ms" for ms, n in b["other"][:6])
+    crc = b["split"].get("crc32_sections", 0.0)
+    rest = b["split"].get(OTHER, 0.0)
+    return (f"[4] the L0->L1 job on the card: {total:.4f} ms of device time "
+            f"(CUPTI) = {parts}; CRC share {crc / total:.1%}, not a "
+            f"hand-written kernel {rest / total:.1%} (largest: {top}) "
+            f"[{card}]")
+
 
 def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
     """Run the kept job through the engine on ``device`` with
@@ -771,19 +835,9 @@ def last_logits_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 def prefill_device_share(eng, prompts) -> tuple[float, float]:
     """Device time of one prefill and of its selective-scan kernels (ms),
     from the profiler's CUPTI trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lm.prefill(eng.params, {"tokens": prompts}, eng.cfg, eng.max_len)
-        torch.cuda.synchronize()
-    total = scan = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            total += us
-            if "selective_scan" in e.name:
-                scan += us
-    return total / 1e3, scan / 1e3
+    split = split_device_time(device_breakdown(lambda: lm.prefill(
+        eng.params, {"tokens": prompts}, eng.cfg, eng.max_len)))
+    return sum(split.values()), split.get("selective_scan", 0.0)
 
 
 def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
@@ -938,6 +992,10 @@ def main() -> int:
         if job_launches["bitonic_sort"] == 0:
             raise AssertionError("bitonic_sort not launched by the "
                                  'sort_mode="device" job')
+        jb = job_breakdown(st["kept"], PAPER_GEOM, dev)
+        log(breakdown_line(jb, card))
+        if jb["split"].get("crc32_sections", 0.0) <= 0:
+            raise AssertionError("the traced job ran no crc32_sections")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

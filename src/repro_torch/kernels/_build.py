@@ -38,7 +38,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C entry points: (argtypes); every one returns a cudaError_t as int
 SIGNATURES = {
-    "crc32_sections": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    "crc32_sections": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                        ctypes.c_uint32, _P, _LL, _P),
     "merge_pair": (_P, _LL, _P, _LL, _P, _I, _P),
     "prefix_encode": (_P, _LL, _I, _I, _P, _P),

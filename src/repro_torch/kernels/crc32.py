@@ -1,7 +1,10 @@
-"""Sectioned CRC-32 of SST block rows on the card (``csrc/crc32.cu``).
+"""Sectioned CRC-32 of SST block rows on the card (``csrc/crc32.cu``, a
+segmented byte-table CRC).
 
 The port's counterpart of ``repro.kernels.crc32``; the plain version is
-``ref.crc32_words_sections``.
+``ref.crc32_words_sections``.  The kernel reads the byte table and shift
+operators of ``tables.crc32_kernel_tables`` (9.5 KB), not the plain
+version's ``[W, 32]`` operator table.
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ MAX_SECTIONS = 5
 
 
 @functools.lru_cache(maxsize=16)
-def operator_table(n_words: int, device: str) -> torch.Tensor:
-    """The ``[n_words, 32]`` CRC operator table as int32 bit patterns."""
-    t = tables.crc32_operator_table(n_words).view("int32")
-    return torch.from_numpy(t.copy()).to(device)
+def kernel_tables(n_words: int, device: str) -> tuple[int, torch.Tensor]:
+    """``(run, table)``: the words a lane for rows of ``n_words`` and the
+    kernel's byte table and shift operators as int32 bit patterns."""
+    run, t = tables.crc32_kernel_tables(n_words)
+    return run, torch.from_numpy(t.view("int32").copy()).to(device)
 
 
 def crc32_blocks_sections(sections) -> torch.Tensor:
@@ -36,14 +40,14 @@ def crc32_blocks_sections(sections) -> torch.Tensor:
         if s.shape[0] != n or s.device != sections[0].device:
             raise ValueError("crc32: sections differ in rows or device")
     total = sum(s.shape[1] for s in sections)
-    table = operator_table(total, str(sections[0].device))
+    run, table = kernel_tables(total, str(sections[0].device))
     out = torch.empty(n, dtype=torch.int32, device=sections[0].device)
     ptrs = [s.data_ptr() for s in sections] + \
         [None] * (MAX_SECTIONS - len(sections))
     widths = [s.shape[1] for s in sections] + \
         [0] * (MAX_SECTIONS - len(sections))
     _build.launch("crc32_sections", *ptrs, *widths, len(sections),
-                  table.data_ptr(), tables.crc32_zero_message(total * 4),
+                  table.data_ptr(), run, tables.crc32_zero_message(total * 4),
                   out.data_ptr(), n, _build.stream_handle(out))
     return out
 

@@ -17,6 +17,19 @@ static inline cudaStream_t as_stream(void* s) {
   return reinterpret_cast<cudaStream_t>(s);
 }
 
+// Streaming multiprocessors of the current device (132 on an H100 SXM).
+static inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
 // Lexicographic a < b over `lanes` uint32 words.  Unsigned compare: the
 // all-ones sentinel rows must sort after every real row.
 __device__ __forceinline__ bool row_less(const uint32_t* a, const uint32_t* b,

@@ -38,15 +38,30 @@ def sorted_rows(rng, n, lanes, dev, distinct=8) -> torch.Tensor:
     return torch.from_numpy(r.view(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("widths,rows", [((1, 64, 16, 1088, 16), 4096),
-                                         ((3,), 5), ((7, 300), 33)])
-def test_crc32_sections(dev, widths, rows):
-    rng = np.random.default_rng(rows)
+@pytest.mark.parametrize("widths,rows,flip", [
+    ((1, 64, 16, 1088, 16), 4096, False), ((3,), 5, False),
+    ((7, 300), 33, False),
+    # 1 to 5 sections, widths that are not whole runs (39 words a lane at
+    # the paper width, 32 lanes a chunk), one word, one row, several chunks
+    ((1,), 7, False), ((1185,), 1, False), ((40, 1), 9, False),
+    ((5, 33, 2), 64, False), ((1, 64, 16, 1088), 100, False),
+    ((1, 64, 16, 2176, 16), 300, False), ((1249,), 17, False),
+    ((1, 64, 16, 1088, 16), 257, True), ((1,), 3, True)])
+def test_crc32_sections(dev, widths, rows, flip):
+    """The segmented kernel against the plain version, bit for bit; with
+    ``flip``, one flipped bit changes that row's CRC and no other."""
+    rng = np.random.default_rng(rows + sum(widths))
     secs = [words(rng, (rows, w), dev) for w in widths]
     before = ops.launch_counts()["crc32_sections"]
-    assert torch.equal(ops.crc32_sections(secs),
-                       ref.crc32_words_sections(secs))
+    got = ops.crc32_sections(secs)
+    assert torch.equal(got, ref.crc32_words_sections(secs))
     assert ops.launch_counts()["crc32_sections"] == before + 1
+    if flip:
+        r, sec = rows // 2, len(widths) - 1
+        secs[sec][r, widths[sec] // 2] ^= 1 << 13
+        flipped = ops.crc32_sections(secs)
+        assert torch.equal(flipped, ref.crc32_words_sections(secs))
+        assert (flipped != got).nonzero().flatten().tolist() == [r]
 
 
 @pytest.mark.parametrize("n,lanes,restart", [(65_536, 4, 16), (96, 2, 8)])
@@ -204,11 +219,24 @@ def scan_inputs(rng, b, s, di, ds, dev, u_dtype, with_h0=False):
 
 @pytest.mark.parametrize("b,s,di,ds,u_dtype,with_h0", [
     (4, 512, 8192, 16, torch.bfloat16, False),
-    (2, 37, 100, 5, torch.float32, True)])
+    (2, 37, 100, 5, torch.float32, True),
+    # B = 1 at full width (fewer than 8 warps an SM: the instantiation
+    # with 255 registers a thread), in both u types
+    (1, 4096, 8192, 16, torch.bfloat16, False),
+    (1, 4096, 8192, 16, torch.float32, True),
+    # ds 1 and 5 (padded states), S = 1 and a 16-step chunk +- 1, di not
+    # a multiple of a block's 64 channels nor of 8 (the unaligned copies)
+    (3, 1, 8192, 1, torch.bfloat16, True),
+    (2, 15, 4100, 5, torch.float32, False),
+    (4, 16, 8200, 16, torch.bfloat16, True),
+    (4, 17, 8192, 1, torch.float32, False),
+    (1, 17, 100, 16, torch.bfloat16, True),
+    (2, 33, 70, 16, torch.float32, True)])
 def test_selective_scan(dev, b, s, di, ds, u_dtype, with_h0):
     """Kernel against the plain version: max abs error <= 1e-4 of the
     largest |y| (and of the largest |h_last|); both scan in fp32 and differ
-    in expf's last bits and the order of the h . C sum."""
+    in the exponential's last bits (ex2.approx against exp) and the order
+    of the h . C sum."""
     args = scan_inputs(np.random.default_rng(s), b, s, di, ds, dev, u_dtype,
                        with_h0)
     before = ops.launch_counts()["selective_scan"]

@@ -31,6 +31,7 @@ from repro_torch.kernels import merge_path, ops, ref
 from repro_torch.kernels import crc32 as tcrc32
 from repro_torch.kernels import prefix as tprefix
 from repro_torch.kernels import selective_scan as tscan
+from repro_torch.kernels import tables
 
 
 def t(a: np.ndarray) -> torch.Tensor:
@@ -105,6 +106,60 @@ def test_crc32_detects_a_flipped_bit():
     words[2, 17] ^= np.uint32(1 << 9)
     bad = u(ref.crc32_words(t(words)))
     assert (good != bad).tolist() == [False, False, True, False]
+
+
+def raw_crc(data: bytes) -> int:
+    """The CRC register after ``data`` from zero, without the inversions:
+    ``binascii.crc32`` less the zero-message constant of its length."""
+    return (binascii.crc32(data) ^ binascii.crc32(bytes(len(data)))) \
+        & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_crc32_shift_operator_appends_zero_bytes(seed):
+    """``raw(A || B) == shift(raw(A), len B) ^ raw(B)`` over random byte
+    lengths (0 and lengths that are not whole words among them), the
+    operators from ``tables.crc32_shift_columns``."""
+    rng = np.random.default_rng(seed)
+    la, lb = (int(x) for x in rng.integers(0, 5000, 2))
+    if seed == 0:
+        lb = 0
+    a = rng.integers(0, 256, la, dtype=np.uint8).tobytes()
+    b = rng.integers(0, 256, lb, dtype=np.uint8).tobytes()
+    cols = tables.crc32_shift_columns([lb])[0]
+    got = int(tables.crc32_apply_shift(cols, np.uint32(raw_crc(a)))) ^ \
+        raw_crc(b)
+    assert got == raw_crc(a + b)
+    # the kernel's word-at-a-time walk gives the same register
+    if la % 4 == 0:
+        words = np.frombuffer(a, "<u4")
+        assert int(tables.crc32_raw_words(words)) == raw_crc(a)
+
+
+@pytest.mark.parametrize("widths", [
+    (1, 64, 16, 1088, 16),           # the paper geometry: W = 1185
+    (1,), (3,), (7, 300), (5, 33, 2, 40, 1),
+    (1, 64, 16, 2176, 16),           # two chunks and a ragged third
+    (1248,), (1249,), (96,), (97,)])
+def test_crc32_segmented_walk_matches_binascii_and_ref(widths):
+    """The numpy walk of the card's segmented algorithm is bit-identical to
+    ``binascii.crc32`` and to the plain version on every row, including
+    widths that do not divide into whole runs or chunks."""
+    rng = np.random.default_rng(sum(widths))
+    parts = [rand_words(rng, (5, w)) for w in widths]
+    concat = np.concatenate(parts, axis=1)
+    want = np.array([binascii.crc32(r.astype("<u4").tobytes()) & 0xFFFFFFFF
+                     for r in concat], np.uint32)
+    np.testing.assert_array_equal(tables.crc32_segmented(concat), want)
+    np.testing.assert_array_equal(
+        u(ref.crc32_words_sections([t(p) for p in parts])), want)
+    run, chunk, n_chunks, last = tables.crc32_run_plan(concat.shape[1])
+    assert run % 2 == 1 and run <= tables.CRC32_MAX_RUN
+    assert chunk == tables.CRC32_RUNS * run and (n_chunks - 1) * chunk + last == \
+        concat.shape[1] and 1 <= last <= chunk
+    _, table = tables.crc32_kernel_tables(concat.shape[1])
+    assert table.dtype == np.uint32 and \
+        table.shape == (256 + 32 * tables.CRC32_SLOTS,)
 
 
 # ---------------------------------------------------------------------------

@@ -180,6 +180,48 @@ def test_chip_smoke_read_kernel_cases_rehearsal():
     assert 0 < int(hit.sum()) < hit.numel()
 
 
+def test_chip_smoke_crc_bound_is_the_bytes():
+    """Phase 2's CRC case at the paper geometry: the image read once and the
+    CRCs written once over the HBM rate, and one table step a byte over the
+    scalar rate; the bound is the bytes (0.0058 ms)."""
+    import numpy as np
+    cs = _chip_smoke()
+    cases, sections = cs.kernel_cases(np.random.default_rng(0), "cpu")
+    name, _, _, nbytes, nops = cases[0]
+    n_words = sum(s.shape[1] for s in sections)
+    assert name == "crc32_sections" and n_words == 1185
+    assert nbytes == 4 * 4096 * n_words + 4 * 4096
+    assert nops == 4 * 4096 * n_words
+    bytes_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+    assert bytes_ms > nops / cs.SCALAR_OPS_PER_S * 1e3
+    assert round(bytes_ms, 4) == 0.0058
+
+
+def test_chip_smoke_splits_device_time_by_kernel():
+    """Phase 4's breakdown: each traced name goes to the hand-written kernel
+    whose ``__global__`` function it names (the two bitonic kernels to one
+    sort), everything else to the rest; the line gives the CRC's share."""
+    cs = _chip_smoke()
+    by_name = {
+        "(anonymous namespace)::crc32_sections_kernel(Sections, ...)": 1.0,
+        "void (anonymous namespace)::bitonic_tile(unsigned int*, int)": 0.5,
+        "(anonymous namespace)::bitonic_stage(unsigned int*, long long)": 0.5,
+        "Memcpy HtoD (Pageable -> Device)": 2.0,
+        "void at::native::vectorized_elementwise_kernel<4, ...>": 0.5}
+    split = cs.split_device_time(by_name)
+    assert split == {"crc32_sections": 1.0, "bitonic_sort": 1.0,
+                     cs.OTHER: 2.5}
+    sources = "".join(p.read_text() for p in
+                      (REPO / "src/repro_torch/kernels/csrc").glob("*.cu"))
+    for fn in cs.HAND_WRITTEN:
+        assert f"{fn}(" in sources
+    line = cs.breakdown_line(dict(total_ms=4.5, split=split, other=sorted(
+        ((ms, n) for n, ms in by_name.items() if "Memcpy" in n or "at::" in
+         n), reverse=True)), "card")
+    assert "CRC share 22.2%" in line and "not a hand-written kernel 55.6%" \
+        in line and "Memcpy HtoD" in line
+
+
 def _run(args, cwd, env_extra=None):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     env.update(env_extra or {})
