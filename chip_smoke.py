@@ -9,13 +9,15 @@ Phases, any fault exits non-zero:
 1. identify the card and build the CUDA kernels from ``src/repro_torch``;
 2. hold each kernel against its plain PyTorch version at the shapes of the
    store's main paths, bit for bit, and time both (CUPTI device time and
-   CUDA events around one call);
+   CUDA events around one call); the merge also at disjoint, ragged and
+   tile-edge runs, with one launch a level of its merge tree;
 3. drive the store (``repro_torch.lsm.db.LsmDB``) at the paper's geometry:
    a seeded bulk load, a YCSB-A mix, deletes, compactions, reads and
    batched ``multi_get``s (one through a snapshot) checked against the
    ``get`` loop and a dict of acknowledged writes, close, reopen (cold
    block cache), and the reads again; every kernel of the write and read
-   paths must have launched during this phase;
+   paths must have launched during this phase, the merge once a level of
+   each job's merge tree;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
    (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
    ``cpu``: the output images must be byte-identical; split the ``cuda``
@@ -55,7 +57,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, merge_path, ops, ref  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
@@ -83,7 +85,7 @@ KERNELS = {
     "crc32_sections": ("crc32_sections", "crc32_sections",
                        "src/repro_torch/kernels/csrc/crc32.cu",
                        "src/repro/kernels/crc32.py:26"),
-    "merge_runs": ("merge_pair", "merge_runs/65536",
+    "merge_runs": ("merge_runs", "merge_runs/65536",
                    "src/repro_torch/kernels/csrc/merge_path.cu",
                    "src/repro/kernels/merge_path.py:87"),
     "prefix_encode": ("prefix_encode", "prefix_encode",
@@ -111,7 +113,7 @@ KERNELS = {
 # kernels of the write path (flush, compaction) and of multi_get, which
 # phase 3 drives; the bitonic sort runs in phase 4 (sort_mode="device"),
 # and no path calls bloom_query (as in the JAX package)
-STORE_PATH = ("crc32_sections", "merge_pair", "prefix_encode",
+STORE_PATH = ("crc32_sections", "merge_runs", "prefix_encode",
               "bloom_build", "bloom_multi_probe", "lookup_blocks")
 # why each kernel has no library_ms
 NO_LIBRARY = "no single PyTorch call computes it"
@@ -199,6 +201,59 @@ def tuple_runs(rng, run_rows: list[int], pad_rows: int,
     return np.concatenate([rows, idx], axis=1)
 
 
+def merge_levels(run_lens) -> int:
+    """Levels of the pairwise merge tree: ceil(log2 k') for k' non-empty
+    runs."""
+    return (sum(1 for n in run_lens if n) - 1).bit_length()
+
+
+def merge_cases(rng, dev):
+    """Phase 2's further merge cases, (name, rows, run_lens), of phase-2
+    tuples: 16 runs of 16,384 rows over disjoint key ranges in order (an
+    L1->L2 job's inputs), 11 ragged runs with an empty and a one-row run,
+    and runs of T - 1, T and T + 1 rows (T the kernel's tile) against a
+    longer one."""
+    L = PAPER_GEOM.key_lanes
+    T = merge_path.TILE_ROWS
+    lens = (16_384,) * 16
+    cases = [("merge_runs/disjoint", as_i32(tuple_runs(
+        rng, [sum(lens)], 0, L), dev), lens)]
+    lens = (900, 0, 1, 5000, 37, T, 12_000, 0, 2, 3000, T + 1)
+    cases.append(("merge_runs/ragged",
+                  as_i32(tuple_runs(rng, list(lens), 0, L), dev), lens))
+    for n in (T - 1, T, T + 1):
+        lens = (n, 4 * T + 3)
+        cases.append((f"merge_runs/tile{n - T:+d}",
+                      as_i32(tuple_runs(rng, list(lens), 0, L), dev), lens))
+    return cases
+
+
+def check_merge_cases(dev, card: str, rng) -> None:
+    """Phase 2: ``merge_runs`` against its plain version, bit for bit, at
+    ``merge_cases``; each must take ceil(log2 k') launches; the disjoint
+    case is timed too."""
+    for name, rows, lens in merge_cases(rng, dev):
+        before = ops.launch_counts()["merge_runs"]
+        got = ops.merge_runs(rows, lens)
+        launches = ops.launch_counts()["merge_runs"] - before
+        torch.cuda.synchronize()
+        err, shapes = compare_outputs(name, got, ref.merge_runs(rows, lens))
+        if launches != merge_levels(lens):
+            raise AssertionError(f"{name}: {launches} launches, not "
+                                 f"{merge_levels(lens)}")
+        timed = ""
+        if name == "merge_runs/disjoint":
+            def kern(r=rows, ln=lens):
+                return ops.merge_runs(r, ln)
+            bound = rows.numel() * 4 * 2 / HBM_BYTES_PER_S * 1e3
+            timed = (f"; device time {device_ms(kern, 50):.4f} ms, bound "
+                     f"{bound:.4f} ms (bytes), one call "
+                     f"{call_ms(kern, 50):.4f} ms [{card}]")
+        log(f"  {name:22s} shape {shapes}, {sum(1 for x in lens if x)} "
+            f"runs: bit-identical (max abs err {err}); {launches} launches "
+            f"a call{timed}")
+
+
 def kernel_cases(rng, dev):
     """(name, kernel call, plain call, bytes, operations) at the main
     path's shapes: a 4-SST L0 job of the paper geometry (4096 blocks,
@@ -223,14 +278,13 @@ def kernel_cases(rng, dev):
         rows = as_i32(tuple_runs(rng, [run_rows] * n_runs, pad, L), dev)
         lens = [run_rows] * n_runs + [pad]
         n = rows.shape[0]
-        levels = max(1, (len([x for x in lens if x]) - 1).bit_length())
-        # per row and level: a binary search of up to log2(n) steps, each
-        # comparing up to L + 2 lanes (two operations a lane)
+        # a merge tree compares each row once a level, up to L + 2 lanes
+        # (two operations a lane)
         cases.append((f"merge_runs/{n}",
                       lambda r=rows, ln=lens: ops.merge_runs(r, ln),
                       lambda r=rows, ln=lens: ref.merge_runs(r, ln),
                       2 * n * (L + 2) * 4,
-                      n * levels * n.bit_length() * 2 * (L + 2)))
+                      n * merge_levels(lens) * 2 * (L + 2)))
 
     n = 65_536
     keys_np = sorted_keys(rng, n, L)
@@ -384,7 +438,10 @@ def check_kernels(dev, card: str) -> dict:
     cases += read_kernel_cases(rng, dev)
     results = {}
     for name, kern, plain, nbytes, nops in cases:
-        got, want = kern(), plain()
+        before = sum(ops.launch_counts().values())
+        got = kern()
+        launches = sum(ops.launch_counts().values()) - before
+        want = plain()
         torch.cuda.synchronize()
         err, shapes = compare_outputs(name, got, want)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -395,11 +452,11 @@ def check_kernels(dev, card: str) -> dict:
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=None, call_ms=call_ms(kern, 50),
                    plain_call_ms=call_ms(plain, 5))
-        log(f"  {name:22s} shape {shapes}: bit-identical; device "
-            f"time kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
-            f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); one "
-            f"call {res['call_ms']:.4f} ms, plain {res['plain_call_ms']:.4f}"
-            f" ms [{card}]")
+        log(f"  {name:22s} shape {shapes}: bit-identical; {launches} "
+            f"launches a call; device time kernel {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}); one call {res['call_ms']:.4f} ms, plain "
+            f"{res['plain_call_ms']:.4f} ms [{card}]")
         results[name] = res
     log(f"  library_ms: none for every kernel: {NO_LIBRARY} (a sectioned "
         "CRC, a lexicographic 6-lane merge or sort, a prefix count, a bloom"
@@ -412,6 +469,7 @@ def check_kernels(dev, card: str) -> dict:
         if binascii.crc32(row) & 0xFFFFFFFF != int(crc[r]):
             raise AssertionError(f"crc32: row {r} differs from binascii")
     log("  crc32_sections: 64 sampled rows equal binascii.crc32")
+    check_merge_cases(dev, card, rng)
     return results
 
 
@@ -500,6 +558,25 @@ def multi_get_line(when: str, m: dict) -> str:
             f"bytes = {m['stage_s'] / total_s:.1%} of multi_get time")
 
 
+def merge_jobs_line(jobs_seen, card: str) -> str:
+    """The phase-3 report of the merges: launches and ``"sort"`` span a
+    job.  Raises unless each job took ceil(log2 k') launches for its k
+    input files and the padding run the engine may add (k' = k or k + 1),
+    and at least one job launched the merge."""
+    for inputs, launches, _ in jobs_seen:
+        if not merge_levels((1,) * inputs) <= launches <= \
+                merge_levels((1,) * (inputs + 1)):
+            raise AssertionError(f"a job of {inputs} inputs made {launches} "
+                                 "merge_runs launches")
+    if not any(launches for _, launches, _ in jobs_seen):
+        raise AssertionError("no compaction launched merge_runs")
+    per_job = ", ".join(f"({k}, {n}, {s * 1e3:.3f})" for k, n, s in jobs_seen)
+    return (f"[3] merge_runs: {sum(n for _, n, _ in jobs_seen)} launches in "
+            f"{len(jobs_seen)} compaction jobs; sort span "
+            f"{sum(s for *_, s in jobs_seen):.4f} s (CUDA events); a job "
+            f"(input files, launches, sort ms): [{per_job}] [{card}]")
+
+
 def run_store(path: str, *, device, geom: SSTGeometry,
               sched: SchedulerConfig, records: int, operations: int,
               deletes: int, value_size: int, batch: int, sample: int,
@@ -518,16 +595,23 @@ def run_store(path: str, *, device, geom: SSTGeometry,
     db = LsmDB(path, cfg, device=device)
 
     kept: dict = {}
+    jobs_seen = []   # (input files, merge_runs launches, "sort" span s)
     compact_paths = db.engine.compact_paths
 
-    def keep_first_l0_job(paths, *, bottom_level=False):
+    def watch_job(paths, *, bottom_level=False):
+        """Keep the first L0->L1 job's inputs; count each job's merge."""
         if not kept and len(paths) >= 4:
             os.makedirs(keep_dir, exist_ok=True)
             kept["paths"] = [shutil.copy(p, keep_dir) for p in paths]
             kept["bottom_level"] = bottom_level
-        return compact_paths(paths, bottom_level=bottom_level)
+        before = ops.launch_counts()["merge_runs"]
+        out, es = compact_paths(paths, bottom_level=bottom_level)
+        jobs_seen.append((len(paths),
+                          ops.launch_counts()["merge_runs"] - before,
+                          es.sort_seconds))
+        return out, es
 
-    db.engine.compact_paths = keep_first_l0_job
+    db.engine.compact_paths = watch_job
 
     lat = {"write_batch": [], "get": [], "put": []}   # host clock, us
     clock = time.perf_counter_ns
@@ -608,7 +692,7 @@ def run_store(path: str, *, device, geom: SSTGeometry,
         dropped=stats.compact_entries_dropped,
         latency_us={op: [float(np.percentile(v, q)) for q in (50, 99, 99.9)]
                     for op, v in lat.items()},
-        multi_get=mg, kept=kept)
+        multi_get=mg, kept=kept, jobs_seen=jobs_seen)
 
 
 # ---------------------------------------------------------------------------
@@ -618,7 +702,7 @@ def run_store(path: str, *, device, geom: SSTGeometry,
 # the __global__ functions of src/repro_torch/kernels/csrc, by the kernel
 # (wrapper) they belong to
 HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
-                "merge_pair_kernel": "merge_runs",
+                "merge_level_kernel": "merge_runs",
                 "prefix_encode_kernel": "prefix_encode",
                 "bloom_build_kernel": "bloom_build",
                 "bloom_probe_kernel": "bloom probes",
@@ -973,6 +1057,7 @@ def main() -> int:
         for when, m in st["multi_get"].items():
             log(multi_get_line(when, m))
         log(f"[3] launches {st['launches']}")
+        log(merge_jobs_line(st["jobs_seen"], card))
         if st["l0_jobs"] < 4 or st["l0_min_inputs"] < 4:
             raise AssertionError("expected >= 4 L0->L1 compactions of >= 4 "
                                  "inputs each")

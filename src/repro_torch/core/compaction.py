@@ -102,14 +102,10 @@ SORTERS = {
 def sort_phase(rows: torch.Tensor, *, sort_mode: str,
                run_lens: tuple[int, ...] | None = None) -> torch.Tensor:
     """Order the phase-2 tuples.  ``"merge"`` merges the sorted runs that
-    ``run_lens`` (entries per input SST) delimits, and requires it; the
-    other modes re-sort everything."""
+    ``run_lens`` (entries per input SST) delimits; ``None`` means one
+    sorted run.  The other modes re-sort everything."""
     if sort_mode not in SORTERS:
         raise ValueError(f"unknown sort_mode {sort_mode!r}")
-    if sort_mode == "merge" and run_lens is None:
-        raise ValueError(
-            'sort_mode="merge" requires run_lens (the per-input entry '
-            "counts; see formats.concat_images(..., with_runs=True))")
     return SORTERS[sort_mode](rows, run_lens)
 
 
@@ -195,15 +191,21 @@ def pack(rows: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
 
 
 def compact(img: SSTImage, *, geom: SSTGeometry, bottom_level: bool = False,
-            sort_mode: str = "merge",
+            sort_mode: str = "device",
             run_lens: tuple[int, ...] | None = None, timer=None
             ) -> tuple[SSTImage, CompactionStats]:
     """Run one compaction over the concatenated input image.
 
     ``run_lens`` (entries per input SST) keeps the sorted-run structure
-    of the concatenation for ``sort_mode="merge"``, which requires it.
-    ``timer`` (a ``DeviceTimer``) records phase 2 as its ``"sort"`` span.
-    The stats are read back to the host once, at the end."""
+    of the concatenation for ``sort_mode="merge"``, which requires it: the
+    input is normally several runs, and taking it as one would corrupt the
+    output (a single-run input is ``run_lens=(n_entries,)``).  ``timer``
+    (a ``DeviceTimer``) records phase 2 as its ``"sort"`` span.  The stats
+    are read back to the host once, at the end."""
+    if sort_mode == "merge" and run_lens is None:
+        raise ValueError(
+            'sort_mode="merge" requires run_lens (the per-input entry '
+            "counts; see formats.concat_images(..., with_runs=True))")
     up = unpack(img, geom)
     rows = build_tuples(up)
     if timer is None:

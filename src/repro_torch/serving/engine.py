@@ -40,9 +40,11 @@ class ServeEngine:
         self.params = model.cast_params(
             tree_map(lambda a: a.to(self.device), params), cfg)
 
-    def generate(self, prompts, max_new: int):
+    def generate(self, prompts, max_new: int, eos: int | None = None):
         """``prompts``: int ``[B, S]`` (equal length).  Returns ``(tokens
-        [B, max_new] int32 numpy, cache, pos)``.
+        [B, max_new] int32 numpy, cache, pos)``.  ``eos`` is accepted and
+        not used, as in the JAX package: every request decodes ``max_new``
+        tokens.
 
         The returned ``(cache, pos)`` is resumable: the last emitted token
         has NOT been decoded into the cache yet, so feeding it back through

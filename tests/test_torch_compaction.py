@@ -164,6 +164,57 @@ def test_merge_requires_run_lens():
         compaction.compact(img, geom=GEOM, sort_mode="merge")
 
 
+def _unique_key_image():
+    """The input of ROADMAP C1 and C2: ``build_image`` of 40 sorted unique
+    keys (uint32 ``[n, 4]`` lanes from ``default_rng(0)``), ``meta = seq <<
+    1 | 1`` and 8 value words, as host arrays."""
+    rng = np.random.default_rng(0)
+    keys = np.unique(rng.integers(0, 2**32, (40, 4), dtype=np.uint32),
+                     axis=0)
+    assert keys.shape == (40, 4)
+    meta = (np.arange(1, 41, dtype=np.uint32) << 1) | 1
+    vals = rng.integers(0, 2**32, (40, GEOM.value_words), dtype=np.uint32)
+    img = joffload.build_image(jnp.asarray(keys), jnp.asarray(meta),
+                               jnp.asarray(vals), geom=JGEOM, backend="ref")
+    return tuple(np.asarray(a) for a in img)
+
+
+def test_compact_defaults_match_jax():
+    """ROADMAP C1: ``compact`` with ``geom`` alone (the default sort mode,
+    ``"device"`` in both packages) gives JAX's image, byte for byte."""
+    im = _unique_key_image()
+    want, want_st = jcompaction.compact(
+        jformats.SSTImage(*(jnp.asarray(a) for a in im)), geom=JGEOM,
+        backend="ref")
+    got, got_st = compaction.compact(formats.image_from_numpy(im, "cpu"),
+                                     geom=GEOM)
+    for name, a, b in zip(formats.SSTImage._fields,
+                          formats.image_to_numpy(got), want):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert a.tobytes() == b.tobytes(), name
+    assert tuple(int(x) for x in got_st) == tuple(int(x) for x in want_st)
+    assert int(got_st.n_live) == 40
+
+
+def test_merge_sort_phase_takes_no_run_lens_as_one_run():
+    """ROADMAP C2: ``sort_phase(rows, sort_mode="merge")`` without
+    ``run_lens`` takes the rows as one sorted run, as JAX's does."""
+    im = _unique_key_image()
+    jrows = jcompaction.build_tuples(jcompaction.unpack(
+        jformats.SSTImage(*(jnp.asarray(a) for a in im)), JGEOM,
+        backend="ref"))
+    trows = compaction.build_tuples(compaction.unpack(
+        formats.image_from_numpy(im, "cpu"), GEOM))
+    np.testing.assert_array_equal(trows.numpy().view(np.uint32),
+                                  np.asarray(jrows))
+    want = jcompaction.sort_phase(jrows, sort_mode="merge", backend="ref")
+    got = compaction.sort_phase(trows, sort_mode="merge")
+    assert got.shape == (48, 6)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+
+
 @pytest.mark.parametrize("n,n_live", [(1, None), (K, None), (3 * K + 5, None),
                                       (2 * K, K + 3)])
 def test_build_image_matches_jax(n, n_live):

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import offload
 from repro_torch.core.formats import SSTGeometry
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import merge_path, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -83,14 +83,85 @@ def test_bloom_build(dev, groups, per, n_words):
 
 
 @pytest.mark.parametrize("lens,launches", [
-    ((16_384,) * 4 + (4096,), 4), ((3000, 0, 2500, 4000), 2), ((500,), 0),
-    ((16_384,) * 16, 15)])
+    ((16_384,) * 4 + (4096,), 3), ((3000, 0, 2500, 4000), 2), ((500,), 0),
+    ((16_384,) * 16, 4)])
 def test_merge_runs(dev, lens, launches):
+    """One launch a level of the merge tree: ceil(log2 k') for k' non-empty
+    runs, none for one run."""
     rng = np.random.default_rng(len(lens))
     rows = torch.cat([sorted_rows(rng, n, 6, dev) for n in lens])
-    before = ops.launch_counts()["merge_pair"]
+    before = ops.launch_counts()["merge_runs"]
     assert torch.equal(ops.merge_runs(rows, lens), ref.merge_runs(rows, lens))
-    assert ops.launch_counts()["merge_pair"] == before + launches
+    assert ops.launch_counts()["merge_runs"] == before + launches
+
+
+T = merge_path.TILE_ROWS
+
+
+def merge_case(rng, lens, lanes, dev, *, distinct=8, disjoint=False,
+               pad=()):
+    """Sorted runs back to back with no index lane, so equal rows repeat
+    within and across runs: over overlapping key ranges, over disjoint
+    ones (run ``i`` has first lane ``i``), or all-ones padding rows for
+    the runs in ``pad``."""
+    parts = []
+    for i, n in enumerate(lens):
+        r = rng.integers(0, distinct, (n, lanes)).astype(np.uint32)
+        if disjoint:
+            r[:, 0] = i
+        if i in pad:
+            r[:] = 0xFFFFFFFF
+        parts.append(r[np.lexsort(tuple(r[:, j] for j in
+                                        reversed(range(lanes))))])
+    return torch.from_numpy(np.concatenate(parts).view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("lens,lanes,kw,launches", [
+    ((16_384,) * 16, 6, dict(disjoint=True), 4),
+    ((900, 0, 1, 5000, 37, T, 12_000, 0, 2, 3000, 640), 6, {}, 4),
+    ((T - 1, 4 * T), 6, {}, 1), ((T, 4 * T), 6, {}, 1),
+    ((T + 1, 4 * T), 6, {}, 1), ((4 * T, T + 1), 6, {}, 1),
+    ((3000, 2000, 2500), 5, dict(distinct=2), 2),
+    ((20_000, 7000), 6, dict(pad=(0, 1)), 1),
+    ((5000, 4000, 1), 6, dict(pad=(1,)), 2),
+    ((700, 800), 1, {}, 1), ((700, 800, 5), 8, {}, 2),
+    # a level of 75 pairs takes two launches (64 pairs a launch)
+    ((40,) * 150, 6, dict(distinct=3), 9),
+], ids=["disjoint16", "ragged11", "tile-1", "tile", "tile+1", "tile+1-right",
+        "5lanes-dups", "all-padding", "padding-run", "1lane", "8lanes",
+        "split-level"])
+def test_merge_runs_cases(dev, lens, lanes, kw, launches):
+    """The kernel against the plain merge bit for bit: disjoint runs, ragged
+    runs with empty and one-row ones, tile edges, duplicates with no index
+    lane (ties to the earlier run), all-padding runs, 1 and 8 lanes; and
+    its launches a call."""
+    rng = np.random.default_rng(sum(lens) + lanes)
+    rows = merge_case(rng, lens, lanes, dev, **kw)
+    before = ops.launch_counts()["merge_runs"]
+    got = ops.merge_runs(rows, lens)
+    assert ops.launch_counts()["merge_runs"] == before + launches
+    assert torch.equal(got, ref.merge_runs(rows, lens))
+    assert torch.equal(got, ref.sort_tuples(rows))
+
+
+def test_merge_runs_takes_an_unaligned_view(dev):
+    """Rows starting 4 bytes past an 8-byte boundary (a view) merge as any
+    others do: the wrapper copies them to an aligned buffer first, since
+    the kernel moves rows as 8-byte words."""
+    lens = (3000, 2000)
+    rows = merge_case(np.random.default_rng(3), lens, 6, dev)
+    big = torch.empty(rows.numel() + 1, dtype=torch.int32, device=dev)
+    view = big[1:].view(rows.shape)
+    view.copy_(rows)
+    assert view.data_ptr() % 8 == 4
+    assert torch.equal(ops.merge_runs(view, lens), ref.merge_runs(rows, lens))
+
+
+@pytest.mark.parametrize("lanes", [9, 12])
+def test_merge_runs_refuses_lanes_it_is_not_built_for(dev, lanes):
+    rows = torch.zeros((8, lanes), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="lanes"):
+        ops.merge_runs(rows, (4, 4))
 
 
 def test_build_image_on_card_equals_cpu(dev):

@@ -273,14 +273,17 @@ def _runs(rng, lens, lanes=6, distinct=4, pad_runs=()):
                                                         np.uint32)
 
 
-@pytest.mark.parametrize("lens,pad_runs", [
+MERGE_CASES = [
     ((40,), ()),                      # k = 1: passthrough
     ((32, 32), ()),
     ((10, 0, 25, 7), ()),             # zero-length run
     ((16, 16, 16, 16, 48), (4,)),     # trailing padding run
     ((20, 20), (0, 1)),               # all padding
     ((5, 9, 13, 2, 30, 1), ()),
-])
+]
+
+
+@pytest.mark.parametrize("lens,pad_runs", MERGE_CASES)
 def test_merge_runs_matches_ref(lens, pad_runs):
     rng = np.random.default_rng(sum(lens) + len(lens))
     rows = _runs(rng, lens, pad_runs=pad_runs)
@@ -289,6 +292,72 @@ def test_merge_runs_matches_ref(lens, pad_runs):
         jref.merge_runs, run_lens=tuple(lens)))(jnp.asarray(rows)))
     np.testing.assert_array_equal(got, want)
     assert merge_path.rows_sorted(got)
+
+
+def _merge_along_plan(rows: torch.Tensor, lens) -> torch.Tensor:
+    """The kernel's schedule walked with the plain two-run merge: each
+    level's pairs read and write the buffers the plan names (0 the input,
+    1 and 2 scratch); the result is buffer 1."""
+    plan = merge_path.plan_levels(tuple(lens))
+    if not plan:
+        return rows
+    bufs = [rows, torch.full_like(rows, -1), torch.full_like(rows, -1)]
+    for level in plan:
+        for p in level.pairs:
+            assert p.dst in (1, 2) and p.dst not in (p.src_a, p.src_b)
+            mid, end = p.off + p.len_a, p.off + p.len_a + p.len_b
+            bufs[p.dst][p.off:end] = ref.merge_sorted(
+                bufs[p.src_a][p.off:mid], bufs[p.src_b][mid:end])
+    return bufs[1]
+
+
+@pytest.mark.parametrize("lens,pad_runs", MERGE_CASES + [
+    ((9, 3, 0, 14, 1, 6, 6, 20, 2, 11, 5, 8, 1, 30, 4, 7, 13, 2), ())])
+def test_merge_along_plan_levels_matches_ref(lens, pad_runs):
+    """Merging along ``plan_levels`` (as the kernel's launches do, with
+    the plain two-run merge) gives the plain merge and JAX's; the last
+    case has 17 non-empty runs."""
+    rng = np.random.default_rng(sum(lens) + len(lens))
+    rows = _runs(rng, lens, pad_runs=pad_runs)
+    got = u(_merge_along_plan(t(rows), lens))
+    np.testing.assert_array_equal(got, u(ref.merge_runs(t(rows), lens)))
+    want = np.asarray(jax.jit(functools.partial(
+        jref.merge_runs, run_lens=tuple(lens)))(jnp.asarray(rows)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lens", [
+    (40,), (0, 40, 0), (32, 32), (10, 0, 25, 7), (1,) * 6,
+    (5, 9, 13, 2, 30, 1), (3,) * 16, (3,) * 17, (2,) * 150])
+def test_plan_levels_carries_runs_in_place(lens):
+    """``ceil(log2 k')`` levels for ``k'`` non-empty runs; at each level
+    the pairs and the carried run tile the rows in order, every operand is
+    read from the buffer where it lies (an input run in buffer 0, a merged
+    one where its pair wrote it, a carried one where it was), and a carried
+    run is not written: no run is copied."""
+    plan = merge_path.plan_levels(tuple(lens))
+    k = sum(1 for n in lens if n)
+    assert len(plan) == (k - 1).bit_length()
+    offs = np.cumsum((0,) + lens)
+    where = {(int(o), n): 0 for o, n in zip(offs, lens) if n}
+    for level in plan:
+        spans = sorted([(p.off, p.len_a + p.len_b) for p in level.pairs] +
+                       [(o, n) for o, n, _ in level.carried])
+        assert spans[0][0] == 0 and sum(n for _, n in spans) == sum(lens)
+        assert all(a + n == b for (a, n), (b, _) in zip(spans, spans[1:]))
+        assert len(level.carried) <= 1
+        nxt = {}
+        for p in level.pairs:
+            assert where.pop((p.off, p.len_a)) == p.src_a
+            assert where.pop((p.off + p.len_a, p.len_b)) == p.src_b
+            nxt[(p.off, p.len_a + p.len_b)] = p.dst
+        for o, n, buf in level.carried:
+            assert where.pop((o, n)) == buf
+            nxt[(o, n)] = buf
+        assert not where
+        where = nxt
+    if plan:
+        assert where == {(0, sum(lens)): 1}
 
 
 def test_merge_runs_with_index_lane_equals_stable_sort():

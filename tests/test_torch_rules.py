@@ -180,6 +180,42 @@ def test_chip_smoke_read_kernel_cases_rehearsal():
     assert 0 < int(hit.sum()) < hit.numel()
 
 
+def test_chip_smoke_merge_cases_rehearsal():
+    """Phase 2's further merge cases built on the CPU: the plain merge is
+    a sort of each case, the launches the card must show are the plan's
+    levels, and the tile-edge runs sit at the kernel's tile."""
+    import numpy as np
+    from repro_torch.kernels import merge_path
+    cs = _chip_smoke()
+    cases = cs.merge_cases(np.random.default_rng(0), "cpu")
+    T = merge_path.TILE_ROWS
+    assert [c[0] for c in cases] == [
+        "merge_runs/disjoint", "merge_runs/ragged", "merge_runs/tile-1",
+        "merge_runs/tile+0", "merge_runs/tile+1"]
+    assert [c[2][0] for c in cases[2:]] == [T - 1, T, T + 1]
+    for name, rows, lens in cases:
+        assert cs.compare_outputs(name, ops.merge_runs(rows, lens),
+                                  ops.sort_tuples(rows))[0] == 0
+        assert cs.merge_levels(lens) == len(merge_path.plan_levels(lens))
+    ragged = cases[1][2]
+    assert len(ragged) == 11 and 0 in ragged and 1 in ragged
+    assert cs.merge_levels(ragged) == 4
+
+
+def test_chip_smoke_merge_jobs_line():
+    """Phase 3's merge report: a job of k input files takes ceil(log2 k')
+    launches, k' = k or k + 1 (the engine's padding run); anything else,
+    or no launch at all, fails the run."""
+    cs = _chip_smoke()
+    line = cs.merge_jobs_line([(4, 2, 0.001), (5, 3, 0.002), (2, 1, 0.0),
+                               (11, 4, 0.003)], "card")
+    assert "10 launches in 4 compaction jobs" in line
+    assert "sort span 0.0060 s" in line and "(5, 3, 2.000)" in line
+    for bad in ([(4, 4, 0.0)], [(4, 1, 0.0)], [(4, 0, 0.0)]):
+        with pytest.raises(AssertionError):
+            cs.merge_jobs_line(bad, "card")
+
+
 def test_chip_smoke_crc_bound_is_the_bytes():
     """Phase 2's CRC case at the paper geometry: the image read once and the
     CRCs written once over the HBM rate, and one table step a byte over the

@@ -56,6 +56,20 @@ def test_generate_equals_jax(engines, b, s, max_new):
                                    atol=1e-4)
 
 
+def test_generate_accepts_eos_and_ignores_it(engines):
+    """ROADMAP C3: ``generate(..., eos=...)`` runs, as JAX's does, and
+    gives the tokens of a call without it (both packages decode
+    ``max_new`` tokens whatever ``eos`` is)."""
+    jeng, teng = engines
+    p = prompts(2, 7, seed=11)
+    plain = teng.generate(p, max_new=5)[0]
+    eos = int(plain[0, 1])   # a token the run emits
+    got = teng.generate(p, max_new=5, eos=eos)[0]
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, jeng.generate(p, max_new=5,
+                                                     eos=eos)[0])
+
+
 def test_returned_state_is_resumable(engines):
     """4 tokens, then 4 more decoded from the returned ``(cache, pos)``,
     equal 8 uninterrupted tokens."""
