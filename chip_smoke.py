@@ -10,14 +10,17 @@ Phases, any fault exits non-zero:
 2. hold each kernel against its plain PyTorch version at the shapes of the
    store's main paths, bit for bit, and time both (CUPTI device time and
    CUDA events around one call); the merge also at disjoint, ragged and
-   tile-edge runs, with one launch a level of its merge tree;
+   tile-edge runs, with one launch a level of its merge tree; the read
+   kernels also at their edges, one launch a call; the card's launch
+   floor (a one-element fill) beside the small kernels;
 3. drive the store (``repro_torch.lsm.db.LsmDB``) at the paper's geometry:
    a seeded bulk load, a YCSB-A mix, deletes, compactions, reads and
    batched ``multi_get``s (one through a snapshot) checked against the
    ``get`` loop and a dict of acknowledged writes, close, reopen (cold
    block cache), and the reads again; every kernel of the write and read
    paths must have launched during this phase, the merge once a level of
-   each job's merge tree;
+   each job's merge tree; one ``multi_get`` batch traced, cold and warm:
+   each stage of a wave one copy over, one kernel, one copy back;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
    (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
    ``cpu``: the output images must be byte-identical; split the ``cuda``
@@ -115,6 +118,8 @@ KERNELS = {
 # and no path calls bloom_query (as in the JAX package)
 STORE_PATH = ("crc32_sections", "merge_runs", "prefix_encode",
               "bloom_build", "bloom_multi_probe", "lookup_blocks")
+# the kernels of a multi_get wave: the bloom prune, the search and gather
+READ_PATH = ("bloom_multi_probe", "lookup_blocks")
 # why each kernel has no library_ms
 NO_LIBRARY = "no single PyTorch call computes it"
 MULTI_GET_BATCH = 256
@@ -387,8 +392,8 @@ def read_kernel_cases(rng, dev):
         n_found = int(ref.lookup_blocks(*args)[0].sum())
         steps = K.bit_length()
         cases.append((
-            f"lookup_blocks/{C}", lambda a=args: ops.lookup_blocks(*a),
-            lambda a=args: ref.lookup_blocks(*a),
+            f"lookup_blocks/{C}", lambda a=args: ops.lookup_blocks_packed(*a),
+            lambda a=args: ref.lookup_blocks_packed(*a),
             C * (L * 4 + steps * L * 4 + 4) + n_found * (4 + Vw * 4) +
             C * (1 + 4 + Vw * 4), C * steps * 2 * L + n_found * Vw))
 
@@ -413,6 +418,105 @@ def read_kernel_cases(rng, dev):
                       2 * n * (L + 2) * 4,
                       n * (n.bit_length() - 1) * 2 * (L + 2)))
     return cases
+
+
+# The read kernels' edge cases, shared with the tests: lookup block shapes
+# (K, lanes, Vw) -- K = 1, a ballot chunk edge (33), two chunks and a bit
+# (70); L = 8 takes 16-byte loads, L = 10 the run-time-lanes path -- and
+# probe cases (filter words, probes): short rows whole in registers, long
+# ones probed in batches of 8 (10 probes take a second batch).
+EDGE_SHAPES = [(k, lanes, vw) for k in (1, 16, 33, 70) for lanes in (2, 4)
+               for vw in (3, 68)] + [(16, 8, 68), (33, 10, 5)]
+PROBE_EDGES = [(5, 1), (5, 6), (5, 10), (13, 1), (13, 6), (5120, 1),
+               (5120, 6), (5120, 10)]
+
+
+def edge_blocks(rng, c: int, k: int, lanes: int, vw: int):
+    """numpy ``(keys, meta, vals, nvalid, queries)``, uint32 but ``nvalid``
+    int32: ``c`` sorted blocks with duplicated rows, the all-ones sentinel
+    at and after ``nvalid`` (0 and ``k`` among them), and queries cycling
+    through: the first row, the last valid row, a duplicated row (the
+    leftmost must win), an absent key and the sentinel."""
+    keys = rng.integers(0, 6, (c, k, lanes)).astype(np.uint32)
+    nvalid = rng.integers(1, k + 1, c).astype(np.int32)
+    nvalid[0::6], nvalid[1::6] = 0, k
+    queries = rng.integers(0, 6, (c, lanes)).astype(np.uint32)
+    for i in range(c):
+        if k > 1:   # a duplicated row
+            j = int(rng.integers(0, k - 1))
+            keys[i, j + 1] = keys[i, j]
+        keys[i] = keys[i][np.lexsort(keys[i].T[::-1])]
+        n = nvalid[i]
+        kind = i % 5
+        if kind == 0 and n > 0:
+            queries[i] = keys[i, 0]
+        elif kind == 1 and n > 0:
+            queries[i] = keys[i, n - 1]
+        elif kind == 2 and n > 1:
+            dup = np.nonzero((keys[i, 1:n] == keys[i, :n - 1]).all(-1))[0]
+            queries[i] = keys[i, dup[0] if len(dup) else 0]
+        elif kind == 4:
+            queries[i] = 0xFFFFFFFF
+        keys[i, n:] = 0xFFFFFFFF
+    meta = rng.integers(0, 2**32, (c, k), dtype=np.uint32)
+    vals = rng.integers(0, 2**32, (c, k, vw), dtype=np.uint32)
+    return keys, meta, vals, nvalid, queries
+
+
+def one_launch(entry: str, fn):
+    """``fn()``, raising unless it made exactly one launch of ``entry``
+    and none of another kernel."""
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    made = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    if made != {entry: 1}:
+        raise AssertionError(f"{entry}: one call made launches {made}")
+    return out
+
+
+def check_read_edges(dev) -> int:
+    """The read kernels at their edges, bit for bit and one launch a
+    call: ``lookup_blocks`` (both forms) at ``EDGE_SHAPES``;
+    ``bloom_multi_probe`` and ``bloom_query`` at ``PROBE_EDGES``.
+    Returns the cases checked."""
+    rng = np.random.default_rng(19)
+    n = 0
+    for k, lanes, vw in EDGE_SHAPES:
+        blocks = edge_blocks(rng, 60, k, lanes, vw)
+        args = [torch.from_numpy(a.view(np.int32)).to(dev) for a in blocks]
+        for entry, plain in ((ops.lookup_blocks, ref.lookup_blocks),
+                             (ops.lookup_blocks_packed,
+                              ref.lookup_blocks_packed)):
+            got = one_launch("lookup_blocks", lambda: entry(*args))
+            compare_outputs(f"lookup_blocks K={k} L={lanes} Vw={vw}", got,
+                            plain(*args))
+            n += 1
+        found = ref.lookup_blocks(*args)[0]
+        if k > 1 and (not found.any() or found.all()):
+            raise AssertionError("edge blocks: found all or none")
+    for n_words, probes in PROBE_EDGES:
+        keys = as_i32(rng.integers(0, 2**32, (40, 16, 4),
+                                   dtype=np.uint32), dev)
+        filters = ref.bloom_build(keys, n_words=n_words,
+                                  n_probes=probes)
+        fresh = as_i32(rng.integers(0, 2**32, (40, 4), dtype=np.uint32),
+                       dev)
+        q = torch.where(torch.from_numpy(rng.random(40) < 0.5).to(dev)
+                        [:, None], keys[:, 0], fresh)
+        got = one_launch("bloom_multi_probe", lambda:
+                         ops.bloom_multi_probe(filters, q,
+                                               n_probes=probes))
+        compare_outputs(f"bloom_multi_probe W={n_words} p={probes}", got,
+                        ref.bloom_multi_probe(filters, q, n_probes=probes))
+        gq = torch.cat([keys, as_i32(rng.integers(
+            0, 2**32, (40, 16, 4), dtype=np.uint32), dev)], dim=1)
+        got = one_launch("bloom_query", lambda: ops.bloom_query(
+            filters, gq, n_probes=probes))
+        compare_outputs(f"bloom_query W={n_words} p={probes}", got,
+                        ref.bloom_query(filters, gq, n_probes=probes))
+        n += 2
+    return n
 
 
 def compare_outputs(name: str, got, want) -> tuple[int, str]:
@@ -470,6 +574,22 @@ def check_kernels(dev, card: str) -> dict:
             raise AssertionError(f"crc32: row {r} differs from binascii")
     log("  crc32_sections: 64 sampled rows equal binascii.crc32")
     check_merge_cases(dev, card, rng)
+    n = check_read_edges(dev)
+    log(f"  read kernels at their edges: {n} cases bit-identical, one launch"
+        " a call (lookup_blocks and its packed form at K 1/16/33/70, L 2/4, "
+        "Vw 3/68, and L 8 and 10; nvalid 0 and K, queries first/last valid/"
+        "duplicated/absent/sentinel; bloom_multi_probe and bloom_query at "
+        "5/13/5,120 words, 1, 6 and 10 probes)")
+    one = torch.zeros(1, device=dev)
+    results["launch_floor_ms"] = floor = device_ms(one.zero_, 50)
+    gaps = ", ".join(
+        f"{c} {results[c]['ms']:.4f} ms (+{results[c]['ms'] - floor:.4f})"
+        for c in ("bloom_multi_probe/256", "bloom_multi_probe/1024",
+                  "lookup_blocks/256", "lookup_blocks/1024", "bloom_query",
+                  "prefix_encode", "bloom_build"))
+    log(f"  launch floor (device time of a one-element zero_, CUPTI, 50 "
+        f"calls): {floor:.4f} ms; the small kernels and their gap to it: "
+        f"{gaps} [{card}]")
     return results
 
 
@@ -516,6 +636,7 @@ def check_multi_gets(store, batches, model: dict, when: str) -> dict:
     st = store.stats
     start = (st.multi_get_waves, st.multi_get_staged_bytes,
              st.multi_get_stage_seconds)
+    launches0 = ops.launch_counts()
     for b in batches:
         skips = st.bloom_negative_skips
         c0 = time.perf_counter_ns()
@@ -534,10 +655,48 @@ def check_multi_gets(store, batches, model: dict, when: str) -> dict:
     if got != [store.get(k, so) for k in b] or \
             got != [model.get(k) for k in b]:
         raise AssertionError(f"{when}: snapshot multi_get disagrees")
-    return dict(lat_us=lat, keys=n_keys, pruned=pruned,
+    launches = {n: ops.launch_counts()[n] - launches0[n]
+                for n in READ_PATH}
+    return dict(lat_us=lat, keys=n_keys, pruned=pruned, launches=launches,
                 waves=st.multi_get_waves - start[0],
                 staged_bytes=st.multi_get_staged_bytes - start[1],
                 stage_s=st.multi_get_stage_seconds - start[2])
+
+
+def trace_multi_get(store, keys) -> dict:
+    """One ``multi_get`` batch under the profiler: its waves, the stages
+    that launched a kernel (by the launch counts), the host's tensor
+    copies (``aten::copy_``, one to the card and one back a stage) and
+    the device events by kind from the CUPTI trace.  Raises unless every
+    stage made exactly one copy over and one back, and the card ran no
+    kernel but the read path's hand-written ones (no concatenation or
+    dtype pass).  CUPTI drops a few events now and then on this machine,
+    so the device counts are reported, not required to be whole."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    waves = store.stats.multi_get_waves
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        store.multi_get(keys)
+        torch.cuda.synchronize()
+    waves = store.stats.multi_get_waves - waves
+    launched = {n: ops.launch_counts()[n] - before[n] for n in READ_PATH}
+    copies, kinds = 0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            copies += e.name == "aten::copy_"
+            continue
+        kind = "HtoD" if "HtoD" in e.name else "DtoH" if "DtoH" in e.name \
+            else next((k for fn, k in HAND_WRITTEN.items() if fn in e.name),
+                      e.name)
+        kinds[kind] = kinds.get(kind, 0) + 1
+    stages = sum(launched.values())
+    if copies != 2 * stages or set(kinds) - {"HtoD", "DtoH", *READ_PATH}:
+        raise AssertionError(f"a traced multi_get made {copies} tensor "
+                             f"copies and ran device events {kinds} for the "
+                             f"launches {launched}")
+    return dict(waves=waves, launched=launched, copies=copies, kinds=kinds)
 
 
 def multi_get_line(when: str, m: dict) -> str:
@@ -550,7 +709,9 @@ def multi_get_line(when: str, m: dict) -> str:
             f" writes (and one batch through a snapshot); latency per batch "
             f"p50 {p50:.1f} us, p99 {p99:.1f} us, p99.9 {p999:.1f} us (host "
             f"clock); {m['keys'] / total_s:.0f} keys/s; "
-            f"{m['waves'] / (len(lat) + 1):.2f} waves a batch; "
+            f"{m['waves'] / (len(lat) + 1):.2f} waves a batch; launches a "
+            f"wave: " + ", ".join(f"{n} {c / m['waves']:.3f}" for n, c in
+                                  m["launches"].items()) + "; "
             f"bloom_negative_skips +{m['pruned']} (candidates pruned by "
             f"the bloom probe); device "
             f"stages (stack, copy over, kernel, copy back) "
@@ -674,6 +835,12 @@ def run_store(path: str, *, device, geom: SSTGeometry,
     mg["cold"] = check_multi_gets(db, batches, model, "after reopen")
     check_reads(db, "after reopen")
     db.close()
+    mg_trace = {}
+    if torch.device(device).type == "cuda":   # one batch traced, cold, warm
+        db = LsmDB(path, cfg, device=device)
+        mg_trace = {when: trace_multi_get(db, batches[1])
+                    for when in ("cold", "warm")}
+        db.close()
     counts = ops.launch_counts()
 
     l0 = [r for r in jobs if r.level == 0]
@@ -692,7 +859,7 @@ def run_store(path: str, *, device, geom: SSTGeometry,
         dropped=stats.compact_entries_dropped,
         latency_us={op: [float(np.percentile(v, q)) for q in (50, 99, 99.9)]
                     for op, v in lat.items()},
-        multi_get=mg, kept=kept, jobs_seen=jobs_seen)
+        multi_get=mg, mg_trace=mg_trace, kept=kept, jobs_seen=jobs_seen)
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +872,8 @@ HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
                 "merge_level_kernel": "merge_runs",
                 "prefix_encode_kernel": "prefix_encode",
                 "bloom_build_kernel": "bloom_build",
-                "bloom_probe_kernel": "bloom probes",
+                "multi_probe_kernel": "bloom_multi_probe",
+                "bloom_query_kernel": "bloom_query",
                 "lookup_kernel": "lookup_blocks",
                 "bitonic_stage": "bitonic_sort",
                 "bitonic_tile": "bitonic_sort",
@@ -1056,6 +1224,12 @@ def main() -> int:
             f"agree before and after reopen")
         for when, m in st["multi_get"].items():
             log(multi_get_line(when, m))
+        for when, tr in st["mg_trace"].items():
+            log(f"[3] one multi_get batch traced ({when} block cache): "
+                f"{tr['waves']} waves, launches {tr['launched']}, "
+                f"{tr['copies']} tensor copies (one over and one back a "
+                f"stage), no other kernel; device events (CUPTI) "
+                f"{tr['kinds']} [{card}]")
         log(f"[3] launches {st['launches']}")
         log(merge_jobs_line(st["jobs_seen"], card))
         if st["l0_jobs"] < 4 or st["l0_min_inputs"] < 4:

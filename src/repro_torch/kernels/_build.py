@@ -45,7 +45,7 @@ SIGNATURES = {
     "bloom_build": (_P, _P, _LL, _I, _I, _I, _I, _P, _P),
     "bloom_multi_probe": (_P, _P, _LL, _I, _I, _I, _P, _P),
     "bloom_query": (_P, _P, _LL, _LL, _I, _I, _I, _P, _P),
-    "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
+    "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P),
     "bitonic_sort": (_P, _LL, _I, _P, _P),
     "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P),

@@ -20,12 +20,20 @@
 //   bit-exact.  Block granularity is 5 words a group, SST granularity
 //   5,120 words (20 KB), both inside the 48 KB default.
 // * multi_probe: key i against filter i (the `multi_get` prune), one
-//   thread per candidate.
+//   thread per candidate.  A probe is the AND of the probed bits, as the
+//   TPU kernel's full AND over its one-hot select / OR-reduce (which exists
+//   only because the VPU has no gather).  A wave of the prune moves a few
+//   KB, so what a launch takes is its chain of dependent memory trips, and
+//   the probe keeps it to one: the filter row's address does not depend on
+//   the key, so a short row (up to kRowWords words: the paper's 5) comes
+//   whole into registers in the same trip as the key lanes, and the probed
+//   words are picked from registers; a longer row (an SST's 5,120 words)
+//   takes its probed words in one batch of loads after the hash, with no
+//   branch between them.
 // * query: each of Q keys of group g against filter g, one thread per
-//   (group, query).
-//   A probe loads only the probed words and stops at the first zero bit:
-//   the same boolean as the TPU kernel's full AND over its one-hot
-//   select / OR-reduce, which exists only because the VPU has no gather.
+//   (group, query).  Its Q keys share a row, which sits in L1 after the
+//   first load, and its 262,144 threads are bound by instruction issue, so
+//   it keeps the plain loop that stops at the first zero bit.
 //
 // Bound on the H100: HBM bytes (keys read once, the probed words or the
 // bitmaps, the result written once).
@@ -42,15 +50,19 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
+__device__ __forceinline__ void hash_lane(uint32_t x, uint32_t& h1,
+                                          uint32_t& h2) {
+  h1 = (h1 ^ x) * 16777619u;
+  h2 = (h2 ^ 0x9E3779B9u ^ x) * 16777619u;
+}
+
+constexpr uint32_t kH1 = 2166136261u, kH2 = 2166136261u ^ 0xDEADBEEFu;
+
 __device__ __forceinline__ void bloom_hash(const uint32_t* k, int lanes,
                                            uint32_t& h1, uint32_t& h2) {
-  h1 = 2166136261u;
-  h2 = 2166136261u ^ 0xDEADBEEFu;
-  for (int l = 0; l < lanes; ++l) {
-    const uint32_t x = k[l];
-    h1 = (h1 ^ x) * 16777619u;
-    h2 = (h2 ^ 0x9E3779B9u ^ x) * 16777619u;
-  }
+  h1 = kH1;
+  h2 = kH2;
+  for (int l = 0; l < lanes; ++l) hash_lane(k[l], h1, h2);
   h1 = mix32(h1);
   h2 = mix32(h2) | 1u;
 }
@@ -71,6 +83,15 @@ __device__ __forceinline__ bool bloom_probe(const uint32_t* filter,
     if (!((filter[pos >> 5] >> (pos & 31u)) & 1u)) return false;
   }
   return true;
+}
+
+// x mod m, exact for every 32-bit x and m > 1, by Lemire, Kaser and
+// Kurz's direct remainder: magic = floor((2^64 - 1) / m) + 1.  Two 64-bit
+// multiplies instead of the dozens of dependent instructions of `%` by a
+// run-time divisor.
+__device__ __forceinline__ uint32_t mod_magic(uint32_t x, uint64_t magic,
+                                              uint32_t m) {
+  return (uint32_t)__umul64hi(magic * x, m);
 }
 
 __global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
@@ -97,33 +118,100 @@ __global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
     out[g * n_words + w] = bits[w];
 }
 
-constexpr int kProbeThreads = 256;
+constexpr int kProbeThreads = 64;   // a 256-candidate wave on 4 SMs
+constexpr int kRowWords = 16;    // rows up to this come whole to registers
+constexpr int kKeyLanes = 8;     // key lanes loaded in the first trip
+constexpr int kProbeBatch = 8;   // probes unrolled: their words together
+
+// f[idx] for idx < kRowWords without indexing registers (which would put
+// the row in local memory): a tree of selects, four deep.
+__device__ __forceinline__ uint32_t pick(const uint32_t (&f)[kRowWords],
+                                         uint32_t idx) {
+  static_assert(kRowWords == 16, "a four-level tree");
+  uint32_t a[8], b[4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) a[j] = idx & 8u ? f[j + 8] : f[j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b[j] = idx & 4u ? a[j + 4] : a[j];
+  const uint32_t c0 = idx & 2u ? b[2] : b[0];
+  const uint32_t c1 = idx & 2u ? b[3] : b[1];
+  return idx & 1u ? c1 : c0;
+}
+
+// Row r of `keys` is probed against filter row r.  kShort: the filter row
+// has at most kRowWords words.  magic: `mod_magic`'s for m = 32 * n_words.
+template <bool kShort>
+__global__ void __launch_bounds__(kProbeThreads)
+multi_probe_kernel(const uint32_t* __restrict__ filters,
+                   const uint32_t* __restrict__ keys, long long rows,
+                   int lanes, int n_words, int n_probes, uint64_t magic,
+                   uint8_t* __restrict__ out) {
+  const long long r = (long long)blockIdx.x * kProbeThreads + threadIdx.x;
+  if (r >= rows) return;
+  const uint32_t* filter = filters + r * n_words;
+  const uint32_t* key = keys + r * lanes;
+  // the first trip: the whole short filter row and the key lanes
+  uint32_t f[kRowWords];
+  if constexpr (kShort) {
+#pragma unroll
+    for (int w = 0; w < kRowWords; ++w)
+      f[w] = w < n_words ? __ldg(filter + w) : 0u;
+  }
+  uint32_t kw[kKeyLanes];
+#pragma unroll
+  for (int l = 0; l < kKeyLanes; ++l) kw[l] = l < lanes ? __ldg(key + l) : 0u;
+  uint32_t h1 = kH1, h2 = kH2;
+#pragma unroll
+  for (int l = 0; l < kKeyLanes; ++l)
+    if (l < lanes) hash_lane(kw[l], h1, h2);
+  for (int l = kKeyLanes; l < lanes; ++l) hash_lane(__ldg(key + l), h1, h2);
+  h1 = mix32(h1);
+  h2 = mix32(h2) | 1u;
+
+  // the AND of the probed bits, kProbeBatch probes at a time, unrolled so
+  // that their positions (and, for a long row, their word loads: the
+  // second trip) are independent of one another
+  const uint32_t m = (uint32_t)n_words * 32u;
+  uint32_t all = 1u;
+  for (int i0 = 0; i0 < n_probes; i0 += kProbeBatch) {
+    if constexpr (kShort) {
+#pragma unroll
+      for (int j = 0; j < kProbeBatch; ++j) {
+        if (i0 + j < n_probes) {   // the same for every thread
+          const uint32_t pos =
+              mod_magic(h1 + (uint32_t)(i0 + j) * h2, magic, m);
+          all &= pick(f, pos >> 5) >> (pos & 31u);
+        }
+      }
+    } else {
+      uint32_t word[kProbeBatch], bit[kProbeBatch];
+#pragma unroll
+      for (int j = 0; j < kProbeBatch; ++j) {
+        const uint32_t pos =
+            mod_magic(h1 + (uint32_t)(i0 + j) * h2, magic, m);
+        bit[j] = pos & 31u;
+        word[j] = i0 + j < n_probes ? __ldg(filter + (pos >> 5)) : ~0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kProbeBatch; ++j) all &= word[j] >> bit[j];
+    }
+  }
+  out[r] = (uint8_t)(all & 1u);
+}
+
+constexpr int kQueryThreads = 256;
 
 // Row r of `keys` is probed against filter row r / per_filter.
-__global__ void __launch_bounds__(kProbeThreads)
-bloom_probe_kernel(const uint32_t* __restrict__ filters,
+__global__ void __launch_bounds__(kQueryThreads)
+bloom_query_kernel(const uint32_t* __restrict__ filters,
                    const uint32_t* __restrict__ keys, long long rows,
                    long long per_filter, int lanes, int n_words,
                    int n_probes, uint8_t* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * kProbeThreads + threadIdx.x;
+  const long long r = (long long)blockIdx.x * kQueryThreads + threadIdx.x;
   if (r >= rows) return;
   const uint32_t* filter = filters + (r / per_filter) * n_words;
   out[r] = bloom_probe(filter, (uint32_t)n_words * 32u, keys + r * lanes,
                        lanes, n_probes) ? 1 : 0;
-}
-
-int launch_probe(const void* filters, const void* keys, long long rows,
-                 long long per_filter, int lanes, int n_words, int n_probes,
-                 void* out, void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (n_words <= 0 || per_filter <= 0 || lanes <= 0)
-    return cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((rows + kProbeThreads - 1) / kProbeThreads);
-  bloom_probe_kernel<<<grid, kProbeThreads, 0, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(filters),
-      static_cast<const uint32_t*>(keys), rows, per_filter, lanes, n_words,
-      n_probes, static_cast<uint8_t*>(out));
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -155,8 +243,17 @@ REPRO_EXPORT int bloom_build(const void* keys, const void* valid,
 REPRO_EXPORT int bloom_multi_probe(const void* filters, const void* keys,
                                    long long c, int lanes, int n_words,
                                    int n_probes, void* out, void* stream) {
-  return launch_probe(filters, keys, c, 1, lanes, n_words, n_probes, out,
-                      stream);
+  if (c <= 0) return cudaSuccess;
+  if (n_words <= 0 || lanes <= 0) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((c + kProbeThreads - 1) / kProbeThreads);
+  const uint64_t magic = ~0ull / ((uint64_t)n_words * 32u) + 1u;
+  auto kernel = n_words <= kRowWords ? multi_probe_kernel<true>
+                                     : multi_probe_kernel<false>;
+  kernel<<<grid, kProbeThreads, 0, as_stream(stream)>>>(
+      static_cast<const uint32_t*>(filters),
+      static_cast<const uint32_t*>(keys), c, lanes, n_words, n_probes, magic,
+      static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
 }
 
 // filters: uint32 [groups, n_words]; keys: uint32 [groups, queries, lanes];
@@ -165,6 +262,14 @@ REPRO_EXPORT int bloom_query(const void* filters, const void* keys,
                              long long groups, long long queries, int lanes,
                              int n_words, int n_probes, void* out,
                              void* stream) {
-  return launch_probe(filters, keys, groups * queries, queries, lanes,
-                      n_words, n_probes, out, stream);
+  const long long rows = groups * queries;
+  if (rows <= 0) return cudaSuccess;
+  if (n_words <= 0 || queries <= 0 || lanes <= 0)
+    return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((rows + kQueryThreads - 1) / kQueryThreads);
+  bloom_query_kernel<<<grid, kQueryThreads, 0, as_stream(stream)>>>(
+      static_cast<const uint32_t*>(filters),
+      static_cast<const uint32_t*>(keys), rows, queries, lanes, n_words,
+      n_probes, static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
 }

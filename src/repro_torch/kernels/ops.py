@@ -88,6 +88,16 @@ def lookup_blocks(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
     return ref.lookup_blocks(keys, meta, vals, nvalid, queries)
 
 
+def lookup_blocks_packed(keys: torch.Tensor, meta: torch.Tensor,
+                         vals: torch.Tensor, nvalid: torch.Tensor,
+                         queries: torch.Tensor) -> torch.Tensor:
+    """:func:`lookup_blocks` as one int32 ``[C, 2 + Vw]`` tensor: found (0
+    or 1), the meta word, the value (what the read path copies back)."""
+    if _on_card(keys):
+        return _lookup.lookup_blocks_packed(keys, meta, vals, nvalid, queries)
+    return ref.lookup_blocks_packed(keys, meta, vals, nvalid, queries)
+
+
 def prefix_encode(keys: torch.Tensor, *,
                   restart_interval: int = 16) -> torch.Tensor:
     if _on_card(keys):

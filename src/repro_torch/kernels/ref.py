@@ -368,6 +368,15 @@ def lookup_blocks(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,
     return found, m, v
 
 
+def lookup_blocks_packed(keys: torch.Tensor, meta: torch.Tensor,
+                         vals: torch.Tensor, nvalid: torch.Tensor,
+                         queries: torch.Tensor) -> torch.Tensor:
+    """:func:`lookup_blocks`'s three outputs side by side: int32
+    ``[C, 2 + Vw]`` of found (0 or 1), the meta word and the value."""
+    found, m, v = lookup_blocks(keys, meta, vals, nvalid, queries)
+    return torch.cat([found.to(torch.int32)[:, None], m[:, None], v], dim=1)
+
+
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
                    h0: torch.Tensor | None = None

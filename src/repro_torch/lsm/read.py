@@ -15,7 +15,7 @@ wave is one stacked pass:
    rows (``ops.bloom_multi_probe``).
 2. **gather** -- the surviving blocks are decoded once each (through the
    cache), stacked, and every query is resolved by one lower-bound
-   search and gather (``ops.lookup_blocks``).
+   search and gather (``ops.lookup_blocks_packed``).
 
 Newest-version-wins follows from the wave order: a candidate carries the
 rank of its table in the scalar search order (L0 newest first, then the
@@ -269,8 +269,8 @@ def _stage(arrays, device, stats=None) -> list[torch.Tensor]:
 
 def _device_lookup(blks, queries: np.ndarray, device, stats=None):
     """Stack the candidate blocks, copy them to ``device`` in one transfer,
-    resolve every query in one ``lookup_blocks`` call, and read the
-    results back in one transfer."""
+    resolve every query in one ``lookup_blocks_packed`` call, and read its
+    one buffer back in one transfer."""
     t0 = time.perf_counter()
     n = len(blks)
     pad = _bucket(n) - n   # sentinel rows with nvalid = 0: never found
@@ -284,8 +284,7 @@ def _device_lookup(blks, queries: np.ndarray, device, stats=None):
               np.pad(vals, ((0, pad), (0, 0), (0, 0))),
               np.pad(nvalid, (0, pad)),
               np.pad(queries, ((0, pad), (0, 0)))]
-    found, m, v = ops.lookup_blocks(*_stage(staged, device, stats))
-    out = torch.cat([found.to(torch.int32)[:, None], m[:, None], v],
-                    dim=1).cpu().numpy().view(np.uint32)[:n]
+    packed = ops.lookup_blocks_packed(*_stage(staged, device, stats))
+    out = packed.cpu().numpy().view(np.uint32)[:n]
     _count_stage(stats, t0)
     return out[:, 0].astype(bool), out[:, 1], out[:, 2:]

@@ -6,6 +6,9 @@ imports none):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,11 @@ from repro_torch.core.formats import SSTGeometry
 from repro_torch.kernels import merge_path, ops, ref
 
 pytestmark = pytest.mark.cuda
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)   # the read kernels' edge cases
 
 
 @pytest.fixture
@@ -236,6 +244,52 @@ def test_bloom_query(dev, g, q, n_words):
                               n_probes=6)
     assert torch.equal(ops.bloom_query(filters, keys, n_probes=6),
                        ref.bloom_query(filters, keys, n_probes=6))
+
+
+@pytest.mark.parametrize("k,lanes,vw", chip_smoke.EDGE_SHAPES)
+def test_lookup_blocks_edges(dev, k, lanes, vw):
+    """Both forms at K = 1, a ballot chunk edge (33) and two chunks and a
+    bit (70); L = 8 takes 16-byte loads, L = 10 the run-time-lanes path."""
+    args = [torch.from_numpy(a.view(np.int32)).to(dev)
+            for a in chip_smoke.edge_blocks(
+                np.random.default_rng(k * lanes + vw), 60, k, lanes, vw)]
+    want = ref.lookup_blocks(*args)
+    for fn, expect in ((ops.lookup_blocks, want),
+                       (ops.lookup_blocks_packed,
+                        ref.lookup_blocks_packed(*args))):
+        before = ops.launch_counts()
+        got = fn(*args)
+        after = ops.launch_counts()
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == {"lookup_blocks": 1}
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        expect if isinstance(expect, tuple) else (expect,)):
+            assert torch.equal(a, b)
+    if k > 1:
+        assert want[0].any() and not want[0].all()
+
+
+@pytest.mark.parametrize("n_words,probes", chip_smoke.PROBE_EDGES)
+def test_probe_edges(dev, n_words, probes):
+    """Short filter rows (whole in registers) and long ones (the probed
+    words in batches of 8), 1, 6 and 10 probes; one launch a call."""
+    rng = np.random.default_rng(n_words + probes)
+    keys = words(rng, (40, 16, 4), dev)
+    filters = ref.bloom_build(keys, n_words=n_words, n_probes=probes)
+    q = torch.where(torch.from_numpy(rng.random(40) < 0.5).to(dev)[:, None],
+                    keys[:, 0], words(rng, (40, 4), dev))
+    gq = torch.cat([keys, words(rng, (40, 16, 4), dev)], dim=1)
+    for name, fn, plain in (
+            ("bloom_multi_probe", lambda: ops.bloom_multi_probe(
+                filters, q, n_probes=probes),
+             lambda: ref.bloom_multi_probe(filters, q, n_probes=probes)),
+            ("bloom_query", lambda: ops.bloom_query(
+                filters, gq, n_probes=probes),
+             lambda: ref.bloom_query(filters, gq, n_probes=probes))):
+        before = ops.launch_counts()[name]
+        got = fn()
+        assert ops.launch_counts()[name] == before + 1
+        assert torch.equal(got, plain())
 
 
 def _bitonic_kernels(n: int, lanes: int) -> int:

@@ -12,7 +12,9 @@ package, on the CPU.
   files as ``"merge"`` and as the JAX store.
 """
 
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +38,11 @@ from repro_torch.lsm import ReadOptions
 from repro_torch.lsm.db import DBConfig, LsmDB
 
 KW = dict(key_bytes=16, value_bytes=32, block_bytes=512, sst_bytes=2048)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)   # the read kernels' edge cases
 
 
 def t(a: np.ndarray) -> torch.Tensor:
@@ -148,6 +155,73 @@ def test_lookup_blocks_matches_pallas_and_ref(c, k, lanes, vw):
         assert u(m)[i] == meta[i, first]
         np.testing.assert_array_equal(u(v)[i], vals[i, first])
     assert (u(m)[~f] == 0).all() and (u(v)[~f] == 0).all()
+
+
+@pytest.mark.parametrize("c,k,lanes,vw", [(23, 16, 4, 3), (40, 16, 4, 68),
+                                          (9, 40, 2, 5)])
+def test_lookup_blocks_packed_matches_pallas_and_ref(c, k, lanes, vw):
+    """The packed form (what the read path copies back) is the Pallas
+    kernel's and the oracle's three outputs side by side."""
+    rng = np.random.default_rng(c * k)
+    keys, meta, vals, nvalid, queries = lookup_case(rng, c, k, lanes, vw)
+    got = ops.lookup_blocks_packed(t(keys), t(meta), t(vals), t(nvalid),
+                                   t(queries))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (c, 2 + vw)
+    for jf, jm, jv in (jlookup.lookup_blocks(keys, meta, vals, nvalid,
+                                             queries, interpret=True),
+                       jref.lookup_blocks(keys, meta, vals, nvalid, queries)):
+        want = np.concatenate([np.asarray(jf).astype(np.uint32)[:, None],
+                               np.asarray(jm)[:, None], np.asarray(jv)],
+                              axis=1)
+        np.testing.assert_array_equal(u(got), want)
+
+
+@pytest.mark.parametrize("k,lanes,vw", chip_smoke.EDGE_SHAPES)
+def test_lookup_blocks_edges_match_jax(k, lanes, vw):
+    """The read kernels' edge blocks (``chip_smoke.edge_blocks``, which the
+    card checks too) through the plain versions and the JAX oracle."""
+    keys, meta, vals, nvalid, queries = chip_smoke.edge_blocks(
+        np.random.default_rng(k * lanes + vw), 60, k, lanes, vw)
+    found, m, v = ref.lookup_blocks(t(keys), t(meta), t(vals), t(nvalid),
+                                    t(queries))
+    of, om, ov = jref.lookup_blocks(keys, meta, vals, nvalid, queries)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(of))
+    np.testing.assert_array_equal(u(m), np.asarray(om))
+    np.testing.assert_array_equal(u(v), np.asarray(ov))
+    packed = ref.lookup_blocks_packed(t(keys), t(meta), t(vals), t(nvalid),
+                                      t(queries))
+    np.testing.assert_array_equal(u(packed)[:, 0], found.numpy())
+    np.testing.assert_array_equal(u(packed)[:, 1], u(m))
+    np.testing.assert_array_equal(u(packed)[:, 2:], u(v))
+    f = found.numpy()
+    assert not f[nvalid == 0].any()
+    assert not f[(queries == 0xFFFFFFFF).all(-1)].any()
+    for i in np.nonzero(f)[0]:   # the leftmost equal row wins
+        first = int(np.nonzero((keys[i] == queries[i]).all(-1))[0][0])
+        assert u(m)[i] == meta[i, first]
+    if k > 1:
+        assert f.any() and not f.all()
+
+
+@pytest.mark.parametrize("n_words,probes", chip_smoke.PROBE_EDGES)
+def test_probe_edges_match_jax(n_words, probes):
+    """The card tests' probe edges (short and long filter rows, 1, 6 and 10
+    probes) through the plain versions and the JAX oracles."""
+    rng = np.random.default_rng(n_words + probes)
+    filters, keys = _filters_and_keys(rng, 40, 16, n_words, 4, probes)
+    q = keys[:, 0].copy()
+    absent = rng.random(40) < 0.5
+    q[absent] = rng.integers(0, 2**32, (absent.sum(), 4), np.uint32)
+    got = ref.bloom_multi_probe(t(filters), t(q), n_probes=probes).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.bloom_multi_probe(filters, q, n_probes=probes)))
+    assert got[~absent].all()
+    gq = np.concatenate([keys, rng.integers(0, 2**32, (40, 16, 4),
+                                            dtype=np.uint32)], axis=1)
+    got = ref.bloom_query(t(filters), t(gq), n_probes=probes).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.bloom_query(filters, gq, n_probes=probes)))
+    assert got[:, :16].all()
 
 
 @pytest.mark.parametrize("n,lanes,index_lane", [

@@ -174,10 +174,36 @@ def test_chip_smoke_read_kernel_cases_rehearsal():
     with pytest.raises(AssertionError, match="differs"):
         cs.compare_outputs("x", torch.zeros(3, dtype=torch.int32),
                            torch.ones(3, dtype=torch.int32))
-    found = cases[1][1]()[0]
+    found = cases[1][1]()[:, 0]   # the packed form: found, meta, value
     hit = cases[0][1]()
     assert 0 < int(found.sum()) < found.numel()
     assert 0 < int(hit.sum()) < hit.numel()
+
+
+def test_chip_smoke_read_edge_cases_rehearsal():
+    """Phase 2's read edge blocks are sorted, hold both hits and misses,
+    and their packed plain lookup is the three outputs side by side; a
+    call that launches no kernel (here on the CPU) fails the one-launch
+    check."""
+    import numpy as np
+    cs = _chip_smoke()
+    for k, lanes, vw in cs.EDGE_SHAPES:
+        blocks = cs.edge_blocks(np.random.default_rng(k), 60, k, lanes, vw)
+        keys, nvalid = blocks[0], blocks[3]
+        assert {0, k} <= set(nvalid.tolist())
+        for i in range(60):   # sorted, the sentinel from nvalid on
+            rows = [tuple(r) for r in keys[i]]
+            assert rows == sorted(rows)
+            assert (keys[i, nvalid[i]:] == 0xFFFFFFFF).all()
+        args = [torch.from_numpy(a.view(np.int32)) for a in blocks]
+        found, meta, vals = ops.lookup_blocks(*args)
+        packed = ops.lookup_blocks_packed(*args)
+        assert torch.equal(packed, torch.cat(
+            [found.to(torch.int32)[:, None], meta[:, None], vals], dim=1))
+        if k > 1:
+            assert found.any() and not found.all()
+    with pytest.raises(AssertionError, match="made launches"):
+        cs.one_launch("lookup_blocks", lambda: ops.lookup_blocks(*args))
 
 
 def test_chip_smoke_merge_cases_rehearsal():
