@@ -11,8 +11,11 @@ Phases, any fault exits non-zero:
    store's main paths, bit for bit, and time both (CUPTI device time and
    CUDA events around one call); the merge also at disjoint, ragged and
    tile-edge runs, with one launch a level of its merge tree; the read
-   kernels also at their edges, one launch a call; the card's launch
-   floor (a one-element fill) beside the small kernels;
+   kernels also at their edges, one launch a call; the sort and the bloom
+   build at their edges (``SORT_EDGES``, ``BLOOM_EDGES``), the sort with
+   the launches its plan names, the build with one; PyTorch's nearest
+   route to the sort timed beside it; the card's launch floor (a
+   one-element fill) beside the small kernels;
 3. drive the store (``repro_torch.lsm.db.LsmDB``) at the paper's geometry:
    a seeded bulk load, a YCSB-A mix, deletes, compactions, reads and
    batched ``multi_get``s (one through a snapshot) checked against the
@@ -24,7 +27,7 @@ Phases, any fault exits non-zero:
 4. run one real compaction job of phase 3 through the engine on ``cuda``
    (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
    ``cpu``: the output images must be byte-identical; split the ``cuda``
-   merge job's device time by kernel (CUPTI trace);
+   job's device time by kernel (CUPTI trace), in both sort modes;
 5. serve falcon-mamba-7b at full width and depth
    (``repro_torch.serving.engine.ServeEngine``): the selective-scan kernel
    against its plain version at the serving shapes (and at one long
@@ -35,6 +38,12 @@ Phases, any fault exits non-zero:
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1 and 2's timed cases only (no edge tables, no ``ok`` line),
+so that a copy of this script placed in another checkout times that
+checkout's kernels on the same cases.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
 from repro_torch.kernels import _build, merge_path, ops, ref  # noqa: E402
+from repro_torch.kernels import bitonic_sort as sort_plan  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
@@ -306,14 +316,24 @@ def kernel_cases(rng, dev):
     valid = torch.from_numpy(valid_np).to(dev)
     nw, probes = g.bloom_words(K), g.bloom_probes
     # per valid key: 2 FNV rounds a lane, two fmix32, and per probe a
-    # multiply-add, a modulo, a shift and an atomic OR
-    cases.append(("bloom_build",
-                  lambda: ops.bloom_build(bkeys, valid, n_words=nw,
-                                          n_probes=probes),
-                  lambda: ref.bloom_build(bkeys, n_words=nw,
-                                          n_probes=probes, valid=valid),
-                  B * K * (L * 4 + 1) + B * nw * 4,
-                  int(valid_np.sum()) * (L * 6 + 12 + probes * 5)))
+    # multiply-add, a modulo, a shift and an OR; block filters, one group
+    # of them alone (a launch's chain with no other work), then an SST's (4
+    # SSTs of 16,384 keys, 5,120 words: the other route)
+    for name, (G, per, words) in (("bloom_build", (B, K, nw)),
+                                  ("bloom_build/1", (1, K, nw)),
+                                  ("bloom_build/sst", (4, 16_384, 5_120))):
+        if name != "bloom_build":
+            bkeys = as_i32(rng.integers(0, 2**32, (G, per, L),
+                                        dtype=np.uint32), dev)
+            valid_np = rng.random((G, per)) < 0.94
+            valid = torch.from_numpy(valid_np).to(dev)
+        cases.append((name,
+                      lambda k=bkeys, v=valid, w=words: ops.bloom_build(
+                          k, v, n_words=w, n_probes=probes),
+                      lambda k=bkeys, v=valid, w=words: ref.bloom_build(
+                          k, n_words=w, n_probes=probes, valid=v),
+                      G * per * (L * 4 + 1) + G * words * 4,
+                      int(valid_np.sum()) * (L * 6 + 12 + probes * 5)))
     return cases, sections
 
 
@@ -335,7 +355,7 @@ def probes_evaluated(filters: torch.Tensor, keys: torch.Tensor,
     return int(count.sum())
 
 
-def read_kernel_cases(rng, dev):
+def read_kernel_cases(rng, dev, sort_rows: dict | None = None):
     """The read path's kernels at a wave of 256 candidates of the paper
     geometry (K = 16 rows a block, L = 4, Vw = 68, 5 filter words and 6
     probes a block) -- the largest wave that ``multi_get``'s 256-key
@@ -347,7 +367,8 @@ def read_kernel_cases(rng, dev):
     or its key lanes, the rows a binary search reads (log2 K + 1), the
     meta word and the value row where found.  The sort's bound counts the
     rows read once and written once, and the n log2 n row comparisons a
-    sort needs (not the network's larger count)."""
+    sort needs (not the network's larger count).  ``sort_rows``, where
+    given, receives the sort's inputs by row count."""
     g = PAPER_GEOM
     K, L, Vw = g.block_kvs, g.key_lanes, g.value_words
     nw, probes = g.bloom_words(K), g.bloom_probes
@@ -410,6 +431,8 @@ def read_kernel_cases(rng, dev):
     for n in (65_536, 262_144):
         rows = torch.from_numpy(tuple_runs(rng, [n], 0, L).view(np.int32))
         rows = rows[torch.from_numpy(rng.permutation(n))].contiguous().to(dev)
+        if sort_rows is not None:
+            sort_rows[n] = rows
         # n log2 n row comparisons of up to L + 2 lanes, two operations a
         # lane
         cases.append((f"bitonic_sort/{n}",
@@ -519,6 +542,109 @@ def check_read_edges(dev) -> int:
     return n
 
 
+# The sort's and the bloom build's edge cases, shared with the tests.
+# Sort: (rows, lanes, index lane) -- one row, two, a tile (SORT_TILE, what
+# `bitonic_sort.tile_rows` gives these lanes) less one, a tile, a tile and
+# one, three tiles and five, and 300,001 rows; 1 to 8 lanes on the
+# register tile sort, 10 on the run-time-lanes route; with a unique last
+# lane, or without (rows repeat).  Words come from SORT_WORDS, so key
+# lanes tie often and the top bit is set in half of them.
+SORT_TILE = 2048
+SORT_LANES = (1, 3, 6, 8, 10)
+SORT_EDGES = [(n, lanes, index_lane) for lanes in SORT_LANES
+              for n in (1, 2, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
+                        3 * SORT_TILE + 5, 300_001)
+              for index_lane in (True, False)]
+SORT_WORDS = np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001,
+                       0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+# Bloom build: (groups, keys a group, lanes, filter words, probes, share of
+# valid keys) -- the paper's block filters; one key a group; a group past
+# a warp (33 keys: lanes loop); the short route's widest row (32 words)
+# and the block route's narrowest (33); 219 and 5,120 words (an SST); an
+# SST's keys on a short row; 1, 6 and 30 probes; no valid key and all.
+BLOOM_EDGES = [(4096, 16, 4, 5, 6, 0.94), (64, 1, 4, 2, 6, 1.0),
+               (40, 16, 2, 5, 1, 1.0), (40, 16, 10, 13, 30, 1.0),
+               (40, 16, 4, 5, 6, 0.0), (17, 33, 4, 13, 6, 0.8),
+               (9, 33, 10, 5, 30, 0.5), (5, 16, 4, 32, 6, 1.0),
+               (5, 16, 4, 33, 6, 1.0), (3, 700, 4, 219, 6, 0.9),
+               (2, 700, 2, 219, 30, 1.0), (1, 16_384, 4, 5_120, 6, 0.9),
+               (2, 16_384, 10, 5_120, 1, 1.0), (3, 16_384, 4, 5, 6, 1.0)]
+
+
+def sort_edge_rows(n: int, lanes: int, index_lane: bool) -> np.ndarray:
+    """uint32 ``[n, lanes]`` rows of ``SORT_WORDS``, seeded by the case;
+    with ``index_lane`` the last lane is a permutation of ``n`` with the
+    top bit set in about half its words (still unique)."""
+    rng = np.random.default_rng(n * 16 + lanes * 2 + index_lane)
+    rows = SORT_WORDS[rng.integers(0, len(SORT_WORDS), (n, lanes))]
+    if index_lane:
+        top = np.where(rng.random(n) < 0.5, 0x80000000, 0).astype(np.uint32)
+        rows[:, -1] = rng.permutation(n).astype(np.uint32) ^ top
+    return rows
+
+
+def bloom_edge_inputs(groups: int, per: int, lanes: int, n_words: int,
+                      probes: int, p_valid: float
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """uint32 keys ``[groups, per, lanes]`` and the bool valid mask of a
+    ``BLOOM_EDGES`` case, seeded by the case."""
+    rng = np.random.default_rng(groups * per + lanes * n_words + probes)
+    keys = rng.integers(0, 2**32, (groups, per, lanes), dtype=np.uint32)
+    return keys, rng.random((groups, per)) < p_valid
+
+
+def check_sort_edges(dev, sort_rows: dict) -> int:
+    """``bitonic_sort`` at ``SORT_EDGES`` and at phase 2's sort inputs
+    (``sort_rows``): bit-identical to its plain version, the input left as
+    it was, and exactly the launches its plan names.  Returns the cases."""
+    cases = [(f"n={n} L={lanes} index={idx}",
+              as_i32(sort_edge_rows(n, lanes, idx), dev))
+             for n, lanes, idx in SORT_EDGES]
+    cases += [(f"n={n} phase-2 tuples", rows)
+              for n, rows in sort_rows.items()]
+    for name, rows in cases:
+        n, lanes = rows.shape
+        kept = rows.clone()
+        before = ops.launch_counts()
+        got = ops.bitonic_sort(rows)
+        after = ops.launch_counts()
+        made = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        torch.cuda.synchronize()
+        compare_outputs(f"bitonic_sort {name}", got, ref.sort_tuples(rows))
+        if not torch.equal(rows, kept):
+            raise AssertionError(f"bitonic_sort {name}: changed its input")
+        if made != {"bitonic_sort": sort_plan.launches(n, lanes)}:
+            raise AssertionError(f"bitonic_sort {name}: launches {made}, "
+                                 f"planned {sort_plan.launches(n, lanes)}")
+    return len(cases)
+
+
+def check_bloom_edges(dev) -> int:
+    """``bloom_build`` at ``BLOOM_EDGES``: bit-identical to its plain
+    version, one launch a call.  Returns the cases checked."""
+    for case in BLOOM_EDGES:
+        keys, valid = bloom_edge_inputs(*case)
+        k = as_i32(keys, dev)
+        v = torch.from_numpy(valid).to(dev)
+        n_words, probes = case[3], case[4]
+        got = one_launch("bloom_build", lambda: ops.bloom_build(
+            k, v, n_words=n_words, n_probes=probes))
+        compare_outputs(f"bloom_build {case}", got, ref.bloom_build(
+            k, n_words=n_words, n_probes=probes, valid=v))
+    return len(BLOOM_EDGES)
+
+
+def unique_sort(rows: torch.Tensor) -> torch.Tensor:
+    """PyTorch's nearest route to the sort, timed beside it and used
+    nowhere in the port: the sign bit flipped (so int32 order is the
+    words' unsigned order), ``torch.unique(dim=0)``, which returns unique
+    rows sorted lexicographically, and the sign bit flipped back.  Equal
+    to the sort where the rows are unique (an index lane)."""
+    flip = torch.iinfo(torch.int32).min
+    return torch.unique(rows ^ flip, dim=0) ^ flip
+
+
 def compare_outputs(name: str, got, want) -> tuple[int, str]:
     """Raise unless a kernel's output (a tensor or a tuple of them) equals
     its plain version's bit for bit; returns the max abs error over the
@@ -534,12 +660,14 @@ def compare_outputs(name: str, got, want) -> tuple[int, str]:
     return err, " ".join(str(tuple(a.shape)) for a in got)
 
 
-def check_kernels(dev, card: str) -> dict:
-    """Phase 2.  Returns per-kernel results keyed by kernel name; ``card``
-    (name, power limit) goes beside every time."""
+def check_kernels(dev, card: str) -> tuple[dict, dict]:
+    """Phase 2.  Returns per-kernel results keyed by kernel name, and the
+    sort's inputs by row count; ``card`` (name, power limit) goes beside
+    every time."""
     rng = np.random.default_rng(2020)
     cases, sections = kernel_cases(rng, dev)
-    cases += read_kernel_cases(rng, dev)
+    sort_rows: dict = {}
+    cases += read_kernel_cases(rng, dev, sort_rows)
     results = {}
     for name, kern, plain, nbytes, nops in cases:
         before = sum(ops.launch_counts().values())
@@ -565,6 +693,15 @@ def check_kernels(dev, card: str) -> dict:
     log(f"  library_ms: none for every kernel: {NO_LIBRARY} (a sectioned "
         "CRC, a lexicographic 6-lane merge or sort, a prefix count, a bloom"
         " build or 6-probe test, a lower-bound search with a gather)")
+    for n, rows in sort_rows.items():
+        compare_outputs(f"unique_sort/{n}", unique_sort(rows),
+                        ref.sort_tuples(rows))
+        results[f"unique_sort/{n}"] = ms = device_ms(
+            lambda r=rows: unique_sort(r), 20)
+        log(f"  PyTorch's nearest route to bitonic_sort/{n} (sign flip, "
+            f"torch.unique(dim=0), flip back; three calls, so not "
+            f"library_ms): equal to the sort; device time {ms:.4f} ms, the "
+            f"kernel {results[f'bitonic_sort/{n}']['ms']:.4f} ms [{card}]")
     # the CRC chain anchored to binascii on sampled rows
     crc = ops.crc32_sections(sections).cpu().numpy().view(np.uint32)
     host = [s.cpu().numpy().view(np.uint32) for s in sections]
@@ -586,11 +723,27 @@ def check_kernels(dev, card: str) -> dict:
         f"{c} {results[c]['ms']:.4f} ms (+{results[c]['ms'] - floor:.4f})"
         for c in ("bloom_multi_probe/256", "bloom_multi_probe/1024",
                   "lookup_blocks/256", "lookup_blocks/1024", "bloom_query",
-                  "prefix_encode", "bloom_build"))
+                  "prefix_encode", "bloom_build", "bloom_build/1",
+                  "bloom_build/sst"))
     log(f"  launch floor (device time of a one-element zero_, CUPTI, 50 "
         f"calls): {floor:.4f} ms; the small kernels and their gap to it: "
         f"{gaps} [{card}]")
-    return results
+    return results, sort_rows
+
+
+def check_edges(dev, sort_rows: dict) -> None:
+    """Phase 2's edge tables of the sort and the bloom build."""
+    n = check_sort_edges(dev, sort_rows)
+    log(f"  bitonic_sort at its edges: {n} cases bit-identical, input kept, "
+        f"the planned launches a call (1 + the merge levels of its "
+        f"{SORT_TILE}-row tiles: " + ", ".join(
+            f"{n_} rows {sort_plan.launches(n_, 6)}" for n_ in sort_rows) +
+        f" at 6 lanes; rows of 1-10 lanes, 1 to 300,001 rows, tile edges, "
+        f"with and without an index lane)")
+    n = check_bloom_edges(dev)
+    log(f"  bloom_build at its edges: {n} cases bit-identical, one launch a"
+        " call (1 to 16,384 keys a group, 2 to 5,120 words, 1, 6 and 30 "
+        "probes, no valid key and all, both routes)")
 
 
 # ---------------------------------------------------------------------------
@@ -871,12 +1024,13 @@ def run_store(path: str, *, device, geom: SSTGeometry,
 HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
                 "merge_level_kernel": "merge_runs",
                 "prefix_encode_kernel": "prefix_encode",
-                "bloom_build_kernel": "bloom_build",
+                "bloom_build_warp_kernel": "bloom_build",
+                "bloom_build_block_kernel": "bloom_build",
                 "multi_probe_kernel": "bloom_multi_probe",
                 "bloom_query_kernel": "bloom_query",
                 "lookup_kernel": "lookup_blocks",
-                "bitonic_stage": "bitonic_sort",
-                "bitonic_tile": "bitonic_sort",
+                "sort_tile_kernel": "bitonic_sort",
+                "sort_level_kernel": "bitonic_sort",
                 "selective_scan_kernel": "selective_scan"}
 OTHER = "not hand-written"
 
@@ -913,12 +1067,13 @@ def split_device_time(by_name: dict[str, float]) -> dict[str, float]:
     return out
 
 
-def job_breakdown(kept: dict, geom: SSTGeometry, device) -> dict:
-    """The kept L0->L1 job through the engine on ``device`` (merge mode),
-    once to warm up and once traced: its device time split by kernel, and
-    the largest names that are not a hand-written kernel."""
+def job_breakdown(kept: dict, geom: SSTGeometry, device,
+                  sort_mode: str = "merge") -> dict:
+    """The kept L0->L1 job through the engine on ``device`` in
+    ``sort_mode``, once to warm up and once traced: its device time split
+    by kernel, and the largest names that are not a hand-written kernel."""
     images = [sstable.read_sst(p) for p in kept["paths"]]
-    eng = TorchCompactionEngine(geom, device=device, sort_mode="merge")
+    eng = TorchCompactionEngine(geom, device=device, sort_mode=sort_mode)
 
     def job():
         return eng.compact(images, bottom_level=kept["bottom_level"])
@@ -931,7 +1086,7 @@ def job_breakdown(kept: dict, geom: SSTGeometry, device) -> dict:
     return dict(total_ms=sum(split.values()), split=split, other=other)
 
 
-def breakdown_line(b: dict, card: str) -> str:
+def breakdown_line(b: dict, card: str, sort_mode: str = "merge") -> str:
     """The phase-4 report of ``job_breakdown``."""
     total = b["total_ms"]
     parts = ", ".join(f"{k} {ms:.4f} ms ({ms / total:.1%})" for k, ms in
@@ -939,7 +1094,8 @@ def breakdown_line(b: dict, card: str) -> str:
     top = "; ".join(f"{n[:60]} {ms:.4f} ms" for ms, n in b["other"][:6])
     crc = b["split"].get("crc32_sections", 0.0)
     rest = b["split"].get(OTHER, 0.0)
-    return (f"[4] the L0->L1 job on the card: {total:.4f} ms of device time "
+    return (f"[4] the L0->L1 job on the card (sort_mode={sort_mode!r}): "
+            f"{total:.4f} ms of device time "
             f"(CUPTI) = {parts}; CRC share {crc / total:.1%}, not a "
             f"hand-written kernel {rest / total:.1%} (largest: {top}) "
             f"[{card}]")
@@ -1176,9 +1332,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -1195,7 +1354,10 @@ def main() -> int:
 
     log("[2] kernels against their plain versions (65,536-row job shapes, "
         "256- and 1,024-candidate read waves)")
-    checks = check_kernels(dev, card)
+    checks, sort_rows = check_kernels(dev, card)
+    if kernels_only:
+        return 0
+    check_edges(dev, sort_rows)
 
     log("[3] store at the paper geometry")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1248,13 +1410,20 @@ def main() -> int:
         log(f"[4] {len(st['kept']['paths'])} input SSTs -> {live} live "
             "entries: output images byte-identical (merge cuda = cpu; "
             f"device sort = merge); device-sort launches {job_launches}")
-        if job_launches["bitonic_sort"] == 0:
-            raise AssertionError("bitonic_sort not launched by the "
-                                 'sort_mode="device" job')
-        jb = job_breakdown(st["kept"], PAPER_GEOM, dev)
-        log(breakdown_line(jb, card))
-        if jb["split"].get("crc32_sections", 0.0) <= 0:
-            raise AssertionError("the traced job ran no crc32_sections")
+        if job_launches["bitonic_sort"] == 0 or job_launches["merge_runs"]:
+            raise AssertionError("the sort_mode=\"device\" job made "
+                                 f"launches {job_launches}")
+        for mode in ("merge", "device"):
+            jb = job_breakdown(st["kept"], PAPER_GEOM, dev, sort_mode=mode)
+            log(breakdown_line(jb, card, mode))
+            if jb["split"].get("crc32_sections", 0.0) <= 0:
+                raise AssertionError("the traced job ran no crc32_sections")
+            sort_kernel, other = (("merge_runs", "bitonic_sort")
+                                  if mode == "merge" else
+                                  ("bitonic_sort", "merge_runs"))
+            if jb["split"].get(sort_kernel, 0.0) <= 0 or other in jb["split"]:
+                raise AssertionError(f"the traced {mode} job's kernels: "
+                                     f"{jb['split']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1336,4 +1505,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

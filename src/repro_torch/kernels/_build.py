@@ -42,11 +42,11 @@ SIGNATURES = {
                        ctypes.c_uint32, _P, _LL, _P),
     "merge_runs": (_P, _P, _P, _I, _I, _P, _I, _P),
     "prefix_encode": (_P, _LL, _I, _I, _P, _P),
-    "bloom_build": (_P, _P, _LL, _I, _I, _I, _I, _P, _P),
+    "bloom_build": (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P),
     "bloom_multi_probe": (_P, _P, _LL, _I, _I, _I, _P, _P),
     "bloom_query": (_P, _P, _LL, _LL, _I, _I, _I, _P, _P),
     "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P),
-    "bitonic_sort": (_P, _LL, _I, _P, _P),
+    "bitonic_sort": (_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
     "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P),
 }
@@ -76,7 +76,8 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in ("common.cuh",) + SOURCES:
+    headers = tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
+    for name in headers + SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())

@@ -12,10 +12,26 @@ import torch
 from repro_torch.kernels import _build
 
 
+#: Filter words a sub-warp holds in registers (``kShortWords`` in
+#: ``csrc/bloom.cu``); longer rows take one block a group.
+SHORT_WORDS = 32
+
+
+def build_lanes(per_group: int, n_words: int) -> int:
+    """The build's route, chosen by shape: the lanes of the sub-warp that
+    builds one group's filter (the power of two >= min(per_group, 32)) for
+    a row of up to ``SHORT_WORDS`` words, or 0 for one block a group with
+    the bitmap in shared memory (an SST's 5,120 words)."""
+    if n_words > SHORT_WORDS:
+        return 0
+    return 1 << (min(per_group, 32) - 1).bit_length()
+
+
 def bloom_build(keys: torch.Tensor, valid: torch.Tensor, *, n_words: int,
                 n_probes: int) -> torch.Tensor:
     """``keys``: int32 ``[groups, per_group, lanes]``; ``valid``: bool
-    ``[groups, per_group]``.  Returns int32 ``[groups, n_words]``."""
+    ``[groups, per_group]``.  Returns int32 ``[groups, n_words]``; one
+    launch by the route of :func:`build_lanes`."""
     _build.check_cuda(keys, "bloom_build keys", torch.int32, 3)
     _build.check_cuda(valid, "bloom_build valid", torch.bool, 2)
     g, per, lanes = keys.shape
@@ -24,8 +40,8 @@ def bloom_build(keys: torch.Tensor, valid: torch.Tensor, *, n_words: int,
                          "on the keys' device")
     out = torch.empty((g, n_words), dtype=torch.int32, device=keys.device)
     _build.launch("bloom_build", keys.data_ptr(), valid.data_ptr(), g, per,
-                  lanes, n_words, n_probes, out.data_ptr(),
-                  _build.stream_handle(out))
+                  lanes, n_words, n_probes, build_lanes(per, n_words),
+                  out.data_ptr(), _build.stream_handle(out))
     return out
 
 

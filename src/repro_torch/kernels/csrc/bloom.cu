@@ -1,6 +1,7 @@
 // Bloom filters: construction (phase 3 `filter`) and the two probes of the
-// read path.  Build and probes share `bloom_hash` and `bloom_pos`, so the
-// bits a probe tests are the bits the build set.
+// read path.  Build and probes share `hash_lane`, `mix32` and the position
+// (h1 + i * h2) mod m, so the bits a probe tests are the bits the build
+// set.
 //
 // Replaces: src/repro/kernels/bloom.py `_bloom_kernel` (reached from
 // `bloom_build`), `_multi_probe_kernel` (from `multi_probe`) and
@@ -14,11 +15,19 @@
 // arithmetic (the sum wraps at 2^32 before the modulo).
 //
 // * build: for each group of `per_group` keys, the bitmap of its valid
-//   keys.  One thread block per group keeps the bitmap in shared memory;
-//   threads hash keys and `atomicOr` each probe into it, then the block
-//   writes it out.  OR does not depend on order, so the result is
-//   bit-exact.  Block granularity is 5 words a group, SST granularity
-//   5,120 words (20 KB), both inside the 48 KB default.
+//   keys.  OR does not depend on order, so the result is bit-exact by any
+//   route.  The host chooses the route by shape (`bloom.build_lanes`).  A
+//   short row (up to kShortWords words: block granularity, 16 keys and 5
+//   words a group at the paper geometry) goes to a sub-warp of S lanes, S
+//   the power of two >= min(per_group, 32), so two groups share a warp at
+//   16 keys: each lane hashes its key (one 16-byte load at 4 lanes), sets
+//   its probed bits in its own word registers, and the words are
+//   OR-reduced across the sub-warp by shuffles -- no shared memory, atomic
+//   or barrier, which the first version's one block a group (half its 32
+//   threads idle at 16 keys) paid for.  A long row (SST granularity,
+//   5,120 words) keeps one block a group with the bitmap in shared memory
+//   and `atomicOr`.  Both take each position by `mod_magic` instead of a
+//   `%` by the run-time m.
 // * multi_probe: key i against filter i (the `multi_get` prune), one
 //   thread per candidate.  A probe is the AND of the probed bits, as the
 //   TPU kernel's full AND over its one-hot select / OR-reduce (which exists
@@ -94,10 +103,92 @@ __device__ __forceinline__ uint32_t mod_magic(uint32_t x, uint64_t magic,
   return (uint32_t)__umul64hi(magic * x, m);
 }
 
-__global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
-                                   const uint8_t* __restrict__ valid,
-                                   int per_group, int lanes, int n_words,
-                                   int n_probes, uint32_t* __restrict__ out) {
+// h1, h2 of a key of `lanes` words; 16-byte loads when vec4 (lanes a
+// multiple of 4 and the keys 16-byte aligned).
+__device__ __forceinline__ void hash_key(const uint32_t* __restrict__ key,
+                                         int lanes, bool vec4, uint32_t& h1,
+                                         uint32_t& h2) {
+  h1 = kH1;
+  h2 = kH2;
+  if (vec4) {
+    for (int l = 0; l < lanes; l += 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(key + l));
+      hash_lane(v.x, h1, h2);
+      hash_lane(v.y, h1, h2);
+      hash_lane(v.z, h1, h2);
+      hash_lane(v.w, h1, h2);
+    }
+  } else {
+    for (int l = 0; l < lanes; ++l) hash_lane(__ldg(key + l), h1, h2);
+  }
+  h1 = mix32(h1);
+  h2 = mix32(h2) | 1u;
+}
+
+constexpr int kBuildThreads = 256;
+constexpr int kShortWords = 32;   // filter words a sub-warp holds
+constexpr int kBlockThreads = 1024;
+
+// Short rows: group g's filter built by a sub-warp of `1 << sub_log2`
+// lanes (a power of two, at most 32) with no shared memory, atomic or
+// barrier.  Each lane takes keys s, s + sub, ... of the group, sets the
+// probed bits in its own NW word registers (a word picked by compares, so
+// the words stay in registers), then each word is OR-reduced across the
+// sub-warp by `__shfl_xor_sync` and lanes write the words.  NW >= n_words.
+template <int NW>
+__global__ void __launch_bounds__(kBuildThreads)
+bloom_build_warp_kernel(const uint32_t* __restrict__ keys,
+                        const uint8_t* __restrict__ valid, long long groups,
+                        int per_group, int lanes, int n_words, int n_probes,
+                        int sub_log2, bool vec4, uint64_t magic,
+                        uint32_t* __restrict__ out) {
+  const long long tid = (long long)blockIdx.x * kBuildThreads + threadIdx.x;
+  const int sub = 1 << sub_log2;
+  const long long g = tid >> sub_log2;
+  const int s = (int)(tid & (sub - 1));
+  const uint32_t m = (uint32_t)n_words * 32u;
+  uint32_t acc[NW];
+#pragma unroll
+  for (int q = 0; q < NW; ++q) acc[q] = 0u;
+  if (g < groups) {
+    for (int j = s; j < per_group; j += sub) {
+      // the key and its valid byte in one trip: hash before the test
+      const long long row = g * per_group + j;
+      const bool live = valid[row];
+      uint32_t h1, h2;
+      hash_key(keys + row * lanes, lanes, vec4, h1, h2);
+      if (!live) continue;
+      for (int i = 0; i < n_probes; ++i) {
+        const uint32_t pos = mod_magic(h1 + (uint32_t)i * h2, magic, m);
+        const uint32_t word = pos >> 5, bit = 1u << (pos & 31u);
+#pragma unroll
+        for (int q = 0; q < NW; ++q) acc[q] |= word == (uint32_t)q ? bit : 0u;
+      }
+    }
+  }
+  // every lane of the warp takes part (n_words is the same for all)
+  for (int off = sub >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < NW; ++q)
+      if (q < n_words) acc[q] |= __shfl_xor_sync(0xffffffffu, acc[q], off);
+  }
+  if (g >= groups) return;
+  for (int w = s; w < n_words; w += sub) {
+    uint32_t v = 0u;
+#pragma unroll
+    for (int q = 0; q < NW; ++q) v = w == q ? acc[q] : v;
+    out[g * n_words + w] = v;
+  }
+}
+
+// Long rows (an SST's 5,120 words): one block a group, the bitmap in
+// shared memory, each probe `atomicOr`ed into it; up to kBlockThreads
+// threads, so that an SST's 16,384 keys are 16 a thread.
+__global__ void __launch_bounds__(kBlockThreads)
+bloom_build_block_kernel(const uint32_t* __restrict__ keys,
+                         const uint8_t* __restrict__ valid, int per_group,
+                         int lanes, int n_words, int n_probes, bool vec4,
+                         uint64_t magic, uint32_t* __restrict__ out) {
   extern __shared__ uint32_t bits[];
   const long long g = blockIdx.x;
   for (int w = threadIdx.x; w < n_words; w += blockDim.x) bits[w] = 0u;
@@ -105,11 +196,12 @@ __global__ void bloom_build_kernel(const uint32_t* __restrict__ keys,
   const uint32_t m = (uint32_t)n_words * 32u;
   for (int j = threadIdx.x; j < per_group; j += blockDim.x) {
     const long long row = g * per_group + j;
-    if (!valid[row]) continue;
+    const bool live = valid[row];
     uint32_t h1, h2;
-    bloom_hash(keys + row * lanes, lanes, h1, h2);
+    hash_key(keys + row * lanes, lanes, vec4, h1, h2);
+    if (!live) continue;
     for (int i = 0; i < n_probes; ++i) {
-      const uint32_t pos = bloom_pos(h1, h2, i, m);
+      const uint32_t pos = mod_magic(h1 + (uint32_t)i * h2, magic, m);
       atomicOr(&bits[pos >> 5], 1u << (pos & 31u));
     }
   }
@@ -217,25 +309,48 @@ bloom_query_kernel(const uint32_t* __restrict__ filters,
 }  // namespace
 
 // keys: uint32 [groups, per_group, lanes]; valid: bool [groups, per_group];
-// out: uint32 [groups, n_words].
+// out: uint32 [groups, n_words].  sub_warp: the lanes a group takes on the
+// short route (a power of two up to 32, with n_words <= kShortWords), or 0
+// for the block route; the wrapper's `bloom.build_lanes` chooses it.
 REPRO_EXPORT int bloom_build(const void* keys, const void* valid,
                              long long groups, int per_group, int lanes,
-                             int n_words, int n_probes, void* out,
-                             void* stream) {
+                             int n_words, int n_probes, int sub_warp,
+                             void* out, void* stream) {
   if (groups <= 0) return cudaSuccess;
-  if (n_words <= 0 || per_group <= 0) return cudaErrorInvalidValue;
+  if (n_words <= 0 || per_group <= 0 || lanes <= 0 || n_probes < 0 ||
+      sub_warp < 0 || sub_warp > 32 || (sub_warp & (sub_warp - 1)) != 0 ||
+      (sub_warp > 0 && n_words > kShortWords))
+    return cudaErrorInvalidValue;
+  const uint32_t* k = static_cast<const uint32_t*>(keys);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const bool vec4 =
+      lanes % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  const uint64_t magic = ~0ull / ((uint64_t)n_words * 32u) + 1u;
+  cudaStream_t s = as_stream(stream);
+  if (sub_warp > 0) {
+    const int sub_log2 = __builtin_ctz((unsigned)sub_warp);
+    const long long threads = groups << sub_log2;
+    const unsigned grid =
+        (unsigned)((threads + kBuildThreads - 1) / kBuildThreads);
+    auto kernel = n_words <= 8 ? bloom_build_warp_kernel<8>
+                               : bloom_build_warp_kernel<kShortWords>;
+    kernel<<<grid, kBuildThreads, 0, s>>>(k, v, groups, per_group, lanes,
+                                          n_words, n_probes, sub_log2, vec4,
+                                          magic, o);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)n_words * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bloom_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        bloom_build_block_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int threads = ((per_group + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  bloom_build_kernel<<<(unsigned)groups, threads, smem, as_stream(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<const uint8_t*>(valid),
-      per_group, lanes, n_words, n_probes, static_cast<uint32_t*>(out));
+  if (threads > kBlockThreads) threads = kBlockThreads;
+  bloom_build_block_kernel<<<(unsigned)groups, threads, smem, s>>>(
+      k, v, per_group, lanes, n_words, n_probes, vec4, magic, o);
   return (int)cudaGetLastError();
 }
 

@@ -85,8 +85,8 @@ def plan_levels(run_lens: tuple[int, ...]) -> tuple[Level, ...]:
 
 
 @functools.lru_cache(maxsize=512)
-def _launch_tables(run_lens: tuple[int, ...]
-                   ) -> tuple[tuple[tuple[int, array.array], ...], bool]:
+def launch_tables(run_lens: tuple[int, ...]
+                  ) -> tuple[tuple[tuple[int, array.array], ...], bool]:
     """The pair tables of :func:`plan_levels` as ``(pairs, int64 [pairs *
     6])``, at most ``MAX_PAIRS`` pairs a table (one table a launch), and
     whether any pair writes buffer 2."""
@@ -140,7 +140,7 @@ def merge_runs(rows: torch.Tensor, run_lens) -> torch.Tensor:
     if not 1 <= lanes <= MAX_LANES:
         raise ValueError(f"merge_runs: {lanes} lanes; the kernel takes 1 "
                          f"to {MAX_LANES}")
-    tables, uses_spare = _launch_tables(run_lens)
+    tables, uses_spare = launch_tables(run_lens)
     if not tables:
         return rows
     if rows.data_ptr() % 8:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import offload
 from repro_torch.core.formats import SSTGeometry
+from repro_torch.kernels import bitonic_sort as sort_plan
 from repro_torch.kernels import merge_path, ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -22,7 +23,7 @@ pytestmark = pytest.mark.cuda
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)   # the read kernels' edge cases
+_spec.loader.exec_module(chip_smoke)   # the kernels' edge cases
 
 
 @pytest.fixture
@@ -292,18 +293,6 @@ def test_probe_edges(dev, n_words, probes):
         assert torch.equal(got, plain())
 
 
-def _bitonic_kernels(n: int, lanes: int) -> int:
-    """Kernels ``csrc/bitonic.cu`` enqueues for ``n`` rows: one shared-memory
-    pass over the tiles (1,024 rows, or fewer to fit 48 KB), then for each
-    larger k its global stages j >= tile and one shared-memory pass."""
-    n_pad = 1 << max(1, (n - 1).bit_length())
-    tile = min(n_pad, 1024)
-    while tile * lanes * 4 > 48 * 1024:
-        tile //= 2
-    s, t = n_pad.bit_length() - 1, tile.bit_length() - 1
-    return 1 + sum(k - t + 1 for k in range(t + 1, s + 1))
-
-
 @pytest.mark.parametrize("n,index_lane", [(65_536, True), (262_144, True),
                                           (300_001, True), (3, False),
                                           (1000, False)])
@@ -316,8 +305,43 @@ def test_bitonic_sort(dev, n, index_lane):
     before = ops.launch_counts()["bitonic_sort"]
     got = ops.bitonic_sort(rows)
     assert torch.equal(got, ref.sort_tuples(rows))
+    # the tile sort and one launch a merge level of the tiles
     assert ops.launch_counts()["bitonic_sort"] == \
-        before + _bitonic_kernels(n, 6)
+        before + sort_plan.launches(n, 6)
+
+
+@pytest.mark.parametrize("n,lanes,index_lane", chip_smoke.SORT_EDGES)
+def test_sort_edges(dev, n, lanes, index_lane):
+    """Tile edges, 1 to 300,001 rows, 1 to 8 lanes in registers and 10 at
+    run time, with and without an index lane: bit-identical, the input
+    kept, the planned launches and no other kernel."""
+    rows = torch.from_numpy(chip_smoke.sort_edge_rows(
+        n, lanes, index_lane).view(np.int32)).to(dev)
+    kept = rows.clone()
+    before = ops.launch_counts()
+    got = ops.bitonic_sort(rows)
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {
+                "bitonic_sort": sort_plan.launches(n, lanes)}
+    assert torch.equal(got, ref.sort_tuples(rows))
+    assert torch.equal(rows, kept)
+
+
+@pytest.mark.parametrize("case", chip_smoke.BLOOM_EDGES, ids=str)
+def test_bloom_build_edges(dev, case):
+    """Both routes (a sub-warp a group up to 32 words, a block beyond),
+    1 to 16,384 keys a group, no valid key and all: bit-identical, one
+    launch."""
+    keys, valid = chip_smoke.bloom_edge_inputs(*case)
+    k = torch.from_numpy(keys.view(np.int32)).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    n_words, probes = case[3], case[4]
+    before = ops.launch_counts()["bloom_build"]
+    got = ops.bloom_build(k, v, n_words=n_words, n_probes=probes)
+    assert ops.launch_counts()["bloom_build"] == before + 1
+    assert torch.equal(got, ref.bloom_build(k, n_words=n_words,
+                                            n_probes=probes, valid=v))
 
 
 # ---------------------------------------------------------------------------

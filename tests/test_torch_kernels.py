@@ -243,6 +243,19 @@ def test_bloom_build_matches_pallas_and_ref(groups, per, lanes, n_words,
     np.testing.assert_array_equal(got, oracle)
 
 
+@pytest.mark.parametrize("per,n_words,lanes", [
+    (1, 5, 1), (2, 5, 2), (3, 2, 4), (16, 5, 16), (17, 5, 32), (33, 13, 32),
+    (16_384, 5, 32), (16, 32, 16), (16, 33, 0), (700, 219, 0),
+    (16_384, 5_120, 0), (1, 5_120, 0)])
+def test_bloom_build_route_by_shape(per, n_words, lanes):
+    """The build's route, chosen on the host by shape: a sub-warp of the
+    power of two >= min(keys, 32) lanes a group for a row of up to 32
+    words (the paper's 16 keys and 5 words: two groups a warp), one block
+    a group (0) beyond."""
+    assert tbloom.build_lanes(per, n_words) == lanes
+    assert tbloom.SHORT_WORDS == 32
+
+
 def test_bloom_hashes_match_ref():
     rng = np.random.default_rng(11)
     keys = rand_words(rng, (3, 50, 4))
@@ -383,6 +396,65 @@ def test_assert_runs_sorted():
         merge_path.assert_runs_sorted(rows, (3, 1))
 
 
+@pytest.mark.parametrize("lanes,tile", [
+    (1, 2048), (6, 2048), (8, 2048), (9, 2048), (10, 2048), (12, 2048),
+    (13, 1024), (24, 1024), (100, 128), (12_288, 2)])
+def test_sort_tile_by_lanes(lanes, tile):
+    """Rows up to 8 lanes sort in registers in tiles of 2,048; wider rows
+    in shared memory, in the largest power-of-two tile that fits 96 KB."""
+    assert tbitonic.tile_rows(lanes) == tile
+    assert tile * lanes * 4 <= tbitonic.WIDE_SMEM_BYTES or lanes <= 8
+
+
+def test_sort_tile_refuses_rows_past_shared_memory():
+    with pytest.raises(ValueError, match="do not fit"):
+        tbitonic.tile_rows(12_289)
+    with pytest.raises(ValueError):
+        tbitonic.tile_rows(0)
+
+
+@pytest.mark.parametrize("n,lanes,launches", [
+    (1, 6, 1), (2047, 6, 1), (2048, 6, 1), (2049, 6, 2), (6149, 6, 3),
+    (65_536, 6, 6), (262_144, 6, 8), (300_001, 6, 10), (4097, 10, 3),
+    (3000, 13, 3), (0, 6, 0)])
+def test_sort_plan(n, lanes, launches):
+    """The sort's host plan: tiles of ``tile_rows(lanes)`` rows (the last
+    one short), the merge tree of ``merge_path.plan_levels`` over them,
+    and one launch for the tiles plus one a level table: 6 at 65,536 rows
+    and 8 at 262,144 (no level of 262,144 rows splits past MAX_PAIRS);
+    300,001 rows (147 tiles) split the first level in two."""
+    assert tbitonic.launches(n, lanes) == launches
+    if n == 0:
+        return
+    tile, counts, pairs, n_bufs = tbitonic.plan(n, lanes)
+    runs = tbitonic.tile_lens(n, tile)
+    assert sum(runs) == n and all(r == tile for r in runs[:-1])
+    assert 0 < runs[-1] <= tile
+    levels = merge_path.plan_levels(runs)
+    assert len(counts) == launches - 1 >= len(levels)
+    assert sum(counts) == sum(len(lv.pairs) for lv in levels)
+    assert max(counts, default=0) <= merge_path.MAX_PAIRS
+    assert list(pairs) == [x for lv in levels for p in lv.pairs for x in p]
+    # buffer 0 takes the tiles, 1 the result, 2 where a pair writes it
+    assert n_bufs == 1 + bool(levels) + any(
+        p.dst == 2 for lv in levels for p in lv.pairs)
+
+
+def test_sort_along_plan_matches_ref():
+    """The sort's schedule walked on the CPU: the tiles sorted by the plain
+    sort, then the plan's levels merged as the kernels merge them, equal
+    the plain sort of the whole."""
+    rng = np.random.default_rng(20)
+    n, lanes = 5000, 3
+    rows = t(rng.integers(0, 5, (n, lanes)).astype(np.uint32))
+    tile = tbitonic.tile_rows(lanes)
+    runs = tbitonic.tile_lens(n, tile)
+    tiles = torch.cat([ref.sort_tuples(rows[o:o + ln]) for o, ln in zip(
+        np.cumsum((0,) + runs[:-1]), runs)])
+    np.testing.assert_array_equal(
+        u(_merge_along_plan(tiles, runs)), u(ref.sort_tuples(rows)))
+
+
 @pytest.mark.parametrize("num_keys", [None, 2, 6])
 def test_sort_tuples_matches_ref(num_keys):
     rng = np.random.default_rng(9)
@@ -434,8 +506,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lambda: tbitonic.bitonic_sort(torch.zeros((4, 6), dtype=torch.int32)),
     lambda: tscan.selective_scan(*(torch.ones(s) for s in (
         (1, 4, 8), (1, 4, 8), (1, 4, 2), (1, 4, 2), (8, 2), (8,)))),
+    lambda: tbloom.bloom_build(torch.zeros((2, 16, 4), dtype=torch.int32),
+                               torch.ones((2, 16), dtype=torch.bool),
+                               n_words=5, n_probes=6),
 ], ids=["crc32", "prefix_encode", "merge_runs", "bloom_multi_probe",
-        "bloom_query", "lookup_blocks", "bitonic_sort", "selective_scan"])
+        "bloom_query", "lookup_blocks", "bitonic_sort", "selective_scan",
+        "bloom_build"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches or raises: it never computes on the CPU."""
     with pytest.raises(ValueError, match="CUDA tensor"):

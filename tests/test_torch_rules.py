@@ -261,27 +261,35 @@ def test_chip_smoke_crc_bound_is_the_bytes():
 
 def test_chip_smoke_splits_device_time_by_kernel():
     """Phase 4's breakdown: each traced name goes to the hand-written kernel
-    whose ``__global__`` function it names (the two bitonic kernels to one
-    sort), everything else to the rest; the line gives the CRC's share."""
+    whose ``__global__`` function it names (the sort's tile and level
+    kernels to one sort, and not the merge's level kernel to it; the bloom
+    build's two routes to one build), everything else to the rest; the
+    line gives the CRC's share."""
     cs = _chip_smoke()
     by_name = {
         "(anonymous namespace)::crc32_sections_kernel(Sections, ...)": 1.0,
-        "void (anonymous namespace)::bitonic_tile(unsigned int*, int)": 0.5,
-        "(anonymous namespace)::bitonic_stage(unsigned int*, long long)": 0.5,
+        "void (anonymous namespace)::sort_tile_kernel<6>(const unsigned "
+        "int *, long long, int, int, unsigned int *)": 0.5,
+        "void (anonymous namespace)::sort_level_kernel<6>((anonymous "
+        "namespace)::Level, int)": 0.5,
+        "void (anonymous namespace)::merge_level_kernel<6>((anonymous "
+        "namespace)::Level)": 0.25,
+        "void (anonymous namespace)::bloom_build_warp_kernel<8>(...)": 0.125,
+        "(anonymous namespace)::bloom_build_block_kernel(...)": 0.125,
         "Memcpy HtoD (Pageable -> Device)": 2.0,
         "void at::native::vectorized_elementwise_kernel<4, ...>": 0.5}
     split = cs.split_device_time(by_name)
     assert split == {"crc32_sections": 1.0, "bitonic_sort": 1.0,
-                     cs.OTHER: 2.5}
+                     "merge_runs": 0.25, "bloom_build": 0.25, cs.OTHER: 2.5}
     sources = "".join(p.read_text() for p in
                       (REPO / "src/repro_torch/kernels/csrc").glob("*.cu"))
     for fn in cs.HAND_WRITTEN:
         assert f"{fn}(" in sources
-    line = cs.breakdown_line(dict(total_ms=4.5, split=split, other=sorted(
+    line = cs.breakdown_line(dict(total_ms=5.0, split=split, other=sorted(
         ((ms, n) for n, ms in by_name.items() if "Memcpy" in n or "at::" in
-         n), reverse=True)), "card")
-    assert "CRC share 22.2%" in line and "not a hand-written kernel 55.6%" \
-        in line and "Memcpy HtoD" in line
+         n), reverse=True)), "card", "device")
+    assert "CRC share 20.0%" in line and "not a hand-written kernel 50.0%" \
+        in line and "Memcpy HtoD" in line and "sort_mode='device'" in line
 
 
 def _run(args, cwd, env_extra=None):
