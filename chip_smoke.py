@@ -49,6 +49,7 @@ checkout's kernels on the same cases.
 from __future__ import annotations
 
 import binascii
+import contextlib
 import json
 import os
 import shutil
@@ -101,7 +102,7 @@ KERNELS = {
     "merge_runs": ("merge_runs", "merge_runs/65536",
                    "src/repro_torch/kernels/csrc/merge_path.cu",
                    "src/repro/kernels/merge_path.py:87"),
-    "prefix_encode": ("prefix_encode", "prefix_encode",
+    "prefix_encode": ("prefix_encode", "prefix_encode/wire",
                       "src/repro_torch/kernels/csrc/prefix.cu",
                       "src/repro/kernels/prefix.py:24"),
     "bloom_build": ("bloom_build", "bloom_build",
@@ -133,6 +134,8 @@ READ_PATH = ("bloom_multi_probe", "lookup_blocks")
 # why each kernel has no library_ms
 NO_LIBRARY = "no single PyTorch call computes it"
 MULTI_GET_BATCH = 256
+# phase 2's pack-shaped prefix case: 65,536 rows, of them 61,440 survivors
+PREFIX_COUNT = 61_440
 # phase 5: falcon-mamba-7b serving 4 requests of 512 prompt tokens, 16 new
 # tokens each; the scan also at one request of 4,096 tokens
 FALCON = "falcon-mamba-7b"
@@ -182,14 +185,16 @@ def call_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, *, with_events: bool = False):
     """Device time per call of ``fn`` in ms: the summed durations of the
     kernels (and copies) it runs, from the profiler's CUPTI trace, so the
-    host's launch path is left out."""
+    host's launch path is left out.  ``with_events``: also the device
+    events (kernels and copies) a call, from the same trace."""
     fn()
     torch.cuda.synchronize()
-    by_name = device_breakdown(lambda: [fn() for _ in range(reps)])
-    return sum(by_name.values()) / reps
+    trace = device_trace(lambda: [fn() for _ in range(reps)])
+    ms = sum(t for _, t in trace) / reps
+    return (ms, len(trace) / reps) if with_events else ms
 
 
 def sorted_keys(rng, n: int, lanes: int) -> np.ndarray:
@@ -310,6 +315,28 @@ def kernel_cases(rng, dev):
                   lambda: ops.prefix_encode(keys, restart_interval=16),
                   lambda: ref.prefix_encode(keys, restart_interval=16),
                   n * L * 4 + n * 4, int(4 * lanes_compared)))
+    # the pack's route: survivors first, the rest zero (as `pack` leaves
+    # them), the survivor count on the card; per lane a mask and an AND
+    count = torch.tensor(PREFIX_COUNT, dtype=torch.int64, device=dev)
+    keys_c = as_i32(np.where(np.arange(n)[:, None] < PREFIX_COUNT, keys_np,
+                             0), dev)
+    cases.append(("prefix_encode/wire",
+                  lambda: ops.prefix_encode_wire(keys_c, count,
+                                                 restart_interval=16),
+                  lambda: ref.prefix_encode_wire(keys_c, count,
+                                                 restart_interval=16),
+                  n * L * 4 + 8 + n * 4 + n * L * 4,
+                  int(4 * lanes_compared) + 5 * n * L))
+    valid_c = torch.arange(n, device=dev) < count   # as `pack` has it
+
+    def before():
+        return pack_prefix_before(keys_c, valid_c, ops.prefix_encode(
+            keys_c, restart_interval=16))
+    cases.append(("prefix_encode/before", before,
+                  lambda: ref.prefix_encode_wire(keys_c, count,
+                                                 restart_interval=16),
+                  n * L * 4 + 8 + n * 4 + n * L * 4,
+                  int(4 * lanes_compared) + 5 * n * L))
 
     bkeys = as_i32(rng.integers(0, 2**32, (B, K, L), dtype=np.uint32), dev)
     valid_np = rng.random((B, K)) < 0.94
@@ -335,6 +362,18 @@ def kernel_cases(rng, dev):
                       G * per * (L * 4 + 1) + G * words * 4,
                       int(valid_np.sum()) * (L * 6 + 12 + probes * 5)))
     return cases, sections
+
+
+def pack_prefix_before(keys_c: torch.Tensor, valid_c: torch.Tensor,
+                       shared: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's two PyTorch lines that the wire route of
+    ``prefix_encode`` replaced, after the shared-only kernel: the mask of
+    the survivors, then ``formats.zero_prefix_lanes`` (15 PyTorch kernels
+    on the card).  Timed beside the wire route; used nowhere in the
+    port."""
+    shared = torch.where(valid_c, shared, 0)
+    return shared, formats.zero_prefix_lanes(keys_c, shared)
 
 
 def probes_evaluated(filters: torch.Tensor, keys: torch.Tensor,
@@ -571,6 +610,57 @@ BLOOM_EDGES = [(4096, 16, 4, 5, 6, 0.94), (64, 1, 4, 2, 6, 1.0),
                (2, 16_384, 10, 5_120, 1, 1.0), (3, 16_384, 4, 5, 6, 1.0)]
 
 
+# The prefix step's edge cases, shared with the tests: (rows, lanes, restart
+# interval) -- lanes 1, 4 (16-byte loads) and 5, and 2 and 8, on the
+# register route, 10 on the run-time-lanes route; restart 16 (it divides
+# 32: no thread loads a second row), 12 and 24 (they do not: lane 0 of a
+# warp loads its predecessor); one interval alone; rows that end inside a
+# warp.  The wire route runs each at `prefix_edge_counts` survivors.
+PREFIX_EDGES = [(4096, 4, 16), (4096, 1, 16), (4096, 5, 16), (2048, 8, 16),
+                (16, 4, 16), (3000, 4, 12), (3000, 5, 12), (12, 1, 12),
+                (960, 10, 12), (4104, 2, 24)]
+PREFIX_WORDS = np.array([0, 1, 0x100, 0x10000, 0x1000000, 0x75736572,
+                         0x80000000, 0xFFFFFFFF], np.uint32)
+# bloom_query's edge cases besides PROBE_EDGES: (groups, queries, filter
+# words, probes) -- one query; queries that fill no block (300, 257); rows
+# of 5 to 13,000 words (8, 9, 16 and 17 around the register rows of the
+# other probe, an SST's 5,120, one past 48 KB); 1, 6 and 10 probes; more
+# groups than grid.y takes (70,000)
+QUERY_EDGES = [(1, 1, 5, 6), (3, 1, 5120, 6), (5, 300, 5, 6), (3, 40, 8, 6),
+               (3, 40, 9, 6), (4, 1000, 16, 1), (4, 1000, 17, 10),
+               (2, 257, 5120, 6), (2, 100, 13_000, 6), (70_000, 1, 5, 6)]
+
+
+def prefix_edge_counts(n: int, restart: int) -> list[int]:
+    """Survivor counts of a wire edge case: none, one, a restart point,
+    mid-interval, all."""
+    return sorted({0, 1, min(restart, n), min(3 * restart + restart // 2 + 1,
+                                              n), n})
+
+
+def prefix_edge_keys(n: int, lanes: int, restart: int) -> np.ndarray:
+    """Sorted uint32 keys ``[n, lanes]`` of ``PREFIX_WORDS``, seeded by the
+    case: lanes tie often and differ at every byte position, and rows
+    repeat (drawn from n / 4 distinct ones)."""
+    rng = np.random.default_rng(n * 64 + lanes * 8 + restart)
+    rows = PREFIX_WORDS[rng.integers(0, len(PREFIX_WORDS),
+                                     (max(n // 4, 1), lanes))]
+    k = rows[rng.integers(0, len(rows), n)]
+    return k[np.lexsort(tuple(k[:, i] for i in reversed(range(lanes))))]
+
+
+def query_edge_inputs(groups: int, queries: int, n_words: int, probes: int,
+                      dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(filters, keys)`` of a ``QUERY_EDGES`` case, seeded by the case:
+    each group's filter holds the first half of its queries."""
+    rng = np.random.default_rng(groups + 7 * queries + 3 * n_words + probes)
+    keys = as_i32(rng.integers(0, 2**32, (groups, queries, 4),
+                               dtype=np.uint32), dev)
+    filters = ref.bloom_build(keys[:, :(queries + 1) // 2], n_words=n_words,
+                              n_probes=probes)
+    return filters, keys
+
+
 def sort_edge_rows(n: int, lanes: int, index_lane: bool) -> np.ndarray:
     """uint32 ``[n, lanes]`` rows of ``SORT_WORDS``, seeded by the case;
     with ``index_lane`` the last lane is a permutation of ``n`` with the
@@ -635,6 +725,42 @@ def check_bloom_edges(dev) -> int:
     return len(BLOOM_EDGES)
 
 
+def check_prefix_edges(dev) -> int:
+    """``prefix_encode`` at ``PREFIX_EDGES``, both routes (the wire route at
+    each of ``prefix_edge_counts``): bit-identical to the plain versions,
+    one launch a call.  Returns the calls checked."""
+    n_calls = 0
+    for n, lanes, restart in PREFIX_EDGES:
+        keys = as_i32(prefix_edge_keys(n, lanes, restart), dev)
+        case = f"n={n} L={lanes} restart={restart}"
+        got = one_launch("prefix_encode", lambda: ops.prefix_encode(
+            keys, restart_interval=restart))
+        compare_outputs(f"prefix_encode {case}", got, ref.prefix_encode(
+            keys, restart_interval=restart))
+        for c in prefix_edge_counts(n, restart):
+            count = torch.tensor(c, dtype=torch.int64, device=dev)
+            got = one_launch("prefix_encode", lambda: ops.prefix_encode_wire(
+                keys, count, restart_interval=restart))
+            compare_outputs(f"prefix_encode_wire {case} count={c}", got,
+                            ref.prefix_encode_wire(
+                                keys, count, restart_interval=restart))
+            n_calls += 1
+        n_calls += 1
+    return n_calls
+
+
+def check_query_edges(dev) -> int:
+    """``bloom_query`` at ``QUERY_EDGES``: bit-identical to its plain
+    version, one launch a call.  Returns the cases checked."""
+    for g, q, n_words, probes in QUERY_EDGES:
+        filters, keys = query_edge_inputs(g, q, n_words, probes, dev)
+        got = one_launch("bloom_query", lambda: ops.bloom_query(
+            filters, keys, n_probes=probes))
+        compare_outputs(f"bloom_query G={g} Q={q} W={n_words} p={probes}",
+                        got, ref.bloom_query(filters, keys, n_probes=probes))
+    return len(QUERY_EDGES)
+
+
 def unique_sort(rows: torch.Tensor) -> torch.Tensor:
     """PyTorch's nearest route to the sort, timed beside it and used
     nowhere in the port: the sign bit flipped (so int32 order is the
@@ -678,14 +804,19 @@ def check_kernels(dev, card: str) -> tuple[dict, dict]:
         err, shapes = compare_outputs(name, got, want)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / SCALAR_OPS_PER_S * 1e3
-        res = dict(max_abs_err=err, ms=device_ms(kern, 50),
+        for _ in range(3):   # a trace that lost most of its events
+            ms, events = device_ms(kern, 50, with_events=True)
+            if events >= 0.9 * launches:
+                break
+        res = dict(max_abs_err=err, ms=ms, events=events,
                    plain_ms=device_ms(plain, 5),
                    bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    library_ms=None, call_ms=call_ms(kern, 50),
                    plain_call_ms=call_ms(plain, 5))
         log(f"  {name:22s} shape {shapes}: bit-identical; {launches} "
-            f"launches a call; device time kernel {res['ms']:.4f} ms, plain "
+            f"launches a call, {events:.2f} device events a call (CUPTI); "
+            f"device time kernel {res['ms']:.4f} ms, plain "
             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}); one call {res['call_ms']:.4f} ms, plain "
             f"{res['plain_call_ms']:.4f} ms [{card}]")
@@ -723,8 +854,8 @@ def check_kernels(dev, card: str) -> tuple[dict, dict]:
         f"{c} {results[c]['ms']:.4f} ms (+{results[c]['ms'] - floor:.4f})"
         for c in ("bloom_multi_probe/256", "bloom_multi_probe/1024",
                   "lookup_blocks/256", "lookup_blocks/1024", "bloom_query",
-                  "prefix_encode", "bloom_build", "bloom_build/1",
-                  "bloom_build/sst"))
+                  "prefix_encode", "prefix_encode/wire", "bloom_build",
+                  "bloom_build/1", "bloom_build/sst"))
     log(f"  launch floor (device time of a one-element zero_, CUPTI, 50 "
         f"calls): {floor:.4f} ms; the small kernels and their gap to it: "
         f"{gaps} [{card}]")
@@ -732,7 +863,8 @@ def check_kernels(dev, card: str) -> tuple[dict, dict]:
 
 
 def check_edges(dev, sort_rows: dict) -> None:
-    """Phase 2's edge tables of the sort and the bloom build."""
+    """Phase 2's edge tables of the sort, the bloom build, the prefix step
+    and the bloom query."""
     n = check_sort_edges(dev, sort_rows)
     log(f"  bitonic_sort at its edges: {n} cases bit-identical, input kept, "
         f"the planned launches a call (1 + the merge levels of its "
@@ -744,6 +876,15 @@ def check_edges(dev, sort_rows: dict) -> None:
     log(f"  bloom_build at its edges: {n} cases bit-identical, one launch a"
         " call (1 to 16,384 keys a group, 2 to 5,120 words, 1, 6 and 30 "
         "probes, no valid key and all, both routes)")
+    n = check_prefix_edges(dev)
+    log(f"  prefix_encode at its edges: {n} calls bit-identical, one launch "
+        "a call (both routes; lanes 1/2/4/5/8/10, restart 16/12/24, one "
+        "interval alone, rows ending inside a warp; the wire route at 0, 1, "
+        "a restart point, mid-interval and all rows surviving)")
+    n = check_query_edges(dev)
+    log(f"  bloom_query at its edges: {n} cases bit-identical, one launch a "
+        "call (1 to 1,000 queries, rows of 5 to 13,000 words, 1, 6 and 10 "
+        "probes, 70,000 groups)")
 
 
 # ---------------------------------------------------------------------------
@@ -786,16 +927,14 @@ def check_multi_gets(store, batches, model: dict, when: str) -> dict:
     of waves, staged bytes and device-stage seconds over the pass (the
     ``get`` loop adds none)."""
     lat, pruned, n_keys = [], 0, 0
-    st = store.stats
-    start = (st.multi_get_waves, st.multi_get_staged_bytes,
-             st.multi_get_stage_seconds)
+    start = store.stats   # a copy: later counts come from fresh reads
     launches0 = ops.launch_counts()
     for b in batches:
-        skips = st.bloom_negative_skips
+        skips = store.stats.bloom_negative_skips
         c0 = time.perf_counter_ns()
         got = store.multi_get(b)
         lat.append((time.perf_counter_ns() - c0) / 1e3)
-        pruned += st.bloom_negative_skips - skips
+        pruned += store.stats.bloom_negative_skips - skips
         n_keys += len(b)
         if got != [model.get(k) for k in b]:
             raise AssertionError(f"{when}: multi_get disagrees with the "
@@ -810,10 +949,13 @@ def check_multi_gets(store, batches, model: dict, when: str) -> dict:
         raise AssertionError(f"{when}: snapshot multi_get disagrees")
     launches = {n: ops.launch_counts()[n] - launches0[n]
                 for n in READ_PATH}
+    end = store.stats
     return dict(lat_us=lat, keys=n_keys, pruned=pruned, launches=launches,
-                waves=st.multi_get_waves - start[0],
-                staged_bytes=st.multi_get_staged_bytes - start[1],
-                stage_s=st.multi_get_stage_seconds - start[2])
+                waves=end.multi_get_waves - start.multi_get_waves,
+                staged_bytes=end.multi_get_staged_bytes -
+                start.multi_get_staged_bytes,
+                stage_s=end.multi_get_stage_seconds -
+                start.multi_get_stage_seconds)
 
 
 def trace_multi_get(store, keys) -> dict:
@@ -1032,58 +1174,95 @@ HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
                 "sort_tile_kernel": "bitonic_sort",
                 "sort_level_kernel": "bitonic_sort",
                 "selective_scan_kernel": "selective_scan"}
-OTHER = "not hand-written"
+# the rest of a trace: copies and fills (Memcpy, Memset), PyTorch's kernels
+COPIES = "copies"
+PYTORCH = "PyTorch kernels"
 
 
-def device_breakdown(fn, attempts: int = 3) -> dict[str, float]:
-    """Device time (ms) of one call of ``fn`` by kernel or copy name, from
-    the profiler's CUPTI trace.  A trace that comes back without device
-    events (CUPTI drops one now and then on this machine) is taken again,
-    up to ``attempts`` times in all."""
+def device_trace(fn, attempts: int = 3) -> list[tuple[str, float]]:
+    """``(name, ms)`` of each device event (kernel or copy) of one call of
+    ``fn``, from the profiler's CUPTI trace.  A trace that comes back
+    without device events (CUPTI drops one now and then on this machine)
+    is taken again, up to ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        by: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by[e.name] = by.get(e.name, 0.0) + \
-                    e.time_range.elapsed_us() / 1e3
-        if by:
-            return by
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
     raise RuntimeError(f"the profiler recorded no device time in "
                        f"{attempts} traces")
 
 
+def device_breakdown(fn, attempts: int = 3) -> dict[str, float]:
+    """Device time (ms) of one call of ``fn`` by kernel or copy name."""
+    by: dict[str, float] = {}
+    for name, ms in device_trace(fn, attempts):
+        by[name] = by.get(name, 0.0) + ms
+    return by
+
+
+def event_kind(name: str) -> str:
+    """The hand-written kernel that a device event's name belongs to, or
+    ``COPIES`` or ``PYTORCH``."""
+    hand = next((k for fn, k in HAND_WRITTEN.items() if fn in name), None)
+    if hand is not None:
+        return hand
+    return COPIES if name.startswith(("Memcpy", "Memset")) else PYTORCH
+
+
 def split_device_time(by_name: dict[str, float]) -> dict[str, float]:
-    """Device time by hand-written kernel, everything else (copies, PyTorch's
-    own kernels) under ``OTHER``."""
+    """Device time by hand-written kernel, the rest under ``COPIES`` and
+    ``PYTORCH``."""
     out: dict[str, float] = {}
     for name, ms in by_name.items():
-        key = next((k for fn, k in HAND_WRITTEN.items() if fn in name), OTHER)
+        key = event_kind(name)
         out[key] = out.get(key, 0.0) + ms
     return out
 
 
+def prefix_two_lines(keys_c: torch.Tensor, count: torch.Tensor, *,
+                     restart_interval: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ops.prefix_encode_wire`` as the pack ran it before its wire
+    route: the shared-only kernel, then ``pack_prefix_before``.  Its mask
+    of the survivors is rebuilt here from ``count`` (an arange and a
+    compare that the pack shared with its other passes)."""
+    valid_c = torch.arange(keys_c.shape[0], device=keys_c.device) < count
+    return pack_prefix_before(keys_c, valid_c, ops.prefix_encode(
+        keys_c, restart_interval=restart_interval))
+
+
 def job_breakdown(kept: dict, geom: SSTGeometry, device,
-                  sort_mode: str = "merge") -> dict:
+                  sort_mode: str = "merge", two_lines: bool = False) -> dict:
     """The kept L0->L1 job through the engine on ``device`` in
     ``sort_mode``, once to warm up and once traced: its device time split
-    by kernel, and the largest names that are not a hand-written kernel."""
+    by kernel, copies and PyTorch kernels, the PyTorch kernel launches, and
+    the largest names that are not a hand-written kernel.  ``two_lines``:
+    the pack's prefix step as ``prefix_two_lines``."""
     images = [sstable.read_sst(p) for p in kept["paths"]]
     eng = TorchCompactionEngine(geom, device=device, sort_mode=sort_mode)
 
     def job():
         return eng.compact(images, bottom_level=kept["bottom_level"])
 
-    job()
-    by_name = device_breakdown(job)
+    with (mock.patch.object(ops, "prefix_encode_wire", prefix_two_lines)
+          if two_lines else contextlib.nullcontext()):
+        job()
+        trace = device_trace(job)
+    by_name: dict[str, float] = {}
+    for name, ms in trace:
+        by_name[name] = by_name.get(name, 0.0) + ms
     split = split_device_time(by_name)
     other = sorted(((ms, n) for n, ms in by_name.items()
-                    if not any(fn in n for fn in HAND_WRITTEN)), reverse=True)
-    return dict(total_ms=sum(split.values()), split=split, other=other)
+                    if event_kind(n) in (COPIES, PYTORCH)), reverse=True)
+    return dict(total_ms=sum(split.values()), split=split, other=other,
+                pytorch_launches=sum(event_kind(n) == PYTORCH
+                                     for n, _ in trace))
 
 
 def breakdown_line(b: dict, card: str, sort_mode: str = "merge") -> str:
@@ -1092,13 +1271,14 @@ def breakdown_line(b: dict, card: str, sort_mode: str = "merge") -> str:
     parts = ", ".join(f"{k} {ms:.4f} ms ({ms / total:.1%})" for k, ms in
                       sorted(b["split"].items(), key=lambda x: -x[1]))
     top = "; ".join(f"{n[:60]} {ms:.4f} ms" for ms, n in b["other"][:6])
-    crc = b["split"].get("crc32_sections", 0.0)
-    rest = b["split"].get(OTHER, 0.0)
+    share = {k: b["split"].get(k, 0.0) / total
+             for k in ("crc32_sections", COPIES, PYTORCH)}
     return (f"[4] the L0->L1 job on the card (sort_mode={sort_mode!r}): "
             f"{total:.4f} ms of device time "
-            f"(CUPTI) = {parts}; CRC share {crc / total:.1%}, not a "
-            f"hand-written kernel {rest / total:.1%} (largest: {top}) "
-            f"[{card}]")
+            f"(CUPTI) = {parts}; CRC share {share['crc32_sections']:.1%}, "
+            f"copies {share[COPIES]:.1%}, PyTorch kernels "
+            f"{share[PYTORCH]:.1%} in {b['pytorch_launches']} launches "
+            f"(largest outside the hand-written kernels: {top}) [{card}]")
 
 
 def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
@@ -1413,9 +1593,12 @@ def main(argv: list[str]) -> int:
         if job_launches["bitonic_sort"] == 0 or job_launches["merge_runs"]:
             raise AssertionError("the sort_mode=\"device\" job made "
                                  f"launches {job_launches}")
+        launches_by_mode = {}
         for mode in ("merge", "device"):
             jb = job_breakdown(st["kept"], PAPER_GEOM, dev, sort_mode=mode)
             log(breakdown_line(jb, card, mode))
+            launches_by_mode[mode] = (jb["pytorch_launches"],
+                                      jb["split"].get(PYTORCH, 0.0))
             if jb["split"].get("crc32_sections", 0.0) <= 0:
                 raise AssertionError("the traced job ran no crc32_sections")
             sort_kernel, other = (("merge_runs", "bitonic_sort")
@@ -1424,6 +1607,19 @@ def main(argv: list[str]) -> int:
             if jb["split"].get(sort_kernel, 0.0) <= 0 or other in jb["split"]:
                 raise AssertionError(f"the traced {mode} job's kernels: "
                                      f"{jb['split']}")
+        jb = job_breakdown(st["kept"], PAPER_GEOM, dev, two_lines=True)
+        two_lines = round(checks["prefix_encode/before"]["events"]) - 1
+        n_wire, ms_wire = launches_by_mode["merge"]
+        log(f"[4] the same job (sort_mode='merge') with the pack's prefix "
+            f"step as its two PyTorch lines again (prefix_two_lines): "
+            f"{jb['pytorch_launches']} PyTorch kernel launches, "
+            f"{jb['pytorch_launches'] - n_wire} more than the wire route's "
+            f"{n_wire} (expected {two_lines + 2}: the two lines' "
+            f"{two_lines} kernels in phase 2, and the arange and compare of "
+            f"the rebuilt mask; CUPTI may drop a few events), "
+            f"{jb['split'].get(PYTORCH, 0.0):.4f} ms in PyTorch kernels "
+            f"(the wire route's {ms_wire:.4f}); {jb['total_ms']:.4f} ms of "
+            f"device time [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

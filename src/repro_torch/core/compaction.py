@@ -9,7 +9,8 @@ paper's kernels, here the port's CUDA kernels (``kernels.ops``):
                             (``device``: ``bitonic_sort``; ``xla``: a
                             stable torch sort; ``cooperative``: a host
                             sort)
-* phase 3 ``shared_key`` -> ``prefix_encode`` on the survivor keys
+* phase 3 ``shared_key`` -> ``prefix_encode_wire`` on the survivor keys (the
+                            shared lengths and the wire keys)
           ``encode``     -> value gather + CRC
           ``filter``     -> ``bloom_build``
 
@@ -154,10 +155,10 @@ def pack(rows: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
     vals_c = torch.where(valid_c[:, None],
                          vals[src[:, lanes + 1].to(torch.int64)], 0)
 
-    shared = ops.prefix_encode(keys_c, restart_interval=geom.restart_interval)
-    shared = torch.where(valid_c, shared, 0)
-    # the canonical compressed form: shared prefix bytes zeroed in lanes
-    keys_wire = formats.zero_prefix_lanes(keys_c, shared)
+    # the canonical compressed form: shared prefix bytes zeroed in lanes,
+    # nothing shared past the survivors (one launch on the card)
+    shared, keys_wire = ops.prefix_encode_wire(
+        keys_c, count, restart_interval=geom.restart_interval)
     nvalid = torch.clamp(count - torch.arange(n_blocks, device=dev) * k,
                          0, k).to(torch.int32)
 

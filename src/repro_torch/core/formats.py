@@ -29,7 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import MASK32, prefix_mask
+# zero_prefix_lanes lives with the plain version of the pack's prefix step
+# (ref.prefix_encode_wire), and is this module's public name as in JAX
+from repro_torch.kernels.ref import MASK32, zero_prefix_lanes  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,16 +136,6 @@ def wire_sections(img: SSTImage) -> list[torch.Tensor]:
     vw = img.vals.shape[-1]
     return [img.nvalid[:, None], img.keys.reshape(b, k * lanes), img.meta,
             img.vals.reshape(b, k * vw), img.shared]
-
-
-def zero_prefix_lanes(keys: torch.Tensor,
-                      shared: torch.Tensor) -> torch.Tensor:
-    """Zero the first ``shared[i]`` bytes of each big-endian-lane key in
-    lane space."""
-    lanes = keys.shape[-1]
-    i4 = 4 * torch.arange(lanes, device=keys.device)
-    nz = torch.clamp(shared.to(torch.int64)[:, None] - i4[None, :], 0, 4)
-    return keys & (~prefix_mask(nz)).to(torch.int32)
 
 
 def concat_images(images: list[SSTImage], *, with_runs: bool = False):

@@ -39,10 +39,21 @@
 //   words are picked from registers; a longer row (an SST's 5,120 words)
 //   takes its probed words in one batch of loads after the hash, with no
 //   branch between them.
-// * query: each of Q keys of group g against filter g, one thread per
-//   (group, query).  Its Q keys share a row, which sits in L1 after the
-//   first load, and its 262,144 threads are bound by instruction issue, so
-//   it keeps the plain loop that stops at the first zero bit.
+// * query: each of Q keys of group g against filter g.  At the phase-2
+//   shape (1,024 groups x 256 queries, 5 words) its 262,144 threads are
+//   resident at once, one wave: every thread waits for its key (4 MB in
+//   all, the bound), then hashes and probes, so the design cuts what a
+//   thread does.  Block (g, y) takes queries y * blockDim.x + threadIdx.x
+//   of group g, so no thread divides to find its group (x is the group: G
+//   may pass grid.y's 65,535); the key is hashed from 16-byte loads
+//   (`hash_key`); a probe's word is (x >> 5) mod W by one 32-bit
+//   multiply-high and a correction (`word_mod`) and its bit x & 31, the
+//   bit x mod 32W names, without `mod_magic`'s 64-bit multiplies; the loop
+//   stops at the first zero bit and reads the probed word through L1,
+//   where the group's row sits after the block's first miss.  Holding the
+//   row in registers or shared memory and ANDing every probe without a
+//   branch (multi_probe's design) measured slower here: an absent key
+//   stops after about two probes.
 //
 // Bound on the H100: HBM bytes (keys read once, the probed words or the
 // bitmaps, the result written once).
@@ -66,33 +77,6 @@ __device__ __forceinline__ void hash_lane(uint32_t x, uint32_t& h1,
 }
 
 constexpr uint32_t kH1 = 2166136261u, kH2 = 2166136261u ^ 0xDEADBEEFu;
-
-__device__ __forceinline__ void bloom_hash(const uint32_t* k, int lanes,
-                                           uint32_t& h1, uint32_t& h2) {
-  h1 = kH1;
-  h2 = kH2;
-  for (int l = 0; l < lanes; ++l) hash_lane(k[l], h1, h2);
-  h1 = mix32(h1);
-  h2 = mix32(h2) | 1u;
-}
-
-__device__ __forceinline__ uint32_t bloom_pos(uint32_t h1, uint32_t h2,
-                                              int i, uint32_t m) {
-  return (h1 + (uint32_t)i * h2) % m;
-}
-
-// True when every probed bit of `key` is set in `filter` (maybe present).
-__device__ __forceinline__ bool bloom_probe(const uint32_t* filter,
-                                            uint32_t m, const uint32_t* key,
-                                            int lanes, int n_probes) {
-  uint32_t h1, h2;
-  bloom_hash(key, lanes, h1, h2);
-  for (int i = 0; i < n_probes; ++i) {
-    const uint32_t pos = bloom_pos(h1, h2, i, m);
-    if (!((filter[pos >> 5] >> (pos & 31u)) & 1u)) return false;
-  }
-  return true;
-}
 
 // x mod m, exact for every 32-bit x and m > 1, by Lemire, Kaser and
 // Kurz's direct remainder: magic = floor((2^64 - 1) / m) + 1.  Two 64-bit
@@ -291,19 +275,42 @@ multi_probe_kernel(const uint32_t* __restrict__ filters,
   out[r] = (uint8_t)(all & 1u);
 }
 
+// (x mod 32W) >> 5, that is (x >> 5) mod W, exact for every 32-bit x:
+// minv = floor((2^32 - 1) / W) gives a quotient of y = x >> 5 < 2^27 that
+// is right or one short, so one subtraction corrects the remainder.
+__device__ __forceinline__ uint32_t word_mod(uint32_t x, uint32_t w,
+                                             uint32_t minv) {
+  const uint32_t y = x >> 5;
+  const uint32_t r = y - __umulhi(y, minv) * w;
+  return r >= w ? r - w : r;
+}
+
 constexpr int kQueryThreads = 256;
 
-// Row r of `keys` is probed against filter row r / per_filter.
+// Query y * blockDim.x + threadIdx.x of group blockIdx.x against the
+// group's filter row.
 __global__ void __launch_bounds__(kQueryThreads)
 bloom_query_kernel(const uint32_t* __restrict__ filters,
-                   const uint32_t* __restrict__ keys, long long rows,
-                   long long per_filter, int lanes, int n_words,
-                   int n_probes, uint8_t* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * kQueryThreads + threadIdx.x;
-  if (r >= rows) return;
-  const uint32_t* filter = filters + (r / per_filter) * n_words;
-  out[r] = bloom_probe(filter, (uint32_t)n_words * 32u, keys + r * lanes,
-                       lanes, n_probes) ? 1 : 0;
+                   const uint32_t* __restrict__ keys, long long queries,
+                   int lanes, int n_words, int n_probes, bool vec4,
+                   uint32_t minv, uint8_t* __restrict__ out) {
+  const long long q = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+  if (q >= queries) return;
+  const long long g = blockIdx.x;
+  const uint32_t* filter = filters + g * n_words;
+  const long long r = g * queries + q;
+  uint32_t h1, h2;
+  hash_key(keys + r * lanes, lanes, vec4, h1, h2);
+  uint8_t ok = 1;
+  for (int i = 0; i < n_probes; ++i) {
+    const uint32_t x = h1 + (uint32_t)i * h2;
+    if (!((__ldg(filter + word_mod(x, (uint32_t)n_words, minv)) >>
+           (x & 31u)) & 1u)) {
+      ok = 0;
+      break;
+    }
+  }
+  out[r] = ok;
 }
 
 }  // namespace
@@ -377,14 +384,20 @@ REPRO_EXPORT int bloom_query(const void* filters, const void* keys,
                              long long groups, long long queries, int lanes,
                              int n_words, int n_probes, void* out,
                              void* stream) {
-  const long long rows = groups * queries;
-  if (rows <= 0) return cudaSuccess;
-  if (n_words <= 0 || queries <= 0 || lanes <= 0)
+  if (groups <= 0 || queries <= 0) return cudaSuccess;
+  if (n_words <= 0 || lanes <= 0 || n_probes < 0 || groups >= (1ll << 31))
     return cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((rows + kQueryThreads - 1) / kQueryThreads);
-  bloom_query_kernel<<<grid, kQueryThreads, 0, as_stream(stream)>>>(
+  // a block of whole warps, no wider than the queries need
+  const int threads = (int)(queries < kQueryThreads
+                                ? (queries + 31) / 32 * 32 : kQueryThreads);
+  const long long chunks = (queries + threads - 1) / threads;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)groups, (unsigned)chunks);
+  const bool vec4 =
+      lanes % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0;
+  bloom_query_kernel<<<grid, threads, 0, as_stream(stream)>>>(
       static_cast<const uint32_t*>(filters),
-      static_cast<const uint32_t*>(keys), rows, queries, lanes, n_words,
-      n_probes, static_cast<uint8_t*>(out));
+      static_cast<const uint32_t*>(keys), queries, lanes, n_words, n_probes,
+      vec4, 0xFFFFFFFFu / (uint32_t)n_words, static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,14 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def crc32_blocks(words: torch.Tensor) -> torch.Tensor:
+    """int32 ``[n_blocks]`` CRC-32 of each row of ``words`` (int32
+    ``[n_blocks, n_words]``); equal to ``binascii.crc32`` per row."""
+    if _on_card(words):
+        return _crc32.crc32_blocks(words)
+    return ref.crc32_words(words)
+
+
 def crc32_sections(sections) -> torch.Tensor:
     """int32 ``[n_blocks]`` CRC-32 of the concatenated per-block sections
     (each ``[n_blocks, w_i]``); equal to ``binascii.crc32`` per row."""
@@ -103,6 +111,21 @@ def prefix_encode(keys: torch.Tensor, *,
     if _on_card(keys):
         return _prefix.prefix_encode(keys, restart_interval=restart_interval)
     return ref.prefix_encode(keys, restart_interval=restart_interval)
+
+
+def prefix_encode_wire(keys: torch.Tensor, count: torch.Tensor, *,
+                       restart_interval: int = 16
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's prefix step, one launch on the card: ``(shared, wire)``,
+    ``shared`` 0 from row ``count`` (an int64 scalar tensor, the survivors)
+    on and the keys' first ``shared`` bytes zeroed in ``wire``; equal to
+    JAX's ``where(valid, prefix_encode(...), 0)`` then
+    ``formats.zero_prefix_lanes``."""
+    if _on_card(keys):
+        return _prefix.prefix_encode_wire(keys, count,
+                                          restart_interval=restart_interval)
+    return ref.prefix_encode_wire(keys, count,
+                                  restart_interval=restart_interval)
 
 
 def prefix_decode(shared: torch.Tensor, keys_raw: torch.Tensor, *,

@@ -211,6 +211,28 @@ def prefix_mask(nz: torch.Tensor) -> torch.Tensor:
     return ~(torch.full_like(nz, MASK32) >> (8 * nz)) & MASK32
 
 
+def zero_prefix_lanes(keys: torch.Tensor,
+                      shared: torch.Tensor) -> torch.Tensor:
+    """Zero the first ``shared[i]`` bytes of each big-endian-lane key in
+    lane space."""
+    lanes = keys.shape[-1]
+    i4 = 4 * torch.arange(lanes, device=keys.device)
+    nz = torch.clamp(shared.to(torch.int64)[:, None] - i4[None, :], 0, 4)
+    return keys & (~prefix_mask(nz)).to(torch.int32)
+
+
+def prefix_encode_wire(keys: torch.Tensor, count: torch.Tensor, *,
+                       restart_interval: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pack's prefix step: ``(shared, wire)``, the shared lengths of
+    :func:`prefix_encode` set to 0 from row ``count`` (the survivors) on,
+    and the keys with their first ``shared`` bytes zeroed."""
+    valid = torch.arange(keys.shape[0], device=keys.device) < count
+    shared = torch.where(valid, prefix_encode(
+        keys, restart_interval=restart_interval), 0)
+    return shared, zero_prefix_lanes(keys, shared)
+
+
 def prefix_decode(shared: torch.Tensor, keys_raw: torch.Tensor, *,
                   restart_interval: int) -> torch.Tensor:
     """Restore full keys from the prefix-zeroed lanes: row ``t`` of an

@@ -110,7 +110,7 @@ class LsmDB:
         self.engine = TorchCompactionEngine(self.geom, device=device,
                                             sort_mode=self.cfg.sort_mode)
         os.makedirs(path, exist_ok=True)
-        self.stats = DBStats()
+        self._stats = DBStats()
         self.compactions: list[CompactionRecord] = []
         self.versions = VersionSet(path)
         self.versions.open()
@@ -132,6 +132,13 @@ class LsmDB:
     @property
     def device(self):
         return self.engine.device
+
+    @property
+    def stats(self) -> DBStats:
+        """Point-in-time copy of the store's counters, as
+        ``repro.lsm.db.LsmDB.stats``: two reads give two objects, so their
+        difference is what happened in between."""
+        return dataclasses.replace(self._stats)
 
     def _replay_wal(self):
         """Replay rotated WAL segments (an async-mode store leaves them),
@@ -164,7 +171,7 @@ class LsmDB:
                     continue
             if stale:
                 os.remove(p)
-                self.stats.orphans_removed += 1
+                self._stats.orphans_removed += 1
 
     # ------------------------------------------------------------------
     # writes
@@ -198,7 +205,7 @@ class LsmDB:
         seq = self._next_seq()
         self._wal.append(wal.PUT, seq, key, value)
         self.mem.put(key, seq, value)
-        self.stats.puts += 1
+        self._stats.puts += 1
         self._maybe_flush()
 
     def delete(self, key: bytes):
@@ -207,7 +214,7 @@ class LsmDB:
         seq = self._next_seq()
         self._wal.append(wal.DELETE, seq, key)
         self.mem.delete(key, seq)
-        self.stats.deletes += 1
+        self._stats.deletes += 1
         self._maybe_flush()
 
     def write_batch(self, ops) -> int:
@@ -238,8 +245,8 @@ class LsmDB:
                 self.mem.put(key, first_seq + i, value)
             else:
                 self.mem.delete(key, first_seq + i)
-        self.stats.write_batches += 1
-        self.stats.batch_ops += len(rows)
+        self._stats.write_batches += 1
+        self._stats.batch_ops += len(rows)
         self._maybe_flush()
         return len(rows)
 
@@ -281,7 +288,7 @@ class LsmDB:
     def get(self, key: bytes, opts: ReadOptions | None = None
             ) -> bytes | None:
         """The value, or None if absent or deleted."""
-        self.stats.gets += 1
+        self._stats.gets += 1
         opts = opts or DEFAULT_READ_OPTIONS
 
         def read(mems, version):
@@ -301,8 +308,8 @@ class LsmDB:
         order, equal to ``[self.get(k, opts) for k in keys]``."""
         keys = list(keys)
         opts = opts or DEFAULT_READ_OPTIONS
-        self.stats.multi_gets += 1
-        self.stats.multi_get_keys += len(keys)
+        self._stats.multi_gets += 1
+        self._stats.multi_get_keys += len(keys)
         return self._read(opts, lambda mems, version: self._multi_get_inner(
             keys, opts, mems, version))
 
@@ -320,7 +327,7 @@ class LsmDB:
                 unresolved.append((i, key))
         cands = lsm_read.version_candidates(version, unresolved, self.cache)
         resolved = lsm_read.resolve_candidates(
-            cands, self.geom, opts, self.device, stats=self.stats)
+            cands, self.geom, opts, self.device, stats=self._stats)
         for slot, (_, value) in resolved.items():
             out[slot] = value
         return out
@@ -345,7 +352,7 @@ class LsmDB:
     def _table_get(self, fm: FileMeta, key: bytes, opts: ReadOptions):
         found, value, pruned = self.cache.reader(fm).probe(key, opts)
         if pruned:
-            self.stats.bloom_negative_skips += 1
+            self._stats.bloom_negative_skips += 1
         return found, value
 
     def scan(self, start: bytes, end: bytes,
@@ -405,8 +412,8 @@ class LsmDB:
                 pass
         self._extra_wals = []
         self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
-        self.stats.flushes += 1
-        self.stats.flush_host_seconds += time.perf_counter() - t0
+        self._stats.flushes += 1
+        self._stats.flush_host_seconds += time.perf_counter() - t0
 
     def _install_ssts(self, img: SSTImage, level: int,
                       edit: VersionEdit | None = None) -> list[FileMeta]:
@@ -478,7 +485,7 @@ class LsmDB:
             self.versions.log_and_apply(VersionEdit(
                 added=[(job.level + 1, fm)], deleted=[(job.level, fm.file_no)],
                 compact_pointer=self._pointer_edit(job.level)))
-            self.stats.trivial_moves += 1
+            self._stats.trivial_moves += 1
             return
         out, es = self.engine.compact_paths(
             [f.path for f in job.all_inputs], bottom_level=job.bottom_level)
@@ -501,7 +508,7 @@ class LsmDB:
         self._log_edit(edit)
         for f in job.all_inputs:
             self.cache.drop(f.file_no)
-        s = self.stats
+        s = self._stats
         s.compactions += 1
         s.compact_bytes_in += es.bytes_in
         s.compact_bytes_out += es.bytes_out

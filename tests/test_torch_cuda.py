@@ -47,6 +47,16 @@ def sorted_rows(rng, n, lanes, dev, distinct=8) -> torch.Tensor:
     return torch.from_numpy(r.view(np.int32)).to(dev)
 
 
+def one_launch(name, fn):
+    """``fn()``, asserting it made one launch of ``name`` and no other."""
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {name: 1}
+    return out
+
+
 @pytest.mark.parametrize("widths,rows,flip", [
     ((1, 64, 16, 1088, 16), 4096, False), ((3,), 5, False),
     ((7, 300), 33, False),
@@ -78,6 +88,43 @@ def test_prefix_encode(dev, n, lanes, restart):
     keys = sorted_rows(np.random.default_rng(n), n, lanes, dev, distinct=3)
     assert torch.equal(ops.prefix_encode(keys, restart_interval=restart),
                        ref.prefix_encode(keys, restart_interval=restart))
+
+
+@pytest.mark.parametrize("n,lanes,restart", chip_smoke.PREFIX_EDGES,
+                         ids=str)
+def test_prefix_encode_edges(dev, n, lanes, restart):
+    """Both routes at the edge table: lanes 1 to 10 (16-byte loads at 4 and
+    8, the run-time route at 10), restart intervals that divide 32 and that
+    do not, one interval alone; the wire route at 0, 1, a restart point,
+    mid-interval and all rows surviving.  One launch a call."""
+    keys = torch.from_numpy(chip_smoke.prefix_edge_keys(
+        n, lanes, restart).view(np.int32)).to(dev)
+    got = one_launch("prefix_encode", lambda: ops.prefix_encode(
+        keys, restart_interval=restart))
+    assert torch.equal(got, ref.prefix_encode(keys, restart_interval=restart))
+    for c in chip_smoke.prefix_edge_counts(n, restart):
+        count = torch.tensor(c, dtype=torch.int64, device=dev)
+        shared, wire = one_launch(
+            "prefix_encode", lambda: ops.prefix_encode_wire(
+                keys, count, restart_interval=restart))
+        want_shared, want_wire = ref.prefix_encode_wire(
+            keys, count, restart_interval=restart)
+        assert torch.equal(shared, want_shared)
+        assert torch.equal(wire, want_wire)
+
+
+def test_prefix_encode_wire_takes_an_unaligned_view(dev):
+    """Keys that start off a 16-byte boundary take the 4-byte loads."""
+    words = torch.from_numpy(chip_smoke.prefix_edge_keys(
+        4096, 4, 16).view(np.int32)).to(dev).flatten()
+    buf = torch.zeros(words.numel() + 1, dtype=torch.int32, device=dev)
+    buf[1:] = words
+    keys = buf[1:].view(4096, 4)
+    assert keys.data_ptr() % 16 and keys.is_contiguous()
+    count = torch.tensor(4000, dtype=torch.int64, device=dev)
+    for a, b in zip(ops.prefix_encode_wire(keys, count),
+                    ref.prefix_encode_wire(keys, count, restart_interval=16)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("groups,per,n_words", [
@@ -245,6 +292,19 @@ def test_bloom_query(dev, g, q, n_words):
                               n_probes=6)
     assert torch.equal(ops.bloom_query(filters, keys, n_probes=6),
                        ref.bloom_query(filters, keys, n_probes=6))
+
+
+@pytest.mark.parametrize("case", chip_smoke.QUERY_EDGES, ids=str)
+def test_bloom_query_edges(dev, case):
+    """One query a group, queries that fill no block, rows of 5 to 13,000
+    words, 70,000 groups (past grid.y's limit): bit-identical, one
+    launch."""
+    g, q, n_words, probes = case
+    filters, keys = chip_smoke.query_edge_inputs(g, q, n_words, probes, dev)
+    got = one_launch("bloom_query", lambda: ops.bloom_query(
+        filters, keys, n_probes=probes))
+    assert torch.equal(got, ref.bloom_query(filters, keys, n_probes=probes))
+    assert got[:, :(q + 1) // 2].all()   # no false negative
 
 
 @pytest.mark.parametrize("k,lanes,vw", chip_smoke.EDGE_SHAPES)

@@ -11,6 +11,8 @@ The CUDA kernels themselves run only on the card: see
 
 import binascii
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ import torch
 from repro.core import formats as jformats
 from repro.kernels import bloom as jbloom
 from repro.kernels import crc32 as jcrc32
+from repro.kernels import ops as jops
 from repro.kernels import prefix as jprefix
 from repro.kernels import ref as jref
 from repro_torch.core import formats
@@ -32,6 +35,11 @@ from repro_torch.kernels import crc32 as tcrc32
 from repro_torch.kernels import prefix as tprefix
 from repro_torch.kernels import selective_scan as tscan
 from repro_torch.kernels import tables
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)   # the prefix step's edge cases
 
 
 def t(a: np.ndarray) -> torch.Tensor:
@@ -97,6 +105,20 @@ def test_crc32_sections_match_pallas_and_ref(widths, pallas):
         np.testing.assert_array_equal(np.asarray(
             jcrc32.crc32_blocks_sections(
                 tuple(jnp.asarray(p) for p in parts), interpret=True)), want)
+
+
+@pytest.mark.parametrize("n_blocks,n_words,backend", [
+    (1, 4, "ref"), (5, 39, "ref"), (3, 1185, "ref"), (4, 16, "pallas")])
+def test_ops_crc32_blocks_matches_jax(n_blocks, n_words, backend):
+    """``ops.crc32_blocks`` (ROADMAP A20) equals JAX's ``ops.crc32_blocks``
+    and ``binascii.crc32`` on seeded words."""
+    rng = np.random.default_rng(n_blocks * n_words)
+    words = rand_words(rng, (n_blocks, n_words))
+    got = u(ops.crc32_blocks(t(words)))
+    want = np.asarray(jops.crc32_blocks(jnp.asarray(words), backend=backend))
+    np.testing.assert_array_equal(got, want)
+    assert got.tolist() == [binascii.crc32(r.astype("<u4").tobytes())
+                            for r in words]
 
 
 def test_crc32_detects_a_flipped_bit():
@@ -202,6 +224,40 @@ def test_prefix_decode_matches_ref(n, lanes):
             jnp.asarray(shared), jnp.asarray(raw_dirty)))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, keys)
+
+
+@pytest.mark.parametrize("n,lanes,restart", chip_smoke.PREFIX_EDGES,
+                         ids=str)
+def test_prefix_encode_edges_match_pallas(n, lanes, restart):
+    """The shared-only route at phase 2's edge table (lanes 1 to 10,
+    restart 16, 12 and 24, one interval alone) equals the Pallas kernel."""
+    keys = chip_smoke.prefix_edge_keys(n, lanes, restart)
+    got = ops.prefix_encode(t(keys), restart_interval=restart).numpy()
+    want = np.asarray(jprefix.prefix_encode(
+        jnp.asarray(keys), restart_interval=restart, interpret=True))
+    np.testing.assert_array_equal(got, want)
+    assert got.max() == 4 * lanes   # repeated rows share every byte
+
+
+@pytest.mark.parametrize("n,lanes,restart,count", [
+    (*case, c) for case in chip_smoke.PREFIX_EDGES
+    for c in chip_smoke.prefix_edge_counts(case[0], case[2])], ids=str)
+def test_prefix_encode_wire_matches_jax(n, lanes, restart, count):
+    """``ops.prefix_encode_wire`` (on the CPU its plain version, what the
+    pack runs) equals the JAX pack's two steps, bit for bit: the Pallas
+    kernel's lengths masked to the survivors, then
+    ``formats.zero_prefix_lanes``; at 0, 1, a restart point, mid-interval
+    and all rows surviving."""
+    keys = chip_smoke.prefix_edge_keys(n, lanes, restart)
+    shared, wire = ops.prefix_encode_wire(
+        t(keys), torch.tensor(count), restart_interval=restart)
+    j_shared = jnp.where(jnp.arange(n) < count, jprefix.prefix_encode(
+        jnp.asarray(keys), restart_interval=restart, interpret=True), 0)
+    j_wire = jformats.zero_prefix_lanes(jnp.asarray(keys), j_shared)
+    np.testing.assert_array_equal(shared.numpy(), np.asarray(j_shared))
+    np.testing.assert_array_equal(u(wire), np.asarray(j_wire))
+    assert shared.dtype == torch.int32 and not shared[count:].any()
+    np.testing.assert_array_equal(u(wire)[count:], keys[count:])
 
 
 def test_zero_prefix_lanes_and_bytes_match_jax():
@@ -471,6 +527,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     rng = np.random.default_rng(1)
     ops.crc32_sections([t(rand_words(rng, (2, 8)))])
     ops.prefix_encode(t(sorted_keys(rng, 16, 4)))
+    ops.prefix_encode_wire(t(sorted_keys(rng, 16, 4)), torch.tensor(9))
+    ops.crc32_blocks(t(rand_words(rng, (2, 8))))
     ops.bloom_build(t(rand_words(rng, (2, 16, 4))), n_words=5, n_probes=6)
     ops.merge_runs(t(_runs(rng, (8, 8))), (8, 8))
     ops.bloom_multi_probe(t(rand_words(rng, (3, 5))),
@@ -492,6 +550,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 @pytest.mark.parametrize("call", [
     lambda: tcrc32.crc32_blocks(torch.zeros((2, 4), dtype=torch.int32)),
     lambda: tprefix.prefix_encode(torch.zeros((16, 4), dtype=torch.int32)),
+    lambda: tprefix.prefix_encode_wire(torch.zeros((16, 4), dtype=torch.int32),
+                                       torch.tensor(3)),
     lambda: merge_path.merge_runs(torch.zeros((4, 6), dtype=torch.int32),
                                   (2, 2)),
     lambda: tbloom.bloom_multi_probe(torch.zeros((2, 5), dtype=torch.int32),
@@ -509,7 +569,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     lambda: tbloom.bloom_build(torch.zeros((2, 16, 4), dtype=torch.int32),
                                torch.ones((2, 16), dtype=torch.bool),
                                n_words=5, n_probes=6),
-], ids=["crc32", "prefix_encode", "merge_runs", "bloom_multi_probe",
+], ids=["crc32", "prefix_encode", "prefix_encode_wire", "merge_runs",
+        "bloom_multi_probe",
         "bloom_query", "lookup_blocks", "bitonic_sort", "selective_scan",
         "bloom_build"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):

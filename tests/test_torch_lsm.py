@@ -203,3 +203,21 @@ def test_reader_probe_bloom_and_block_crc(tmp_path):
     with pytest.raises(IOError, match="block 0"):
         rdr.decode_block(0, verify_crc=True)
     db.close()
+
+
+def test_stats_is_a_snapshot(tmp_path):
+    """``LsmDB.stats`` is a point-in-time copy in both stores (ROADMAP C4):
+    two reads give two objects, and a put and a get between them show as
+    the same deltas in the port as in the JAX store."""
+    deltas = []
+    for db in (JDB(str(tmp_path / "jax"), jax_cfg()),
+               LsmDB(str(tmp_path / "port"), port_cfg(), device="cpu")):
+        s0 = db.stats
+        db.put(b"k1", b"v1")
+        assert db.get(b"k1") == b"v1"
+        s1 = db.stats
+        assert s0 is not s1
+        assert db.stats is not db.stats
+        deltas.append((s1.puts - s0.puts, s1.gets - s0.gets))
+        db.close()
+    assert deltas == [(1, 1), (1, 1)]

@@ -3,6 +3,7 @@ the card unless asked for the CPU, and ``chip_smoke.py`` drives the store
 phase end to end (rehearsed here on the CPU at a scaled-down size)."""
 
 import ast
+import contextlib
 import importlib.util
 import os
 import shutil
@@ -228,6 +229,66 @@ def test_chip_smoke_merge_cases_rehearsal():
     assert cs.merge_levels(ragged) == 4
 
 
+def test_chip_smoke_prefix_and_query_cases_rehearsal(tmp_path):
+    """Phase 2's prefix step on the CPU: the wire case at the pack's shape
+    (65,536 rows, 61,440 surviving) and the two-line route it replaced
+    equal the plain version; the bound is the bytes.  Phase 4's
+    ``prefix_two_lines`` patched into a compaction gives the same image.
+    The edge tables hold the counts and shapes that the card checks."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.core import compaction, formats
+    cs = _chip_smoke()
+    cases, _ = cs.kernel_cases(np.random.default_rng(0), "cpu")
+    by = {c[0]: c for c in cases}
+    for name in ("prefix_encode", "prefix_encode/wire",
+                 "prefix_encode/before"):
+        _, kern, plain, nbytes, nops = by[name]
+        assert cs.compare_outputs(name, kern(), plain())[0] == 0
+        assert nbytes / cs.HBM_BYTES_PER_S > nops / cs.SCALAR_OPS_PER_S
+    shared, wire = by["prefix_encode/wire"][1]()
+    assert shared.shape == (65_536,) and not shared[cs.PREFIX_COUNT:].any()
+    assert shared[:cs.PREFIX_COUNT].any() and wire.shape == (65_536, 4)
+    assert cs.KERNELS["prefix_encode"][1] == "prefix_encode/wire"
+
+    geom = SSTGeometry(key_bytes=16, value_bytes=32, block_bytes=512,
+                       sst_bytes=4096)
+    rng = np.random.default_rng(3)
+    keys = np.unique(rng.integers(0, 6, (300, 4)).astype(np.uint32), axis=0)
+    n = len(keys)
+    args = (cs.as_i32(keys, "cpu"),
+            torch.tensor([formats.make_meta(s, 1) for s in range(1, n + 1)],
+                         dtype=torch.int64).to(torch.int32),
+            cs.as_i32(rng.integers(0, 2**32, (n, geom.value_words),
+                                   dtype=np.uint32), "cpu"))
+    runs = []
+    for patch in (False, True):
+        with (mock.patch.object(ops, "prefix_encode_wire",
+                                cs.prefix_two_lines) if patch
+              else contextlib.nullcontext()):
+            img = offload.build_image(*args, n - 5, geom=geom)   # a flush
+            runs.append((img, compaction.compact(
+                img, geom=geom, sort_mode="device")[0]))
+    for a, b in zip(*runs):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert runs[0][0].shared.any()
+
+    for n, lanes, restart in cs.PREFIX_EDGES:
+        counts = cs.prefix_edge_counts(n, restart)
+        assert counts[0] == 0 and counts[-1] == n and 1 in counts
+        assert n % restart == 0
+    assert {r for *_, r in cs.PREFIX_EDGES} == {12, 16, 24}
+    assert {lanes for _, lanes, _ in cs.PREFIX_EDGES} >= {1, 4, 5, 10}
+    assert any(n == r for n, _, r in cs.PREFIX_EDGES)
+    words = {w for *_, w, _ in cs.QUERY_EDGES}
+    assert {8, 9, 16, 17, 5120} <= words and max(words) * 4 > 48 * 1024
+    assert max(g for g, *_ in cs.QUERY_EDGES) > 65_535
+    filters, qkeys = cs.query_edge_inputs(5, 300, 5, 6, "cpu")
+    assert filters.shape == (5, 5) and qkeys.shape == (5, 300, 4)
+    assert ops.bloom_query(filters, qkeys, n_probes=6)[:, :150].all()
+
+
 def test_chip_smoke_merge_jobs_line():
     """Phase 3's merge report: a job of k input files takes ceil(log2 k')
     launches, k' = k or k + 1 (the engine's padding run); anything else,
@@ -263,8 +324,10 @@ def test_chip_smoke_splits_device_time_by_kernel():
     """Phase 4's breakdown: each traced name goes to the hand-written kernel
     whose ``__global__`` function it names (the sort's tile and level
     kernels to one sort, and not the merge's level kernel to it; the bloom
-    build's two routes to one build), everything else to the rest; the
-    line gives the CRC's share."""
+    build's two routes to one build; the prefix step's wire route to
+    ``prefix_encode``), copies and fills to the copies, everything else to
+    PyTorch's kernels; the line gives the CRC's, the copies' and PyTorch's
+    shares and PyTorch's launches."""
     cs = _chip_smoke()
     by_name = {
         "(anonymous namespace)::crc32_sections_kernel(Sections, ...)": 1.0,
@@ -278,18 +341,26 @@ def test_chip_smoke_splits_device_time_by_kernel():
         "(anonymous namespace)::bloom_build_block_kernel(...)": 0.125,
         "Memcpy HtoD (Pageable -> Device)": 2.0,
         "void at::native::vectorized_elementwise_kernel<4, ...>": 0.5}
+    by_name["void (anonymous namespace)::prefix_encode_kernel<4, true>("
+            "(anonymous namespace)::Args)"] = 0.0625
+    by_name["Memset (Device)"] = 0.0625
     split = cs.split_device_time(by_name)
     assert split == {"crc32_sections": 1.0, "bitonic_sort": 1.0,
-                     "merge_runs": 0.25, "bloom_build": 0.25, cs.OTHER: 2.5}
+                     "merge_runs": 0.25, "bloom_build": 0.25,
+                     "prefix_encode": 0.0625, cs.COPIES: 2.0625,
+                     cs.PYTORCH: 0.5}
     sources = "".join(p.read_text() for p in
                       (REPO / "src/repro_torch/kernels/csrc").glob("*.cu"))
     for fn in cs.HAND_WRITTEN:
         assert f"{fn}(" in sources
-    line = cs.breakdown_line(dict(total_ms=5.0, split=split, other=sorted(
-        ((ms, n) for n, ms in by_name.items() if "Memcpy" in n or "at::" in
-         n), reverse=True)), "card", "device")
-    assert "CRC share 20.0%" in line and "not a hand-written kernel 50.0%" \
-        in line and "Memcpy HtoD" in line and "sort_mode='device'" in line
+    line = cs.breakdown_line(dict(
+        total_ms=5.125, split=split, pytorch_launches=7, other=sorted(
+            ((ms, n) for n, ms in by_name.items()
+             if cs.event_kind(n) in (cs.COPIES, cs.PYTORCH)), reverse=True)),
+        "card", "device")
+    assert "CRC share 19.5%" in line and "copies 40.2%" in line and \
+        "PyTorch kernels 9.8% in 7 launches" in line and \
+        "Memcpy HtoD" in line and "sort_mode='device'" in line
 
 
 def _run(args, cwd, env_extra=None):
