@@ -25,16 +25,27 @@ Phases, any fault exits non-zero:
    each job's merge tree; one ``multi_get`` batch traced, cold and warm:
    each stage of a wave one copy over, one kernel, one copy back;
 4. run one real compaction job of phase 3 through the engine on ``cuda``
-   (``sort_mode="merge"`` and ``"device"``, the bitonic sort) and on
-   ``cpu``: the output images must be byte-identical; split the ``cuda``
-   job's device time by kernel (CUPTI trace), in both sort modes;
+   (``sort_mode="merge"`` and ``"device"``, the bitonic sort), on ``cpu``
+   and through the numpy baseline (``CpuCompactionEngine``): the output
+   images must be byte-identical (padding blocks trimmed where the two
+   pad differently); split the ``cuda`` job's device time by kernel
+   (CUPTI trace), in both sort modes, its image copies through pinned
+   staging;
 5. serve falcon-mamba-7b at full width and depth
    (``repro_torch.serving.engine.ServeEngine``): the selective-scan kernel
    against its plain version at the serving shapes (and at one long
    sequence), 4 requests of 512 prompt tokens and 16 new tokens with one
    kernel launch per layer of the prefill, prefill-then-decode against a
    longer prefill, and the prefill with the kernel against the prefill
-   with the plain scan.
+   with the plain scan;
+6. the paper's evaluation (``repro_torch.launch.ycsb.run`` at
+   ``configs.luda_paper.PAPER``): YCSB-A at each of the paper's value
+   sizes, 10 memtables of records and as many operations, on the LUDA
+   store (the device engine on ``cuda``) and on the CPU baseline
+   (``DBConfig(engine="cpu")`` on ``device="cpu"``); every read and a full
+   scan checked against the acknowledged writes, the two stores' SST files
+   byte-identical, the store kernels launched by LUDA and none by the
+   baseline; a row per store and a LUDA / baseline line per value size.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import binascii
 import contextlib
+import hashlib
 import json
 import os
 import shutil
@@ -67,23 +79,26 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.luda_paper import PAPER  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
 from repro_torch.kernels import _build, merge_path, ops, ref  # noqa: E402
 from repro_torch.kernels import bitonic_sort as sort_plan  # noqa: E402
+from repro_torch.launch import ycsb  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
+from repro_torch.lsm.cpu_engine import CpuCompactionEngine  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.convert import tree_leaves  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 
-# LUDA §IV-A (src/repro/configs/luda_paper.py): 16 B keys, 256 B values
-# (+16 B slot header room), 4 KB blocks, 4 MB SSTs, 10 bloom bits per key
-PAPER_GEOM = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
-                         sst_bytes=4 * 1024 * 1024, bloom_bits_per_key=10)
-PAPER_SCHED = SchedulerConfig(l0_trigger=4, base_bytes=32 * 1024 * 1024)
+# LUDA §IV-A (configs.luda_paper): 16 B keys, 256 B values (+16 B slot
+# header room), 4 KB blocks, 4 MB SSTs, 10 bloom bits per key; L0 compacts
+# at 4 files, L1 holds 32 MB
+PAPER_GEOM = PAPER.geometry(256)
+PAPER_SCHED = PAPER.scheduler()
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the scalar (non-tensor-core)
 # 32-bit rate, used for integer and fp32 work; the special-function units
@@ -129,6 +144,8 @@ KERNELS = {
 # and no path calls bloom_query (as in the JAX package)
 STORE_PATH = ("crc32_sections", "merge_runs", "prefix_encode",
               "bloom_build", "bloom_multi_probe", "lookup_blocks")
+# the kernels of a flush and a compaction, which phase 6's LUDA runs drive
+WRITE_PATH = ("crc32_sections", "merge_runs", "prefix_encode", "bloom_build")
 # the kernels of a multi_get wave: the bloom prune, the search and gather
 READ_PATH = ("bloom_multi_probe", "lookup_blocks")
 # why each kernel has no library_ms
@@ -1179,23 +1196,44 @@ COPIES = "copies"
 PYTORCH = "PyTorch kernels"
 
 
+# CUPTI on this machine drops the first device events of a trace now and
+# then, more of them after many traces (phase 4's image copies, first in
+# their job, went missing after phase 2's traces); each trace starts with
+# this many small kernels and a marker kernel that absorb the loss, and
+# keeps only the events after the marker
+TRACE_PRELUDE = 64
+
+
 def device_trace(fn, attempts: int = 3) -> list[tuple[str, float]]:
     """``(name, ms)`` of each device event (kernel or copy) of one call of
-    ``fn``, from the profiler's CUPTI trace.  A trace that comes back
-    without device events (CUPTI drops one now and then on this machine)
-    is taken again, up to ``attempts`` times in all."""
+    ``fn``, from the profiler's CUPTI trace, after a prelude of
+    ``TRACE_PRELUDE`` one-element fills and a ``torch.cuda._sleep``
+    marker (``spin_kernel``) whose events are left out.  A trace that
+    comes back without the marker or without device events after it is
+    taken again, up to ``attempts`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    pad = torch.zeros(1, device="cuda")
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PRELUDE):
+                pad.zero_()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+        events = [(e.time_range.start, e.name,
+                   e.time_range.elapsed_us() / 1e3)
                   for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = [start for start, name, _ in events if "spin_kernel" in name]
+        if not marks:
+            continue
+        events = [(name, ms) for start, name, ms in events
+                  if start > marks[-1]]
         if events:
             return events
-    raise RuntimeError(f"the profiler recorded no device time in "
-                       f"{attempts} traces")
+    raise RuntimeError(f"the profiler recorded no device time after its "
+                       f"marker in {attempts} traces")
 
 
 def device_breakdown(fn, attempts: int = 3) -> dict[str, float]:
@@ -1240,10 +1278,12 @@ def prefix_two_lines(keys_c: torch.Tensor, count: torch.Tensor, *,
 def job_breakdown(kept: dict, geom: SSTGeometry, device,
                   sort_mode: str = "merge", two_lines: bool = False) -> dict:
     """The kept L0->L1 job through the engine on ``device`` in
-    ``sort_mode``, once to warm up and once traced: its device time split
-    by kernel, copies and PyTorch kernels, the PyTorch kernel launches, and
-    the largest names that are not a hand-written kernel.  ``two_lines``:
-    the pack's prefix step as ``prefix_two_lines``."""
+    ``sort_mode``, once to warm up and three times traced, keeping the
+    trace with the most device events (CUPTI drops some now and then on
+    this machine): its device time split by kernel, copies and PyTorch
+    kernels, the PyTorch kernel launches, the copies by direction and host
+    memory, and the largest names that are not a hand-written kernel.
+    ``two_lines``: the pack's prefix step as ``prefix_two_lines``."""
     images = [sstable.read_sst(p) for p in kept["paths"]]
     eng = TorchCompactionEngine(geom, device=device, sort_mode=sort_mode)
 
@@ -1253,7 +1293,8 @@ def job_breakdown(kept: dict, geom: SSTGeometry, device,
     with (mock.patch.object(ops, "prefix_encode_wire", prefix_two_lines)
           if two_lines else contextlib.nullcontext()):
         job()
-        trace = device_trace(job)
+        trace = max((device_trace(job) for _ in range(3)), key=len)
+    eng.close()
     by_name: dict[str, float] = {}
     for name, ms in trace:
         by_name[name] = by_name.get(name, 0.0) + ms
@@ -1262,7 +1303,24 @@ def job_breakdown(kept: dict, geom: SSTGeometry, device,
                     if event_kind(n) in (COPIES, PYTORCH)), reverse=True)
     return dict(total_ms=sum(split.values()), split=split, other=other,
                 pytorch_launches=sum(event_kind(n) == PYTORCH
-                                     for n, _ in trace))
+                                     for n, _ in trace),
+                memcpy=memcpy_split(trace))
+
+
+def memcpy_split(trace) -> dict[str, tuple[int, float]]:
+    """The copies of a trace by direction and host memory, ``"HtoD
+    Pinned"`` and so on: (count, ms).  CUPTI names a copy ``Memcpy HtoD
+    (Pinned -> Device)`` or ``Memcpy DtoH (Device -> Pageable)``."""
+    out: dict[str, tuple[int, float]] = {}
+    for name, ms in trace:
+        if not name.startswith("Memcpy "):
+            continue
+        way = name.split()[1]
+        mem = "Pinned" if "Pinned" in name else \
+            "Pageable" if "Pageable" in name else "Device"
+        n, t = out.get(f"{way} {mem}", (0, 0.0))
+        out[f"{way} {mem}"] = (n + 1, t + ms)
+    return out
 
 
 def breakdown_line(b: dict, card: str, sort_mode: str = "merge") -> str:
@@ -1273,26 +1331,57 @@ def breakdown_line(b: dict, card: str, sort_mode: str = "merge") -> str:
     top = "; ".join(f"{n[:60]} {ms:.4f} ms" for ms, n in b["other"][:6])
     share = {k: b["split"].get(k, 0.0) / total
              for k in ("crc32_sections", COPIES, PYTORCH)}
+    copies = ", ".join(f"{k} {n} x {ms:.4f} ms" for k, (n, ms) in
+                       sorted(b.get("memcpy", {}).items()))
     return (f"[4] the L0->L1 job on the card (sort_mode={sort_mode!r}): "
             f"{total:.4f} ms of device time "
             f"(CUPTI) = {parts}; CRC share {share['crc32_sections']:.1%}, "
-            f"copies {share[COPIES]:.1%}, PyTorch kernels "
+            f"copies {share[COPIES]:.1%} = "
+            f"{b['split'].get(COPIES, 0.0):.4f} ms ({copies}), PyTorch "
+            f"kernels "
             f"{share[PYTORCH]:.1%} in {b['pytorch_launches']} launches "
             f"(largest outside the hand-written kernels: {top}) [{card}]")
 
 
+def check_pinned(b: dict) -> None:
+    """The job's image copies go through pinned staging: both directions
+    have pinned copies, and each outweighs its pageable copies (the
+    stats' read-back and other small transfers)."""
+    m = b["memcpy"]
+    for way in ("HtoD", "DtoH"):
+        pinned = m.get(f"{way} Pinned", (0, 0.0))[1]
+        if pinned <= 0 or pinned <= m.get(f"{way} Pageable", (0, 0.0))[1]:
+            raise AssertionError(f"the job's {way} copies are not through "
+                                 f"pinned staging: {m}")
+
+
+def same_trimmed(a, b, what: str) -> None:
+    """Raise unless two host images are byte-identical once trimmed as
+    ``write_sst`` trims them (engines pad a job differently)."""
+    for name, x, y in zip(formats.SSTImage._fields, sstable.trim_image(a),
+                          sstable.trim_image(b)):
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            raise AssertionError(f"job output {name} differs: {what}")
+
+
 def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
     """Run the kept job through the engine on ``device`` with
-    ``sort_mode="merge"`` and ``"device"`` (the bitonic sort), and on the
-    CPU; raise unless the merge images are byte-identical across devices
-    and the device-sort image (trimmed as ``write_sst`` trims it: the two
-    modes pad the job differently) equals the merge one.  Returns the live
-    rows and the launch counts of the device-sort run."""
+    ``sort_mode="merge"`` and ``"device"`` (the bitonic sort), on the CPU,
+    and through the numpy baseline (``CpuCompactionEngine.compact_paths``,
+    which launches nothing); raise unless the merge images are
+    byte-identical across devices, and the device-sort and baseline
+    images (trimmed as ``write_sst`` trims them: they pad the job
+    differently) equal the merge one.  Returns the live rows and the
+    launch counts of the device-sort run."""
     images = [sstable.read_sst(p) for p in kept["paths"]]
 
     def run(dev, sort_mode):
         eng = TorchCompactionEngine(geom, device=dev, sort_mode=sort_mode)
-        out, es = eng.compact(images, bottom_level=kept["bottom_level"])
+        try:
+            out, es = eng.compact(images, bottom_level=kept["bottom_level"])
+        finally:
+            eng.close()
         if not es.crc_ok:
             raise AssertionError(f"{dev} {sort_mode}: kept job failed CRC")
         return out, es
@@ -1305,15 +1394,19 @@ def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
                                  f"{device} vs cpu")
     if (sa.n_input, sa.n_live) != (sb.n_input, sb.n_live):
         raise AssertionError("job stats differ between devices")
+    before = ops.launch_counts()
+    d, sd = CpuCompactionEngine(geom).compact_paths(
+        kept["paths"], bottom_level=kept["bottom_level"])
+    if ops.launch_counts() != before:
+        raise AssertionError("the numpy baseline launched a kernel")
+    same_trimmed(d, a, f"numpy baseline vs {device}")
+    if (sd.n_input, sd.n_live, sd.crc_ok) != (sa.n_input, sa.n_live, True):
+        raise AssertionError("job stats differ: numpy baseline vs "
+                             f"{device}")
     ops.reset_launch_counts()
     c, sc = run(device, "device")
     launches = ops.launch_counts()
-    for name, x, y in zip(formats.SSTImage._fields, sstable.trim_image(c),
-                          sstable.trim_image(a)):
-        if x.dtype != y.dtype or x.shape != y.shape or \
-                x.tobytes() != y.tobytes():
-            raise AssertionError(f"job output {name} differs: sort_mode "
-                                 "device vs merge")
+    same_trimmed(c, a, "sort_mode device vs merge")
     if (sc.n_input, sc.n_live) != (sa.n_input, sa.n_live):
         raise AssertionError("job stats differ between sort modes")
     return sa.n_live, launches
@@ -1502,6 +1595,140 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the paper's evaluation, LUDA against the CPU baseline
+# ---------------------------------------------------------------------------
+
+# (label, DBConfig.engine): the LUDA store on the card, the numpy baseline
+STORES = (("LUDA", "device"), ("baseline", "cpu"))
+
+
+def paper_records(geom: SSTGeometry, v: int, memtables: int = 10) -> int:
+    """Records for ``v``-byte values: ``memtables`` memtables (one SST's
+    bytes each) of 16 B keys and values.  The paper's 10 M cut to a smoke
+    run; 10 keep >= 2 L0->L1 jobs of >= 4 input files in a run."""
+    return memtables * (geom.sst_bytes // (16 + v))
+
+
+def host_line() -> str:
+    """The host CPU and its count (the baseline's numbers are the host's):
+    ``/proc/cpuinfo``'s model name where it names one, else its vendor,
+    family, model number and clock."""
+    info: dict[str, str] = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break   # the first processor's block
+            key, _, val = line.partition(":")
+            info[key.strip()] = val.strip()
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id', 'CPU')} family "
+                f"{info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')} at {info.get('cpu MHz', '?')} MHz "
+                "(model name not reported)")
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def sst_digests(path: str) -> dict[str, str]:
+    """SHA-256 of each SST file in ``path``, by name."""
+    out = {}
+    for n in sorted(os.listdir(path)):
+        if n.endswith(".sst"):
+            with open(os.path.join(path, n), "rb") as f:
+                out[n] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def paper_phase(work: str, dev, *, value_sizes=PAPER.value_sizes,
+                geometry=PAPER.geometry, sched=PAPER.scheduler(),
+                memtables: int = 10, report=None) -> list[dict]:
+    """Phase 6: YCSB-A (zipfian 0.99, half reads, half updates) at each
+    value size through ``ycsb.run``, at ``PAPER.geometry(v)`` and
+    ``PAPER.scheduler()``, on the LUDA store (the device engine on
+    ``dev``) and on the CPU baseline (``engine="cpu"``, ``threads=1``, on
+    ``device="cpu"``); ``ycsb.run`` checks every read and a full scan
+    against the acknowledged writes.  The launch counts are set to 0
+    before each run and read after it.  Raises unless each run had >= 2
+    L0->L1 jobs of >= 4 input files, the two stores wrote the same SST
+    files, the baseline launched no kernel, and the LUDA run on the card
+    launched every kernel of ``WRITE_PATH``.  Returns one row a run, each
+    also passed to ``report`` as it comes.  (``geometry``, ``sched`` and
+    ``memtables`` scale the phase down for a rehearsal.)"""
+    rows = []
+    for v in value_sizes:
+        n = paper_records(geometry(v), v, memtables)
+        spec = PAPER.workload(v, records=n, operations=n)
+        files = {}
+        for label, engine in STORES:
+            cfg = DBConfig(geom=geometry(v), scheduler=sched, engine=engine,
+                           threads=1)
+            path = os.path.join(work, f"ycsb-{engine}-{v}")
+            ops.reset_launch_counts()
+            r = ycsb.run(spec, cfg, path=path,
+                         device=dev if engine == "device" else "cpu")
+            r.update(store=label, launches=ops.launch_counts())
+            files[engine] = sst_digests(path)
+            shutil.rmtree(path)
+            rows.append(r)
+            if report is not None:
+                report(r)
+            if r["l0_jobs"] < 2 or r["l0_min_inputs"] < 4:
+                raise AssertionError(
+                    f"v={v} {label}: {r['l0_jobs']} L0->L1 jobs, the "
+                    f"smallest of {r['l0_min_inputs']} inputs")
+            idle = [k for k in WRITE_PATH if not r["launches"][k]]
+            if engine == "cpu" and any(r["launches"].values()):
+                raise AssertionError(f"v={v}: the baseline launched "
+                                     f"{r['launches']}")
+            if engine == "device" and r["device"].startswith("cuda") \
+                    and idle:
+                raise AssertionError(f"v={v}: the LUDA store launched no "
+                                     f"{idle}")
+        if files["device"] != files["cpu"]:
+            raise AssertionError(f"v={v}: the LUDA and baseline stores "
+                                 "wrote different SST files")
+    return rows
+
+
+def paper_row_line(r: dict, card: str, host: str) -> str:
+    """The phase-6 report of one run."""
+    def lat(op):
+        return "/".join(f"{x:.1f}" for x in r["latency_us"][op])
+    mb = r["compact_bytes_in"] / 1e6
+    line = (f"[6] v={r['value_size']} B {r['store']} ({r['engine']} "
+            f"engine on {r['device']}): {r['records']} records, "
+            f"{r['operations']} operations; load {r['load_ops_s']:.0f} "
+            f"ops/s, run {r['run_ops_s']:.0f} ops/s; read p50/p99/p99.9 "
+            f"{lat('read')} us, update {lat('update')} us (host clock); "
+            f"{r['flushes']} flushes, {r['compactions']} compactions "
+            f"({r['l0_jobs']} L0->L1, each >= {r['l0_min_inputs']} "
+            f"inputs), {r['compact_bytes_in']} B in; compaction "
+            f"{mb / r['compact_wall_s']:.1f} MB/s over "
+            f"{r['compact_wall_s']:.4f} s wall")
+    if r["compact_device_s"] is not None:
+        line += (f", {mb / r['compact_device_s']:.1f} MB/s over "
+                 f"{r['compact_device_s']:.4f} s of device time (CUDA "
+                 "events; a job (level, inputs, MB in, device ms): " +
+                 ", ".join(f"({lv}, {k}, {b / 1e6:.1f}, {d * 1e3:.2f})"
+                           for lv, k, b, _, d in r["jobs"]) + ")")
+    if r["engine"] == "device":
+        line += "; launches " + ", ".join(
+            f"{k} {r['launches'][k]}" for k in WRITE_PATH)
+    return line + f" [{card}; host {host}]"
+
+
+def paper_ratio_line(luda: dict, base: dict, card: str, host: str) -> str:
+    """The phase-6 LUDA / baseline line of one value size."""
+    return (f"[6] v={luda['value_size']} B, LUDA / baseline: run ops/s "
+            f"{luda['run_ops_s'] / base['run_ops_s']:.3f}x, load ops/s "
+            f"{luda['load_ops_s'] / base['load_ops_s']:.3f}x, compaction "
+            f"bytes/s over wall "
+            f"{base['compact_wall_s'] / luda['compact_wall_s']:.3f}x (the "
+            f"same {luda['compact_bytes_in']} B in each) [{card}; host "
+            f"{host}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -1589,7 +1816,8 @@ def main(argv: list[str]) -> int:
         live, job_launches = compare_job(st["kept"], PAPER_GEOM, dev)
         log(f"[4] {len(st['kept']['paths'])} input SSTs -> {live} live "
             "entries: output images byte-identical (merge cuda = cpu; "
-            f"device sort = merge); device-sort launches {job_launches}")
+            "device sort = merge = the numpy baseline, padding trimmed); "
+            f"device-sort launches {job_launches}")
         if job_launches["bitonic_sort"] == 0 or job_launches["merge_runs"]:
             raise AssertionError("the sort_mode=\"device\" job made "
                                  f"launches {job_launches}")
@@ -1601,6 +1829,7 @@ def main(argv: list[str]) -> int:
                                       jb["split"].get(PYTORCH, 0.0))
             if jb["split"].get("crc32_sections", 0.0) <= 0:
                 raise AssertionError("the traced job ran no crc32_sections")
+            check_pinned(jb)
             sort_kernel, other = (("merge_runs", "bitonic_sort")
                                   if mode == "merge" else
                                   ("bitonic_sort", "merge_runs"))
@@ -1672,6 +1901,24 @@ def main(argv: list[str]) -> int:
         if not ratio <= LOGIT_TOL:
             raise AssertionError(f"{what}: last logits differ by {ratio:.3g}"
                                  f" of their largest magnitude")
+
+    log(f"[6] the paper's evaluation: YCSB-A at PAPER.geometry(v), "
+        f"v = {', '.join(map(str, PAPER.value_sizes))} B, LUDA (cuda) "
+        "against the CPU baseline (numpy, threads=1, device cpu)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    host = host_line()
+    t0 = time.perf_counter()
+    try:
+        rows = paper_phase(work, dev, report=lambda r: log(
+            paper_row_line(r, card, host)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for luda, base in zip(rows[::2], rows[1::2]):
+        log(paper_ratio_line(luda, base, card, host))
+    log(f"[6] every read and a full scan of each store agree with the "
+        f"acknowledged writes; both stores wrote the same SST files; the "
+        f"baseline launched no kernel; {time.perf_counter() - t0:.1f} s")
 
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],

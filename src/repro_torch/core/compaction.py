@@ -131,7 +131,9 @@ def survivor_mask(rows: torch.Tensor, valid: torch.Tensor, key_lanes: int,
 
 
 def pack(rows: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
-         geom: SSTGeometry) -> SSTImage:
+         geom: SSTGeometry, data_ready=None) -> SSTImage:
+    """Phase 3.  ``data_ready`` (a CUDA event) is recorded once the data
+    blocks and their CRCs are enqueued, before the filter."""
     n = rows.shape[0]
     lanes = geom.key_lanes
     k = geom.block_kvs
@@ -172,6 +174,8 @@ def pack(rows: torch.Tensor, live: torch.Tensor, vals: torch.Tensor,
         bloom=torch.zeros((1, 1), dtype=torch.int32, device=dev),
     )
     crc = ops.crc32_sections(formats.wire_sections(img))
+    if data_ready is not None:
+        data_ready.record()
 
     # filter: bloom per block or per SST, over the restored keys
     if geom.bloom_granularity == "block":
@@ -203,6 +207,18 @@ def compact(img: SSTImage, *, geom: SSTGeometry, bottom_level: bool = False,
     output (a single-run input is ``run_lens=(n_entries,)``).  ``timer``
     (a ``DeviceTimer``) records phase 2 as its ``"sort"`` span.  The stats
     are read back to the host once, at the end."""
+    out, counts = launch(img, geom=geom, bottom_level=bottom_level,
+                         sort_mode=sort_mode, run_lens=run_lens, timer=timer)
+    return out, read_stats(counts, img.n_blocks, geom)
+
+
+def launch(img: SSTImage, *, geom: SSTGeometry, bottom_level: bool = False,
+           sort_mode: str = "device",
+           run_lens: tuple[int, ...] | None = None, timer=None,
+           data_ready=None) -> tuple[SSTImage, torch.Tensor]:
+    """``compact`` without its read-back: the output image and the stats'
+    counts, both still on the device.  ``data_ready`` (a CUDA event) is
+    recorded after the pack's CRC (``pack``)."""
     if sort_mode == "merge" and run_lens is None:
         raise ValueError(
             'sort_mode="merge" requires run_lens (the per-input entry '
@@ -217,14 +233,20 @@ def compact(img: SSTImage, *, geom: SSTGeometry, bottom_level: bool = False,
                                 run_lens=run_lens)
     live = survivor_mask(rows_s, up.valid, geom.key_lanes,
                          bottom_level=bottom_level)
-    out = pack(rows_s, live, up.vals, geom)
-
-    wire_bytes = geom.wire_words_per_block * 4
-    n_in, n_live, crc_ok, live_blocks = torch.stack([
+    out = pack(rows_s, live, up.vals, geom, data_ready=data_ready)
+    counts = torch.stack([
         up.valid.sum(), live.sum(), up.crc_ok.all().to(torch.int64),
-        (out.nvalid > 0).sum()]).tolist()
-    stats = CompactionStats(
+        (out.nvalid > 0).sum()])
+    return out, counts
+
+
+def read_stats(counts: torch.Tensor, n_blocks: int,
+               geom: SSTGeometry) -> CompactionStats:
+    """The ``CompactionStats`` of ``launch``'s counts for an input of
+    ``n_blocks`` blocks (one read-back)."""
+    wire_bytes = geom.wire_words_per_block * 4
+    n_in, n_live, crc_ok, live_blocks = counts.tolist()
+    return CompactionStats(
         n_input=n_in, n_live=n_live, n_dropped=n_in - n_live,
-        crc_ok=bool(crc_ok), bytes_in=img.n_blocks * wire_bytes,
+        crc_ok=bool(crc_ok), bytes_in=n_blocks * wire_bytes,
         bytes_out=live_blocks * wire_bytes)
-    return out, stats

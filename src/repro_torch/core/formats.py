@@ -156,24 +156,136 @@ def entry_validity(img: SSTImage) -> torch.Tensor:
         img.nvalid[:, None]
 
 
-def words_to_tensor(a, device, dtype=np.uint32) -> torch.Tensor:
+def wire_words(img: SSTImage) -> torch.Tensor:
+    """Each block's CRC-covered word row ``[blocks,
+    wire_words_per_block]``: the concatenation of ``wire_sections``."""
+    return torch.cat(wire_sections(img), dim=1)
+
+
+def meta_seq(meta: torch.Tensor) -> torch.Tensor:
+    """The sequence numbers of ``meta`` words (a logical shift of the
+    uint32 bit patterns)."""
+    return (meta >> 1) & 0x7FFFFFFF
+
+
+class PinnedStaging:
+    """Page-locked host buffers for the copies between host images and
+    the card, reused across calls: one buffer per power-of-two byte
+    bucket, allocated at first use.
+
+    ``to_device`` packs several host arrays into one buffer and moves them
+    with one non-blocking copy on the current stream, which orders the
+    work that reads them after it.  ``to_host`` copies tensors back on a
+    side stream that first waits for the current stream's work, then
+    hands back owned numpy arrays, never views of a buffer that the next
+    call overwrites.  Each buffer keeps the event of the last copy that
+    read it, and the host waits on that event before writing the buffer
+    again.  ``close`` releases the buffers; the next call allocates anew.
+    """
+
+    MIN_BYTES = 1 << 16
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._bufs: dict[int, torch.Tensor] = {}
+        self._pending: dict[int, torch.cuda.Event] = {}
+        self._side = torch.cuda.Stream(self.device)
+
+    def _take(self, words: int) -> tuple[int, torch.Tensor]:
+        nbytes = max(self.MIN_BYTES, 1 << max(0, 4 * words - 1).bit_length())
+        ev = self._pending.pop(nbytes, None)
+        if ev is not None:
+            ev.synchronize()
+        buf = self._bufs.get(nbytes)
+        if buf is None:
+            buf = self._bufs[nbytes] = torch.empty(
+                nbytes // 4, dtype=torch.int32, pin_memory=True)
+        return nbytes, buf
+
+    def to_device(self, arrays: list[np.ndarray]) -> list[torch.Tensor]:
+        """int32 host arrays as int32 tensors on the card (views of one
+        device buffer, in the arrays' shapes)."""
+        nbytes, buf = self._take(sum(a.size for a in arrays))
+        host = buf.numpy()
+        off = 0
+        for a in arrays:
+            host[off:off + a.size] = a.reshape(-1)
+            off += a.size
+        flat = buf[:off].to(self.device, non_blocking=True)
+        self._pending[nbytes] = \
+            torch.cuda.current_stream(self.device).record_event()
+        out, off = [], 0
+        for a in arrays:
+            out.append(flat[off:off + a.size].view(a.shape))
+            off += a.size
+        return out
+
+    def to_host(self, tensors: list[torch.Tensor]) -> list[np.ndarray]:
+        """int32 tensors on the card as owned int32 numpy arrays."""
+        nbytes, buf = self._take(sum(t.numel() for t in tensors))
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            off = 0
+            for t in tensors:
+                buf[off:off + t.numel()].view(t.shape).copy_(
+                    t, non_blocking=True)
+                t.record_stream(self._side)
+                off += t.numel()
+            done = self._side.record_event()
+        done.synchronize()
+        host = buf.numpy()
+        out, off = [], 0
+        for t in tensors:
+            out.append(host[off:off + t.numel()].reshape(t.shape).copy())
+            off += t.numel()
+        return out
+
+    def close(self):
+        """Wait for the copies in flight and release the buffers."""
+        for ev in self._pending.values():
+            ev.synchronize()
+        self._pending.clear()
+        self._bufs.clear()
+
+
+def words_to_tensors(arrays, device, dtypes=None,
+                     staging: PinnedStaging | None = None
+                     ) -> list[torch.Tensor]:
+    """Host arrays of 32-bit words (each read as its ``dtypes`` entry,
+    default uint32) as int32 bit-pattern tensors on ``device``; through
+    ``staging``'s pinned buffer in one copy when it is given and
+    ``device`` is the card."""
+    dtypes = dtypes or [np.uint32] * len(arrays)
+    words = [np.asarray(a).astype(dt, copy=False).view(np.int32)
+             for a, dt in zip(arrays, dtypes)]
+    if staging is not None and torch.device(device).type == "cuda":
+        return staging.to_device(words)
+    return [torch.from_numpy(np.array(w)).to(device) for w in words]
+
+
+def words_to_tensor(a, device, dtype=np.uint32,
+                    staging: PinnedStaging | None = None) -> torch.Tensor:
     """A host array of 32-bit words (read as ``dtype``) as an int32
     bit-pattern tensor on ``device``."""
-    a = np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return words_to_tensors([a], device, [dtype], staging)[0]
 
 
-def image_from_numpy(img, device) -> SSTImage:
+def image_from_numpy(img, device,
+                     staging: PinnedStaging | None = None) -> SSTImage:
     """A host image (numpy arrays: the port's or ``repro``'s ``SSTImage``)
     as int32 tensors on ``device``."""
-    return SSTImage(*(words_to_tensor(a, device, dt)
-                      for a, dt in zip(img, HOST_DTYPES)))
+    return SSTImage(*words_to_tensors(list(img), device, list(HOST_DTYPES),
+                                      staging))
 
 
-def image_to_numpy(img: SSTImage) -> SSTImage:
+def image_to_numpy(img: SSTImage,
+                   staging: PinnedStaging | None = None) -> SSTImage:
     """A device image as numpy arrays with the SST file's dtypes."""
-    return SSTImage(*(t.detach().cpu().numpy().view(dt)
-                      for t, dt in zip(img, HOST_DTYPES)))
+    if staging is not None and img.keys.device.type == "cuda":
+        words = staging.to_host(list(img))
+    else:
+        words = [t.detach().cpu().numpy() for t in img]
+    return SSTImage(*(w.view(dt) for w, dt in zip(words, HOST_DTYPES)))
 
 
 # ---------------------------------------------------------------------------

@@ -41,12 +41,8 @@ class CompactionExecutor:
             raise ValueError(f"image on {img.keys.device}, executor on "
                              f"{self.device}")
 
-    def compact(self, images: list[SSTImage], *, bottom_level: bool = False,
-                pad_blocks: int | None = None, timer=None
-                ) -> tuple[SSTImage, compaction.CompactionStats]:
-        """Compact the input set (tensor images on this executor's
-        device).  ``pad_blocks`` pads the concatenation to that block
-        count; the padding becomes a trailing all-sentinel run."""
+    def _input(self, images: list[SSTImage], pad_blocks: int | None):
+        """The concatenated (and padded) input image and its runs."""
         for im in images:
             self._check_device(im)
         img, run_lens = formats.concat_images(images, with_runs=True)
@@ -55,11 +51,44 @@ class CompactionExecutor:
                                              run_lens=run_lens)
         if self.debug_check_runs and self.sort_mode == "merge":
             self._check_runs(img, run_lens)
+        return img, run_lens if self.sort_mode == "merge" else None
+
+    def compact(self, images: list[SSTImage], *, bottom_level: bool = False,
+                pad_blocks: int | None = None, timer=None
+                ) -> tuple[SSTImage, compaction.CompactionStats]:
+        """Compact the input set (tensor images on this executor's
+        device).  ``pad_blocks`` pads the concatenation to that block
+        count; the padding becomes a trailing all-sentinel run."""
+        img, run_lens = self._input(images, pad_blocks)
         return compaction.compact(
             img, geom=self.geom, bottom_level=bottom_level,
-            sort_mode=self.sort_mode,
-            run_lens=run_lens if self.sort_mode == "merge" else None,
-            timer=timer)
+            sort_mode=self.sort_mode, run_lens=run_lens, timer=timer)
+
+    def compact_overlapped(self, images: list[SSTImage], *,
+                           bottom_level: bool = False,
+                           pad_blocks: int | None = None):
+        """Fig. 6(b): yield ``("data", (keys, meta, vals, shared, nvalid,
+        crc))`` as soon as the data blocks and their CRCs are done (an
+        event recorded after the pack's CRC), then ``("bloom", bloom)``
+        once the filter is, then ``("stats", stats)``.  A caller can
+        serialize the data blocks while the filter builds.  The image is
+        ``compact``'s."""
+        img, run_lens = self._input(images, pad_blocks)
+        cuda = self.device.type == "cuda"
+        data_ready = torch.cuda.Event() if cuda else None
+        out, counts = compaction.launch(
+            img, geom=self.geom, bottom_level=bottom_level,
+            sort_mode=self.sort_mode, run_lens=run_lens,
+            data_ready=data_ready)
+        if cuda:
+            done = torch.cuda.current_stream(self.device).record_event()
+            data_ready.synchronize()
+        yield "data", (out.keys, out.meta, out.vals, out.shared, out.nvalid,
+                       out.crc)
+        if cuda:
+            done.synchronize()
+        yield "bloom", out.bloom
+        yield "stats", compaction.read_stats(counts, img.n_blocks, self.geom)
 
     def _check_runs(self, img: SSTImage, run_lens: tuple[int, ...]):
         from repro_torch.kernels import merge_path

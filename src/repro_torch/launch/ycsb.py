@@ -1,0 +1,176 @@
+"""The paper's evaluation: YCSB on the store, with the LUDA engine on the
+card or the CPU compaction baseline (the JAX package's
+``examples/ycsb_demo.py``, as a launcher).
+
+    PYTHONPATH=src python -m repro_torch.launch.ycsb [--engine device|cpu]
+        [--threads 1] [--value-size 256] [--records N] [--operations N]
+        [--workload A] [--paper] [--device cpu]
+
+``--paper`` runs at the paper's geometry and scheduler
+(``configs.luda_paper.PAPER``: 4 KB blocks, 4 MB SSTs and memtables);
+without it, at ``bench_geometry`` (64 KB SSTs and memtables), whose
+compaction jobs stay proportional to a scaled-down record count.  With no
+``--device`` it runs on ``cuda`` and fails where CUDA is absent.  A
+store on the CPU engine keeps its device for the batched read path
+(``multi_get``, which YCSB does not call); ``--device cpu`` keeps a
+baseline run off the card entirely.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import tempfile
+import time
+
+import numpy as np
+
+from repro_torch.configs.luda_paper import BENCH_SCALE, PAPER, bench_geometry
+from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.data.ycsb import WorkloadSpec, YCSBWorkload
+from repro_torch.device import resolve_device
+from repro_torch.lsm.db import DBConfig, LsmDB
+
+
+def store_config(value_size: int, *, engine: str = "device",
+                 threads: int = 1, paper: bool = False) -> DBConfig:
+    """The store for ``value_size``-byte values: the paper's geometry and
+    scheduler, or the scaled bench geometry (as the JAX demo's)."""
+    if paper:
+        return DBConfig(geom=PAPER.geometry(value_size),
+                        scheduler=PAPER.scheduler(), engine=engine,
+                        threads=threads)
+    return DBConfig(geom=bench_geometry(value_size), engine=engine,
+                    threads=threads, memtable_bytes=64 * 1024,
+                    scheduler=SchedulerConfig(l0_trigger=4,
+                                              base_bytes=512 * 1024))
+
+
+def percentiles_us(lat_ns: list[int]) -> list[float] | None:
+    """p50, p99 and p99.9 of host-clock latencies, in microseconds."""
+    if not lat_ns:
+        return None
+    return [float(np.percentile(lat_ns, q)) / 1e3 for q in (50, 99, 99.9)]
+
+
+def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
+        path: str | None = None) -> dict:
+    """Load ``spec.records`` through ``put``, then run ``spec.operations``
+    of the YCSB mix, on a new store at ``path`` (default: a temporary
+    directory, removed after).  The op streams are built before the clock
+    starts.  Every read is checked against a dict of the acknowledged
+    writes, and after the run a full ``scan`` must equal it; a
+    disagreement raises ``AssertionError``.
+
+    Returns load and run wall seconds and ops/s; read, update and insert
+    latencies (p50, p99, p99.9 in us, host clock; None for a kind the mix
+    lacks); flushes, compactions (and the L0->L1 jobs among them, with
+    the fewest input files of one) and compaction bytes; each job's
+    ``(level, input files, bytes in, host s, device s)``; the wall seconds
+    around the engine's compaction calls; and, for the device engine on
+    the card, ``compact_device_s`` (CUDA events; None otherwise)."""
+    dev = resolve_device(device)
+    wl = YCSBWorkload(spec)
+    load_ops = list(wl.load_ops())
+    run_ops = list(wl.run_ops())
+    tmp = path is None
+    if tmp:
+        path = tempfile.mkdtemp(prefix=f"ycsb-{cfg.engine}-")
+    model: dict[bytes, bytes] = {}
+    lat: dict[str, list[int]] = {"read": [], "update": [], "insert": []}
+    clock = time.perf_counter_ns
+    db = LsmDB(path, cfg, device=dev)
+    try:
+        t0 = time.perf_counter()
+        for _, key, val in load_ops:
+            db.put(key, val)
+            model[key] = val
+        load_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for op, key, val in run_ops:
+            c0 = clock()
+            if op == "read":
+                got = db.get(key)
+                lat["read"].append(clock() - c0)
+                if got != model.get(key):
+                    raise AssertionError(f"read of {key!r} disagrees with "
+                                         "the acknowledged writes")
+            else:
+                db.put(key, val)
+                lat[op].append(clock() - c0)
+                model[key] = val
+        run_s = time.perf_counter() - t0
+
+        rows = db.scan(b"", b"\xff" * (cfg.geom.key_bytes + 1))
+        if rows != sorted(model.items()):
+            raise AssertionError("a full scan disagrees with the "
+                                 "acknowledged writes")
+        st = db.stats
+        levels = db.level_sizes()
+        jobs = [(r.level, r.inputs, r.stats.bytes_in, r.stats.host_seconds,
+                 r.stats.device_seconds) for r in db.compactions]
+    finally:
+        db.close()
+        if tmp:
+            shutil.rmtree(path, ignore_errors=True)
+    on_card = cfg.engine == "device" and dev.type == "cuda"
+    return dict(
+        engine=cfg.engine, threads=cfg.threads, device=str(dev),
+        workload=spec.name, distribution=spec.distribution,
+        value_size=spec.value_size, records=spec.records,
+        operations=spec.operations,
+        load_s=load_s, load_ops_s=spec.records / load_s,
+        run_s=run_s, run_ops_s=spec.operations / run_s,
+        latency_us={op: percentiles_us(v) for op, v in lat.items()},
+        reads_checked=len(lat["read"]), scan_rows=len(rows),
+        flushes=st.flushes, compactions=st.compactions,
+        trivial_moves=st.trivial_moves, levels=levels,
+        l0_jobs=sum(j[0] == 0 for j in jobs),
+        l0_min_inputs=min((j[1] for j in jobs if j[0] == 0), default=0),
+        jobs=jobs,
+        compact_bytes_in=st.compact_bytes_in,
+        compact_bytes_out=st.compact_bytes_out,
+        compact_wall_s=st.compact_wall_seconds,
+        compact_device_s=st.compact_device_seconds if on_card else None)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", choices=("device", "cpu"), default="device")
+    ap.add_argument("--threads", type=int, default=1,
+                    help="modelled CPU compaction threads (cpu engine)")
+    ap.add_argument("--value-size", type=int, default=256)
+    ap.add_argument("--records", type=int, default=BENCH_SCALE.records)
+    ap.add_argument("--operations", type=int, default=None,
+                    help="default: as many as --records")
+    ap.add_argument("--workload", default="A", help="YCSB A, B, C or D")
+    ap.add_argument("--paper", action="store_true",
+                    help="the paper's geometry and scheduler")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    spec = WorkloadSpec.named(
+        args.workload, records=args.records,
+        operations=args.operations or args.records,
+        value_size=args.value_size, seed=args.seed)
+    cfg = store_config(args.value_size, engine=args.engine,
+                       threads=args.threads, paper=args.paper)
+    r = run(spec, cfg, device=args.device)
+    print(f"[{r['engine']} on {r['device']}] load {r['records']} ops in "
+          f"{r['load_s']:.2f} s ({r['load_ops_s']:,.0f} ops/s) | run "
+          f"{r['operations']} ops in {r['run_s']:.2f} s "
+          f"({r['run_ops_s']:,.0f} ops/s), host clock")
+    print(f"[{r['engine']}] {r['flushes']} flushes, {r['compactions']} "
+          f"compactions, {r['compact_bytes_in']:,} B in, compaction wall "
+          f"{r['compact_wall_s']:.3f} s, device "
+          + ("not measured" if r["compact_device_s"] is None
+             else f"{r['compact_device_s']:.4f} s (CUDA events)"))
+    print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

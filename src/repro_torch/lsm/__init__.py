@@ -1,6 +1,8 @@
 """The LSM store over the port's compaction engine (the port of
 ``repro.lsm``): memtable + WAL + leveled SST files + manifest, with every
-flush and compaction running through ``engine.TorchCompactionEngine``.
+flush and compaction running through ``engine.TorchCompactionEngine``, or
+through the numpy baseline ``cpu_engine.CpuCompactionEngine`` where the
+store's config names it.
 
 The read surface mirrors ``repro.lsm``: ``LsmDB`` and ``TableReader``
 expose ``get(key, opts=None)``, ``multi_get(keys, opts=None)`` and

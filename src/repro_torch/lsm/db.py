@@ -7,8 +7,11 @@
         flush: the engine builds the L0 image on the device, then the
         compaction cascade runs inline (``maybe_compact``)
 
-Every flush and compaction goes through ``TorchCompactionEngine`` on the
-store's device: ``cuda`` unless the caller passes ``device="cpu"``.  The
+Every flush and compaction goes through the engine that ``DBConfig.engine``
+names (``make_engine``): ``"device"``, the default, is
+``TorchCompactionEngine`` on the store's device, ``cuda`` unless the
+caller passes ``device="cpu"``; ``"cpu"`` is the paper's baseline, the
+numpy ``CpuCompactionEngine`` on the host.  The
 store writes the same SST files, WAL and manifest as ``repro.lsm.db.LsmDB``
 for the same operations, so a directory written by either opens in the
 other.  Reads: ``get``, ``scan`` and the batched ``multi_get``
@@ -33,6 +36,8 @@ from repro_torch.core.scheduler import (CompactionJob, CompactionScheduler,
 from repro_torch.lsm import DEFAULT_READ_OPTIONS, ReadOptions, memtable, \
     sstable, wal
 from repro_torch.lsm import read as lsm_read
+from repro_torch.device import resolve_device
+from repro_torch.lsm.cpu_engine import CpuCompactionEngine
 from repro_torch.lsm.engine import EngineStats, TorchCompactionEngine
 from repro_torch.lsm.sstable import BlockCache, FileMeta, TableCache
 from repro_torch.lsm.version import VersionEdit, VersionSet
@@ -41,8 +46,12 @@ from repro_torch.lsm.version import VersionEdit, VersionSet
 @dataclasses.dataclass
 class DBConfig:
     geom: SSTGeometry = dataclasses.field(default_factory=SSTGeometry)
-    sort_mode: str = "merge"        # phase-2 mode: "merge" | "device"
-    #   (the bitonic kernel) | "xla" | "cooperative" (the paper's host sort)
+    engine: str = "device"          # "device" (the torch engine) | "cpu"
+    #   (the numpy baseline)
+    sort_mode: str = "merge"        # device engine phase-2 mode: "merge"
+    #   | "device" (the bitonic kernel) | "xla" | "cooperative" (the
+    #   paper's host sort)
+    threads: int = 1                # modelled CPU compaction threads
     memtable_bytes: int | None = None   # None: one SST's worth
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
@@ -72,6 +81,7 @@ class DBStats:
     compact_entries_in: int = 0
     compact_entries_dropped: int = 0
     compact_host_seconds: float = 0.0
+    compact_wall_seconds: float = 0.0     # around the engine's calls
     compact_device_seconds: float = 0.0   # CUDA events (0.0 on the CPU)
     compact_sort_seconds: float = 0.0     # phase-2 share of the above
     flush_host_seconds: float = 0.0
@@ -98,17 +108,30 @@ class CompactionRecord(NamedTuple):
     stats: EngineStats
 
 
+def make_engine(cfg: DBConfig, device=None):
+    """Build the compaction engine a ``DBConfig`` names: ``"device"`` is
+    the torch engine on ``device`` (None: ``cuda``), ``"cpu"`` the numpy
+    baseline, which touches no device."""
+    if cfg.engine == "device":
+        return TorchCompactionEngine(cfg.geom, device=device,
+                                     sort_mode=cfg.sort_mode)
+    if cfg.engine == "cpu":
+        return CpuCompactionEngine(cfg.geom, threads=cfg.threads)
+    raise ValueError(f"unknown engine {cfg.engine!r}")
+
+
 class LsmDB:
     def __init__(self, path: str, cfg: DBConfig | None = None, *,
                  device=None):
-        """Open (or create) the store at ``path``.  ``device``: where
-        flushes and compactions run; None means ``cuda``, which must be
-        present (pass ``device="cpu"`` to run on the CPU)."""
+        """Open (or create) the store at ``path``.  ``device``: where the
+        device engine's flushes and compactions and the read path's
+        batched stages run; None means ``cuda``, which must be present
+        (pass ``device="cpu"`` to run on the CPU)."""
         self.path = path
         self.cfg = cfg or DBConfig()
         self.geom = self.cfg.geom
-        self.engine = TorchCompactionEngine(self.geom, device=device,
-                                            sort_mode=self.cfg.sort_mode)
+        self._device = resolve_device(device)
+        self.engine = make_engine(self.cfg, self._device)
         os.makedirs(path, exist_ok=True)
         self._stats = DBStats()
         self.compactions: list[CompactionRecord] = []
@@ -119,7 +142,7 @@ class LsmDB:
         self.block_cache = BlockCache(self.cfg.block_cache_blocks)
         self.cache = TableCache(self.cfg.table_cache, geom=self.geom,
                                 block_cache=self.block_cache,
-                                device=self.engine.device)
+                                device=self._device)
         self.mem = memtable.MemTable()
         self._memtable_limit = self.cfg.memtable_bytes or self.geom.sst_bytes
         self._wal_path = os.path.join(path, "wal.log")
@@ -131,7 +154,7 @@ class LsmDB:
 
     @property
     def device(self):
-        return self.engine.device
+        return self._device
 
     @property
     def stats(self) -> DBStats:
@@ -487,8 +510,10 @@ class LsmDB:
                 compact_pointer=self._pointer_edit(job.level)))
             self._stats.trivial_moves += 1
             return
+        t0 = time.perf_counter()
         out, es = self.engine.compact_paths(
             [f.path for f in job.all_inputs], bottom_level=job.bottom_level)
+        self._stats.compact_wall_seconds += time.perf_counter() - t0
         self.apply_compaction(job, out, es)
 
     def apply_compaction(self, job: CompactionJob, out: SSTImage,

@@ -9,7 +9,9 @@ a power-of-two block count), runs the pipeline through
 ``CompactionExecutor`` and brings the output image back to the host.  The
 padding decides the output image's size, so the same padding is what
 makes the SST files byte-identical to the JAX store's.  There is no retry
-and no CPU engine behind it: a failed launch raises.
+and no CPU engine behind it: a failed launch raises.  (The numpy CPU
+baseline, ``cpu_engine.CpuCompactionEngine``, runs only where a store's
+config names it.)
 
 On the card, ``device_seconds`` and ``sort_seconds`` are CUDA-event times
 around the pipeline and around phase 2; on the CPU they stay 0.0.
@@ -142,7 +144,13 @@ class EngineStats:
 
 class TorchCompactionEngine:
     """The LUDA path on PyTorch: flushes and compactions on ``device``
-    (None: ``cuda``, which must be present)."""
+    (None: ``cuda``, which must be present).
+
+    On the card, images cross between host and device through pinned
+    staging buffers that the engine owns (``formats.PinnedStaging``), and
+    ``compact_paths`` reads file *i + 1* on a ``PrefetchReader`` thread
+    while image *i* is staged.  ``close()`` stops the reader and releases
+    the buffers."""
 
     name = "torch"
 
@@ -152,29 +160,42 @@ class TorchCompactionEngine:
         self.device = resolve_device(device)
         self.executor = offload.CompactionExecutor(
             geom, device=self.device, sort_mode=sort_mode)
+        self.staging = (formats.PinnedStaging(self.device)
+                        if self.device.type == "cuda" else None)
+        self._reader = None   # a PrefetchReader, built at the first job
 
     def close(self):
-        """Nothing to release: the engine holds no files or threads."""
+        """Stop the file reader's thread and release the pinned buffers."""
+        if self._reader is not None:
+            self._reader.close()
+            self._reader = None
+        if self.staging is not None:
+            self.staging.close()
 
     def compact(self, images: list[SSTImage], *, bottom_level: bool = False
                 ) -> tuple[SSTImage, EngineStats]:
         """Compact host images (numpy); returns a host image."""
         t0 = time.perf_counter()
-        imgs = [formats.image_from_numpy(im, self.device) for im in images]
+        imgs = [formats.image_from_numpy(im, self.device, self.staging)
+                for im in images]
         real = sum(np.asarray(im.keys).shape[0] for im in images)
         return self._compact_staged(imgs, real, bottom_level=bottom_level,
                                     t0=t0)
 
     def compact_paths(self, paths: list[str], *, bottom_level: bool = False
                       ) -> tuple[SSTImage, EngineStats]:
-        """Compact straight from SST files (read, then staged)."""
+        """Compact straight from SST files, double-buffering the reads:
+        while image *i* is staged, the reader thread reads file *i + 1*."""
+        from repro_torch.core.background import PrefetchReader
         from repro_torch.lsm import sstable
         t0 = time.perf_counter()
+        if self._reader is None:
+            self._reader = PrefetchReader()
         imgs, real = [], 0
-        for p in paths:
-            im = sstable.read_sst(p)
+        for im in self._reader.read_all(paths, sstable.read_sst):
             real += im.keys.shape[0]
-            imgs.append(formats.image_from_numpy(im, self.device))
+            imgs.append(formats.image_from_numpy(im, self.device,
+                                                 self.staging))
         return self._compact_staged(imgs, real, bottom_level=bottom_level,
                                     t0=t0)
 
@@ -190,7 +211,7 @@ class TorchCompactionEngine:
         with timer.span("pipeline"):
             out, s = self.executor.compact(imgs, bottom_level=bottom_level,
                                            pad_blocks=bucket, timer=timer)
-        out = formats.image_to_numpy(out)
+        out = formats.image_to_numpy(out, self.staging)
         exec_wall = time.perf_counter() - t_exec
         wire = self.geom.wire_words_per_block * 4
         stats = EngineStats(
@@ -214,7 +235,7 @@ class TorchCompactionEngine:
         meta = np.pad(np.asarray(meta, U32), (0, pad))
         vals = np.pad(np.asarray(vals, U32), ((0, pad), (0, 0)))
         img = offload.build_image(
-            *(formats.words_to_tensor(a, self.device)
-              for a in (keys, meta, vals)), n, geom=self.geom)
-        return formats.image_to_numpy(img)
-
+            *formats.words_to_tensors([keys, meta, vals], self.device,
+                                      staging=self.staging),
+            n, geom=self.geom)
+        return formats.image_to_numpy(img, self.staging)

@@ -280,3 +280,20 @@ def test_engine_compact_matches_jax_engine():
     assert (es.n_input, es.n_live, es.n_dropped, int(es.crc_ok),
             es.bytes_out) == want_st
     assert es.device_seconds == 0.0   # no device time on the CPU
+
+
+def test_wire_words_and_meta_seq_match_jax():
+    """``formats.wire_words`` and ``formats.meta_seq`` (ROADMAP A20) give
+    JAX's rows and sequence numbers, the top meta bit included."""
+    for im in _run_images(2):
+        got = formats.wire_words(formats.image_from_numpy(im, "cpu"))
+        want = jformats.wire_words(jformats.SSTImage(*(jnp.asarray(a)
+                                                       for a in im)))
+        assert got.shape == (im[0].shape[0], GEOM.wire_words_per_block)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.asarray(want))
+    meta = np.array([0, 1, 2, 3, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF,
+                     formats.make_meta(2**31 - 1, 1)], np.uint32)
+    got = formats.meta_seq(formats.words_to_tensor(meta, "cpu"))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jformats.meta_seq(meta)))

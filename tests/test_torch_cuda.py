@@ -235,6 +235,102 @@ def test_build_image_on_card_equals_cpu(dev):
         assert torch.equal(a.cpu(), b)
 
 
+def flushed_images(dev, n_images, geom, seed=0):
+    """``n_images`` host images of sorted entries, flushed on the card
+    (overlapping keys across images, so a job drops versions)."""
+    from repro_torch.lsm.engine import TorchCompactionEngine
+    rng = np.random.default_rng(seed)
+    eng = TorchCompactionEngine(geom, device=dev)
+    images = []
+    for i in range(n_images):
+        n = int(rng.integers(500, 3000))
+        ids = np.sort(rng.choice(5000, n, replace=False))
+        keys = np.stack([np.frombuffer(b"key%013d" % k, ">u4")
+                         for k in ids]).astype(np.uint32)
+        meta = ((np.arange(n, dtype=np.uint32) + 10_000 * i + 1) << 1) | 1
+        vals = rng.integers(0, 2**32, (n, geom.value_words), dtype=np.uint32)
+        images.append(eng.build_image(keys, meta, vals))
+    eng.close()
+    return images
+
+
+def test_pinned_staging_round_trips_over_reuses(dev):
+    """One pinned bucket reused 40 times in a row, each time with other
+    words and the copy back on the side stream: every image comes back
+    bit for bit, as owned arrays that the next call does not overwrite."""
+    from repro_torch.core import formats
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096)
+    staging = formats.PinnedStaging(dev)
+    rng = np.random.default_rng(1)
+    base = flushed_images("cpu", 1, geom)[0]
+    kept = []
+    for i in range(40):
+        host = formats.SSTImage(*(
+            rng.integers(0, 2**32, a.shape, dtype=np.uint32).view(a.dtype)
+            for a in base))
+        img = formats.image_from_numpy(host, dev, staging)
+        assert all(t.device.type == "cuda" and t.dtype == torch.int32
+                   for t in img)
+        img = formats.SSTImage(*(t + 0 for t in img))   # work on the stream
+        back = formats.image_to_numpy(img, staging)
+        kept.append((host, back))
+    assert len(staging._bufs) <= 2   # the image's bucket (and none more)
+    for host, back in kept:
+        for a, b in zip(host, back):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    staging.close()
+    assert not staging._bufs
+    again = formats.image_from_numpy(kept[0][0], dev, staging)
+    assert formats.image_to_numpy(again, staging)[0].tobytes() == \
+        kept[0][0][0].tobytes()
+
+
+@pytest.mark.parametrize("sort_mode", ["merge", "device"])
+def test_compact_paths_with_the_reader_equals_compact(dev, tmp_path,
+                                                      sort_mode):
+    """The engine's double-buffered ``compact_paths`` (the reader thread,
+    pinned staging) gives ``compact``'s image and stats on the same
+    files, and the CPU engine's image; ``close`` stops the reader."""
+    from repro_torch.lsm import sstable
+    from repro_torch.lsm.engine import TorchCompactionEngine
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=64 * 1024)
+    paths = []
+    for i, im in enumerate(flushed_images(dev, 5, geom, seed=2)):
+        paths.append(str(tmp_path / f"{i:06d}.sst"))
+        sstable.write_sst(paths[-1], sstable.trim_image(im), i)
+    eng = TorchCompactionEngine(geom, device=dev, sort_mode=sort_mode)
+    cpu = TorchCompactionEngine(geom, device="cpu", sort_mode=sort_mode)
+    for _ in range(3):
+        got, gs = eng.compact_paths(paths)
+        want, ws = eng.compact([sstable.read_sst(p) for p in paths])
+        ref_img, rs = cpu.compact_paths(paths)
+        for a, b, c in zip(got, want, ref_img):
+            assert a.tobytes() == b.tobytes() == c.tobytes()
+        assert (gs.n_input, gs.n_live, gs.crc_ok) == \
+            (ws.n_input, ws.n_live, True) == (rs.n_input, rs.n_live, True)
+        assert gs.n_live < gs.n_input and gs.device_seconds > 0
+    eng.close()
+    cpu.close()
+    assert eng._reader is None
+
+
+def test_compact_overlapped_on_card_equals_compact(dev):
+    from repro_torch.core import formats
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096)
+    images = [formats.image_from_numpy(im, dev)
+              for im in flushed_images(dev, 3, geom, seed=3)]
+    ex = offload.CompactionExecutor(geom, device=dev, sort_mode="device")
+    stages = list(ex.compact_overlapped(images, bottom_level=True))
+    assert [t for t, _ in stages] == ["data", "bloom", "stats"]
+    out, stats = ex.compact(images, bottom_level=True)
+    for a, b in zip(stages[0][1] + (stages[1][1],),
+                    (out.keys, out.meta, out.vals, out.shared, out.nvalid,
+                     out.crc, out.bloom)):
+        assert torch.equal(a, b)
+    assert stages[2][1] == stats and stats.crc_ok
+
+
 def sorted_blocks(rng, c, k, lanes, dev):
     """Sorted blocks with duplicate keys and the all-ones sentinel at and
     after ``nvalid`` (some 0), and queries present, past ``nvalid`` and

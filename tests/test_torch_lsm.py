@@ -2,10 +2,10 @@
 
 One seeded sequence of puts, overwrites, deletes and ``write_batch``es
 goes through ``repro.lsm.db.LsmDB(engine="cpu")`` and through
-``repro_torch.lsm.db.LsmDB(device="cpu")``: every SST file must be
-byte-identical by file number, the level layout must match, and ``get``
-and ``scan`` must agree before and after a reopen.  A directory written by
-either store must open in the other.
+``repro_torch.lsm.db.LsmDB(device="cpu")`` on either engine: every SST
+file must be byte-identical by file number, the level layout must match,
+and ``get`` and ``scan`` must agree before and after a reopen.  A
+directory written by either store must open in the other.
 """
 
 import os
@@ -83,10 +83,17 @@ def keyset(keyspace):
 
 @pytest.mark.parametrize("seed,n_ops,keyspace", [(0, 1500, 400),
                                                  (1, 2500, 150)])
-def test_same_files_and_reads_as_jax_store(tmp_path, seed, n_ops, keyspace):
+@pytest.mark.parametrize("engine", ["device", "cpu"])
+def test_same_files_and_reads_as_jax_store(tmp_path, engine, seed, n_ops,
+                                           keyspace):
+    """The port's store on either engine (``"device"``: the torch engine
+    on the CPU; ``"cpu"``: the numpy baseline) against JAX's
+    ``engine="cpu"`` store."""
     ops = workload(seed, n_ops, keyspace)
     jdb = JDB(str(tmp_path / "jax"), jax_cfg())
-    tdb = LsmDB(str(tmp_path / "port"), port_cfg(), device="cpu")
+    tdb = LsmDB(str(tmp_path / "port"), port_cfg(engine=engine),
+                device="cpu")
+    assert tdb.engine.name == {"device": "torch", "cpu": "cpu"}[engine]
     model: dict = {}
     apply(jdb, ops, model)
     apply(tdb, ops, {})
@@ -105,7 +112,8 @@ def test_same_files_and_reads_as_jax_store(tmp_path, seed, n_ops, keyspace):
     tdb.close()
 
     # reopen: the memtable comes back from the WAL, levels from the manifest
-    tdb = LsmDB(str(tmp_path / "port"), port_cfg(), device="cpu")
+    tdb = LsmDB(str(tmp_path / "port"), port_cfg(engine=engine),
+                device="cpu")
     for k in keyset(keyspace):
         assert tdb.get(k) == model.get(k), k
     assert tdb.scan(lo, hi) == want

@@ -5,6 +5,7 @@ phase end to end (rehearsed here on the CPU at a scaled-down size)."""
 import ast
 import contextlib
 import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -20,8 +21,9 @@ from repro_torch.core.formats import SSTGeometry
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.lsm.db import LsmDB
-from repro_torch.launch import serve
+from repro_torch.data.ycsb import WorkloadSpec
+from repro_torch.lsm.db import DBConfig, LsmDB
+from repro_torch.launch import serve, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
 from repro_torch.serving.engine import ServeEngine
@@ -75,8 +77,13 @@ def no_cuda(monkeypatch):
     lambda tmp: model.init_cache(get_smoke_config("falcon-mamba-7b"), 1, 8),
     lambda tmp: ServeEngine(get_smoke_config("falcon-mamba-7b"), {}),
     lambda tmp: serve.main(["--arch", "falcon-mamba-7b", "--smoke"]),
+    lambda tmp: LsmDB(str(tmp / "db"), DBConfig(engine="cpu")),
+    lambda tmp: ycsb.run(WorkloadSpec(records=20, operations=20),
+                         DBConfig(engine="cpu"), path=str(tmp / "db")),
+    lambda tmp: ycsb.main(["--records", "20", "--engine", "cpu"]),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
-        "model.init_cache", "ServeEngine", "launch.serve"])
+        "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
+        "ycsb.run", "launch.ycsb"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -100,13 +107,21 @@ def test_table_reader_multi_get_runs_on_the_card_unless_asked(tmp_path):
     db.close()
 
 
-def test_cpu_runs_only_when_asked(tmp_path, no_cuda):
+def test_cpu_runs_only_when_asked(tmp_path, no_cuda, capsys):
     assert resolve_device("cpu").type == "cpu"
     db = LsmDB(str(tmp_path / "db"), device="cpu")
     assert db.device.type == "cpu"
     db.close()
     with pytest.raises(ValueError):
         resolve_device("meta")
+    for engine in ("device", "cpu"):
+        ycsb.main(["--records", "300", "--operations", "200", "--engine",
+                   engine, "--value-size", "64", "--device", "cpu"])
+        r = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert (r["engine"], r["device"], r["records"]) == (engine, "cpu",
+                                                            300)
+        assert r["compact_device_s"] is None   # no device time on the CPU
+        assert r["reads_checked"] > 50 and r["scan_rows"] == 300
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +166,108 @@ def test_chip_smoke_store_phase_rehearsal(tmp_path):
     assert "keys/s" in cs.multi_get_line("cold", st["multi_get"]["cold"])
     live, launches = cs.compare_job(st["kept"], geom, "cpu")
     assert live > 0 and launches == before
+
+
+def test_chip_smoke_paper_phase_rehearsal(tmp_path):
+    """Phase 6 on the CPU at 1/64 of the paper's SST and L1 sizes (the
+    records scale with them): both stores on ``device="cpu"``, every read
+    and a full scan checked by ``ycsb.run``, the same SST files, no kernel
+    launched (CPU tensors launch none, and the baseline none anywhere);
+    a row per store and value size and a ratio line per value size."""
+    cs = _chip_smoke()
+    div = 64
+
+    def geometry(v):
+        return SSTGeometry(key_bytes=16, value_bytes=v + 16,
+                           block_bytes=4096, sst_bytes=4 * 1024 * 1024 // div,
+                           bloom_bits_per_key=10)
+
+    sched = SchedulerConfig(l0_trigger=4, base_bytes=32 * 1024 * 1024 // div)
+    rows = cs.paper_phase(str(tmp_path), "cpu", geometry=geometry,
+                          sched=sched)
+    assert [(r["value_size"], r["store"]) for r in rows] == [
+        (v, s) for v in (128, 256, 512, 1024) for s in ("LUDA", "baseline")]
+    assert [r["records"] for r in rows[::2]] == [
+        10 * (65_536 // (16 + v)) for v in (128, 256, 512, 1024)]
+    for r in rows:
+        assert not any(r["launches"].values())
+        assert r["l0_jobs"] >= 2 and r["l0_min_inputs"] >= 4
+        assert r["reads_checked"] > 0 and r["scan_rows"] == r["records"]
+        assert r["compact_device_s"] is None
+        line = cs.paper_row_line(r, "card", "host")
+        assert "ops/s" in line and "MB/s over" in line and \
+            "[card; host host]" in line
+    for luda, base in zip(rows[::2], rows[1::2]):
+        assert luda["compact_bytes_in"] == base["compact_bytes_in"] > 0
+        assert "LUDA / baseline: run ops/s" in cs.paper_ratio_line(
+            luda, base, "card", "host")
+    assert os.listdir(tmp_path) == []
+    assert "CPUs" in cs.host_line()
+    assert cs.paper_records(cs.PAPER_GEOM, 128) == 291_270
+    assert [cs.paper_records(cs.PAPER.geometry(v), v)
+            for v in cs.PAPER.value_sizes] == [291_270, 154_200, 79_430,
+                                               40_320]
+
+
+def test_chip_smoke_job_baseline_rehearsal(tmp_path):
+    """Phase 4's comparison of the kept job holds the numpy baseline too:
+    its trimmed image equals the engine's, and one flipped bit in it
+    fails the run."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.lsm import sstable
+    from repro_torch.lsm.cpu_engine import CpuCompactionEngine
+    cs = _chip_smoke()
+    geom = SSTGeometry(key_bytes=16, value_bytes=32, block_bytes=512,
+                       sst_bytes=2048)
+    eng = TorchCompactionEngine(geom, device="cpu")
+    rng = np.random.default_rng(0)
+    paths = []
+    for f in range(4):
+        ids = np.sort(rng.choice(200, 40, replace=False))
+        keys = np.stack([np.frombuffer(b"key%05d\x01\x01\x01\x01\x01\x01\x01\x01"
+                                       % i, ">u4") for i in ids])
+        meta = ((np.arange(40) + 100 * f + 1) << 1 | 1).astype(np.uint32)
+        vals = rng.integers(0, 2**32, (40, geom.value_words),
+                            dtype=np.uint32)
+        img = sstable.trim_image(eng.build_image(keys, meta, vals))
+        paths.append(str(tmp_path / f"{f:06d}.sst"))
+        sstable.write_sst(paths[-1], img, f)
+    kept = {"paths": paths, "bottom_level": False}
+    live, launches = cs.compare_job(kept, geom, "cpu")
+    assert live > 40 and not any(launches.values())
+
+    real = CpuCompactionEngine.compact_paths
+
+    def flipped(self, ps, *, bottom_level=False):
+        out, es = real(self, ps, bottom_level=bottom_level)
+        vals = out.vals.copy()
+        vals[0, 0, 0] ^= 1
+        return out._replace(vals=vals), es
+
+    with mock.patch.object(CpuCompactionEngine, "compact_paths", flipped):
+        with pytest.raises(AssertionError, match="numpy baseline"):
+            cs.compare_job(kept, geom, "cpu")
+
+
+def test_chip_smoke_pinned_copies_check():
+    """Phase 4 splits the job's copies by direction and host memory, and
+    fails unless both directions went through pinned staging."""
+    cs = _chip_smoke()
+    trace = [("Memcpy HtoD (Pinned -> Device)", 0.5),
+             ("Memcpy DtoH (Device -> Pinned)", 0.75),
+             ("Memcpy DtoH (Device -> Pageable)", 0.0025),
+             ("Memcpy DtoH (Device -> Pinned)", 0.25), ("Memset (Device)", 1),
+             ("void at::native::elementwise_kernel<...>", 1.0)]
+    split = cs.memcpy_split(trace)
+    assert split == {"HtoD Pinned": (1, 0.5), "DtoH Pinned": (2, 1.0),
+                     "DtoH Pageable": (1, 0.0025)}
+    cs.check_pinned({"memcpy": split})
+    for bad in ({"HtoD Pageable": (1, 0.5), "DtoH Pinned": (1, 1.0)},
+                {"HtoD Pinned": (1, 0.5), "DtoH Pinned": (1, 0.1),
+                 "DtoH Pageable": (1, 1.0)}):
+        with pytest.raises(AssertionError, match="pinned staging"):
+            cs.check_pinned({"memcpy": bad})
 
 
 def test_chip_smoke_read_kernel_cases_rehearsal():
