@@ -37,7 +37,9 @@ Phases, any fault exits non-zero:
    sequence), 4 requests of 512 prompt tokens and 16 new tokens with one
    kernel launch per layer of the prefill, prefill-then-decode against a
    longer prefill, and the prefill with the kernel against the prefill
-   with the plain scan;
+   with the plain scan; decode timed eagerly (``model.decode_step``) and
+   as the engine's captured step (one CUDA graph), with equal greedy
+   tokens;
 6. the paper's evaluation (``repro_torch.launch.ycsb.run`` at
    ``configs.luda_paper.PAPER``): YCSB-A at each of the paper's value
    sizes, 10 memtables of records and as many operations, on the LUDA
@@ -45,7 +47,17 @@ Phases, any fault exits non-zero:
    (``DBConfig(engine="cpu")`` on ``device="cpu"``); every read and a full
    scan checked against the acknowledged writes, the two stores' SST files
    byte-identical, the store kernels launched by LUDA and none by the
-   baseline; a row per store and a LUDA / baseline line per value size.
+   baseline; a row per store and a LUDA / baseline line per value size;
+7. page phase 5's served session (falcon-mamba-7b's ``(cache, pos)`` of 4
+   requests, 146,800,656 B) through an ``LsmDB`` on ``cuda`` at the
+   serving launcher's geometry (4 KiB values, 32 KiB blocks) with
+   ``ServeEngine.save_session``: one ``write_batch`` of 35,912 records,
+   a flush and the compactions it triggers; load it back bit for bit
+   with ``load_session`` and ``load_sessions``; resume 8 captured decode
+   steps from it against an uninterrupted run; save over it, compact the
+   superseded pages away, reopen, load and drop; every kernel of the
+   session's path must have launched; and a seeded 4 MiB state paged
+   through a ``cuda`` and a ``cpu`` store must give the same SST files.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -91,8 +103,10 @@ from repro_torch.lsm.cpu_engine import CpuCompactionEngine  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
-from repro_torch.models.convert import tree_leaves  # noqa: E402
+from repro_torch.models.convert import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.session_store import (  # noqa: E402
+    LsmSessionStore, encode_state)
 
 # LUDA §IV-A (configs.luda_paper): 16 B keys, 256 B values (+16 B slot
 # header room), 4 KB blocks, 4 MB SSTs, 10 bloom bits per key; L0 compacts
@@ -1355,14 +1369,18 @@ def check_pinned(b: dict) -> None:
                                  f"pinned staging: {m}")
 
 
-def same_trimmed(a, b, what: str) -> None:
-    """Raise unless two host images are byte-identical once trimmed as
-    ``write_sst`` trims them (engines pad a job differently)."""
-    for name, x, y in zip(formats.SSTImage._fields, sstable.trim_image(a),
-                          sstable.trim_image(b)):
+def same_image(a, b, what: str) -> None:
+    """Raise unless two host images are byte-identical."""
+    for name, x, y in zip(formats.SSTImage._fields, a, b):
         if x.dtype != y.dtype or x.shape != y.shape or \
                 x.tobytes() != y.tobytes():
             raise AssertionError(f"job output {name} differs: {what}")
+
+
+def same_trimmed(a, b, what: str) -> None:
+    """Raise unless two host images are byte-identical once trimmed as
+    ``write_sst`` trims them (engines pad a job differently)."""
+    same_image(sstable.trim_image(a), sstable.trim_image(b), what)
 
 
 def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
@@ -1387,11 +1405,7 @@ def compare_job(kept: dict, geom: SSTGeometry, device) -> tuple[int, dict]:
         return out, es
 
     (a, sa), (b, sb) = run(device, "merge"), run("cpu", "merge")
-    for name, x, y in zip(formats.SSTImage._fields, a, b):
-        if x.dtype != y.dtype or x.shape != y.shape or \
-                x.tobytes() != y.tobytes():
-            raise AssertionError(f"job output {name} differs: "
-                                 f"{device} vs cpu")
+    same_image(a, b, f"{device} vs cpu")
     if (sa.n_input, sa.n_live) != (sb.n_input, sb.n_live):
         raise AssertionError("job stats differ between devices")
     before = ops.launch_counts()
@@ -1506,6 +1520,21 @@ def check_scan(dev, card: str, clock_hz: float, cases) -> dict:
     return results
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bit patterns (NaNs and signed zeros compare as
+    bits); other tensors as they are."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+
+def same_state(a, b) -> bool:
+    """Two trees of tensors hold the same leaves, bit for bit."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and
+        torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
 def last_logits_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """Max abs difference of two logit tensors over the largest |b|, and
     the share of rows whose argmax agrees."""
@@ -1553,7 +1582,7 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
     gen_s = time.perf_counter() - t0
     launches = ops.launch_counts()
 
-    prefill_s, decode_s = [], []
+    prefill_s = []
     for _ in range(3):
         sync(dev)
         t0 = time.perf_counter()
@@ -1563,15 +1592,42 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
         prefill_s.append(time.perf_counter() - t0)
     if not bool(torch.isfinite(logit).all()):
         raise AssertionError("prefill logits are not all finite")
-    tok = logit.argmax(-1)[:, None].to(torch.int32)
-    for _ in range(max_new - 1):
-        t0 = time.perf_counter()
-        step, cache = lm.decode_step(eng.params, cache, tok, pos, cfg)
-        sync(dev)
-        decode_s.append(time.perf_counter() - t0)
-        if not bool(torch.isfinite(step).all()):
-            raise AssertionError("decode logits are not all finite")
-        tok, pos = step[:, 0].argmax(-1)[:, None].to(torch.int32), pos + 1
+    first_tok = logit.argmax(-1)[:, None].to(torch.int32)
+    # decode from the same state both ways: the eager step, and the
+    # engine's captured one (captured by the warm-up's generate)
+    decode = {}
+    for how, step_fn in (
+            ("eager", lambda c, t, p: lm.decode_step(eng.params, c, t, p,
+                                                     cfg)),
+            ("captured", lambda c, t, p: eng._decode(eng.params, c, t, p))):
+        c, tok, p, toks, step_s = cache, first_tok, pos, [], []
+        for _ in range(max_new - 1):
+            t0 = time.perf_counter()
+            step, c = step_fn(c, tok, p)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(step).all()):
+                raise AssertionError(f"{how} decode logits are not all "
+                                     "finite")
+            tok, p = step[:, 0].argmax(-1)[:, None].to(torch.int32), p + 1
+            toks.append(tok[:, 0])
+        decode[how] = dict(ms=statistics.median(step_s) * 1e3,
+                           tokens=torch.stack(toks, 1).cpu().numpy(),
+                           logits=step, cache=c)
+    eager, captured = decode["eager"], decode["captured"]
+    if not np.array_equal(eager["tokens"], captured["tokens"]):
+        raise AssertionError("captured decode's greedy tokens differ from "
+                             "the eager step's")
+    logits_gap = last_logits_gap(captured["logits"][:, 0],
+                                 eager["logits"][:, 0])[0]
+    bitwise = same_state((captured["logits"], captured["cache"]),
+                         (eager["logits"], eager["cache"]))
+    # the graph replays the eager step's kernels, so the two agree bit for
+    # bit unless cuBLAS picks other kernels under capture; then the gap is
+    # held to LOGIT_TOL, as every other pair of routes through the model
+    if not bitwise and logits_gap > LOGIT_TOL:
+        raise AssertionError(f"captured decode's last logits differ by "
+                             f"{logits_gap:.3g} of the largest |logit|")
 
     # the last prompt token decoded onto the shorter prefill's state
     _, c1, p1 = lm.prefill(eng.params, {"tokens": prompts[:, :-1]}, cfg,
@@ -1589,9 +1645,11 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
                 allocated=allocated, peak=peak,
                 tokens=tokens, gen_s=gen_s, launches=launches,
                 prefill_ms=statistics.median(prefill_s) * 1e3,
-                decode_ms=statistics.median(decode_s) * 1e3,
+                decode_ms=eager["ms"], captured_ms=captured["ms"],
+                captured_logits_gap=logits_gap, captured_bitwise=bitwise,
                 tokens_per_s=tokens.size / gen_s, decode_gap=decode_gap,
-                plain_gap=plain_gap, prefill_device=share)
+                plain_gap=plain_gap, prefill_device=share, engine=eng,
+                prompts=prompts)
 
 
 # ---------------------------------------------------------------------------
@@ -1726,6 +1784,367 @@ def paper_ratio_line(luda: dict, base: dict, card: str, host: str) -> str:
             f"{base['compact_wall_s'] / luda['compact_wall_s']:.3f}x (the "
             f"same {luda['compact_bytes_in']} B in each) [{card}; host "
             f"{host}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the served session paged through the store on the card
+# ---------------------------------------------------------------------------
+
+# the serving launcher's store (launch/serve.py, the JAX launcher's): 4 KiB
+# values (4,088-byte chunk payloads), 32 KiB blocks, 512 KiB SSTs of 256
+# entries, a 256 KiB memtable, the default scheduler (L0 at 4 files, L1
+# 32 MiB)
+SESSION_GEOM = SSTGeometry(key_bytes=16, value_bytes=4096,
+                           block_bytes=32 * 1024, sst_bytes=512 * 1024)
+SESSION_NAME = "chip-smoke"
+SESSION_RESUME = 8
+# the kernels the session's path runs: the prefill's scan, a flush's and a
+# compaction's, and a multi_get wave's
+SESSION_PATH = ("selective_scan",) + WRITE_PATH + READ_PATH
+
+
+def session_config() -> DBConfig:
+    return DBConfig(geom=SESSION_GEOM, engine="device",
+                    memtable_bytes=256 * 1024)
+
+
+def state_bytes(state) -> int:
+    return sum(a.numel() * a.element_size() for a in tree_leaves(state))
+
+
+def check_state(got, want, what: str) -> None:
+    if not same_state(got, want):
+        raise AssertionError(f"{what}: the loaded state differs from the "
+                             "saved one")
+
+
+def keep_jobs(db, keep_dir: str) -> list[dict]:
+    """Wrap ``db``'s engine so that each compaction job keeps its input
+    files (hard links: the store deletes them once the job is installed),
+    a copy of its output image (the engine's may lie in staging that the
+    next job reuses) and its ``merge_runs`` launches, for
+    ``check_jobs``."""
+    kept: list[dict] = []
+    compact_paths = db.engine.compact_paths
+
+    def watch_job(paths, *, bottom_level=False):
+        d = os.path.join(keep_dir, str(len(kept)))
+        os.makedirs(d)
+        links = [os.path.join(d, os.path.basename(p)) for p in paths]
+        for p, q in zip(paths, links):
+            os.link(p, q)
+        before = ops.launch_counts()["merge_runs"]
+        out, es = compact_paths(paths, bottom_level=bottom_level)
+        kept.append(dict(
+            paths=links, bottom_level=bottom_level,
+            out=formats.SSTImage(*(np.array(x) for x in out)),
+            merge_launches=ops.launch_counts()["merge_runs"] - before))
+        return out, es
+
+    db.engine.compact_paths = watch_job
+    return kept
+
+
+def check_jobs(kept: list[dict], geom: SSTGeometry, device) -> list[tuple]:
+    """Each kept job again through an engine on ``device`` with every
+    kernel wrapper routed to its plain version (``ops`` dispatch forced to
+    ``ref``; no kernel launches): raise unless its image is byte-identical
+    to the one the store's engine installed.  Returns (inputs, merge
+    launches, live rows) a job."""
+    out = []
+    before = ops.launch_counts()
+    with mock.patch.object(ops, "_on_card", lambda t: False):
+        for job in kept:
+            images = [sstable.read_sst(p) for p in job["paths"]]
+            eng = TorchCompactionEngine(geom, device=device)
+            try:
+                img, es = eng.compact(images,
+                                      bottom_level=job["bottom_level"])
+            finally:
+                eng.close()
+            if not es.crc_ok:
+                raise AssertionError("a kept job failed CRC on the plain "
+                                     "versions")
+            same_image(job["out"], img, f"the store's {len(images)}-input "
+                       "job vs the plain versions")
+            out.append((len(images), job["merge_launches"], es.n_live))
+    if ops.launch_counts() != before:
+        raise AssertionError("the plain rerun launched a kernel")
+    return out
+
+
+# the read wave's two wrappers, as ``lsm.read`` calls them
+WAVE_WRAPPERS = ("bloom_multi_probe", "lookup_blocks_packed")
+
+
+@contextlib.contextmanager
+def keep_waves():
+    """Record each read-wave kernel call made inside: the wrapper's name,
+    its inputs and keyword arguments, and its output."""
+    calls: list[tuple] = []
+
+    def watch(name, fn):
+        def call(*args, **kw):
+            got = fn(*args, **kw)
+            calls.append((name, args, kw, got))
+            return got
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in WAVE_WRAPPERS:
+            stack.enter_context(mock.patch.object(
+                ops, name, watch(name, getattr(ops, name))))
+        yield calls
+
+
+def check_waves(calls: list[tuple]) -> list[tuple[str, tuple]]:
+    """Hold each recorded wave call against its plain version on the same
+    inputs and device: raise unless bit-identical.  Returns (wrapper,
+    output shape) a call."""
+    for name, args, kw, got in calls:
+        if not torch.equal(got, getattr(ref, name)(*args, **kw)):
+            raise AssertionError(f"the load's {name} of shape "
+                                 f"{tuple(got.shape)} differs from its "
+                                 "plain version")
+    return [(name, tuple(got.shape)) for name, _, _, got in calls]
+
+
+def session_phase(eng, prompts, work: str, *, max_new: int = SERVE_NEW,
+                  resume: int = SESSION_RESUME,
+                  db_cfg: DBConfig | None = None) -> dict:
+    """Phase 7: ``generate`` ``max_new`` tokens for ``prompts``, page the
+    ``(cache, pos)`` into an ``LsmDB`` on ``eng.device`` at
+    ``SESSION_GEOM`` with ``save_session``, load it back with
+    ``load_session`` and ``load_sessions`` (beside an absent session) bit
+    for bit, decode ``resume`` steps from the loaded state through the
+    captured step and hold them against an uninterrupted ``generate``;
+    then save the newest state over the session, flush and compact (the
+    superseded pages must be dropped), load it, close, reopen, load once
+    more, and drop it.  The launch counts are set to 0 before the
+    generate and read after the loads.  At the path's own shapes the
+    kernels are held against their plain versions: each compaction job
+    of the save and the churn (``keep_jobs``, ``check_jobs``) and each
+    read-wave call of the first load (``keep_waves``, ``check_waves``).
+    Returns the timings and counts; raises at the first check that fails.
+    (``db_cfg``, by default ``session_config()``, scales the store down
+    for a rehearsal.)"""
+    dev = eng.device
+    path = os.path.join(work, "pages")
+    keep_dir = os.path.join(work, "session-jobs")
+    db_cfg = db_cfg or session_config()
+    db = LsmDB(path, db_cfg, device=dev)
+    kept = keep_jobs(db, keep_dir)
+    # the engine's cast params again: no copy of the weights is made
+    seng = ServeEngine(eng.cfg, eng.params, max_len=prompts.shape[1]
+                       + max_new + resume, device=dev, page_store=db)
+    ops.reset_launch_counts()
+    tokens, cache, pos = seng.generate(prompts, max_new)
+    state = (cache, pos)
+    sync(dev)
+    t0 = time.perf_counter()
+    records = seng.save_session(SESSION_NAME, cache, pos)
+    sync(dev)
+    save_s = time.perf_counter() - t0
+    saved = db.stats
+    levels = db.level_sizes()
+    jobs = [(r.level, r.inputs, r.stats.bytes_in, r.stats.device_seconds)
+            for r in db.compactions]
+    t0 = time.perf_counter()
+    encode_state(state)   # timed alone: the save's copy to the host
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with keep_waves() as calls:
+        loaded = seng.load_session(SESSION_NAME)
+        sync(dev)
+    load_s = time.perf_counter() - t0
+    read = db.stats
+    waves = check_waves(calls)
+    del calls
+    if not waves:
+        raise AssertionError("load_session called no read-wave kernel")
+    t0 = time.perf_counter()
+    many = seng.load_sessions([SESSION_NAME, "absent"], missing_ok=True)
+    sync(dev)
+    load_many_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check_state(loaded, state, "load_session")
+    check_state(many[0], state, "load_sessions")
+    if many[1] is not None:
+        raise AssertionError("load_sessions found the absent session")
+    idle = [k for k in SESSION_PATH if dev.type == "cuda" and
+            not launches[k]]
+    if idle:
+        raise AssertionError(f"the session's path launched no {idle}")
+
+    # resume from the loaded state through the captured step
+    tok = torch.from_numpy(tokens[:, -1:]).to(dev)
+    c, p = loaded
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(resume):
+        logits, c = seng._decode(seng.params, c, tok, p)
+        tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+        outs.append(tok[:, 0])
+        p = p + 1
+    resumed = torch.stack(outs, 1).cpu().numpy()
+    resume_s = time.perf_counter() - t0
+    full = seng.generate(prompts, max_new + resume)[0]
+    if not np.array_equal(resumed, full[:, max_new:]):
+        raise AssertionError("the resumed tokens differ from the "
+                             "uninterrupted run's")
+
+    # churn: the newest state over the session, superseding every page
+    newest = (c, p)
+    t0 = time.perf_counter()
+    seng.save_session(SESSION_NAME, c, p)
+    db.flush()
+    db.maybe_compact()
+    sync(dev)
+    churn_s = time.perf_counter() - t0
+    churned = db.stats
+    if churned.compact_entries_dropped <= saved.compact_entries_dropped:
+        raise AssertionError("the compactions after the second save "
+                             "dropped no superseded page")
+    check_state(seng.load_session(SESSION_NAME), newest, "after the churn")
+    churn_levels = db.level_sizes()
+    db.close()
+    t0 = time.perf_counter()
+    job_checks = check_jobs(kept, db_cfg.geom, dev)
+    check_jobs_s = time.perf_counter() - t0
+    del kept
+    shutil.rmtree(keep_dir)
+
+    db = LsmDB(path, db_cfg, device=dev)
+    try:
+        seng = ServeEngine(eng.cfg, eng.params, max_len=seng.max_len,
+                           device=dev, page_store=db)
+        t0 = time.perf_counter()
+        check_state(seng.load_session(SESSION_NAME), newest,
+                    "after a reopen")
+        reopen_load_s = time.perf_counter() - t0
+        if not seng.drop_session(SESSION_NAME) or \
+                seng.sessions.exists(SESSION_NAME):
+            raise AssertionError("drop_session left the session behind")
+    finally:
+        db.close()
+    return dict(bytes=state_bytes(state), records=records, save_s=save_s,
+                encode_s=encode_s, read=read,
+                load_s=load_s, load_many_s=load_many_s, resume_s=resume_s,
+                resume=resume, churn_s=churn_s, reopen_load_s=reopen_load_s,
+                saved=saved, churned=churned, levels=levels, jobs=jobs,
+                churn_levels=churn_levels, launches=launches,
+                tokens=resumed, waves=waves, job_checks=job_checks,
+                check_jobs_s=check_jobs_s)
+
+
+def synthetic_state(rng, nbytes: int):
+    """A seeded ``(cache, pos)`` of falcon-mamba's layout and dtypes and
+    about ``nbytes`` (a quarter bf16 conv state, the rest fp32 SSM
+    state)."""
+    n_conv = nbytes // 8
+    n_ssm = (nbytes - 2 * n_conv) // 4 - 1
+    conv = torch.from_numpy(rng.standard_normal(n_conv).astype(
+        np.float32)).to(torch.bfloat16)
+    ssm = torch.from_numpy(rng.standard_normal(n_ssm).astype(np.float32))
+    pos = torch.full((1, 1), 528, dtype=torch.int32)
+    return ({"blocks": {"p0": {"conv": conv, "ssm": ssm}}, "tail": []}, pos)
+
+
+def cross_device_pages(work: str, dev, *, nbytes: int = 4 * 1024 * 1024,
+                       seed: int = 7, db_cfg: DBConfig | None = None
+                       ) -> dict:
+    """One seeded state of about ``nbytes`` paged through a store on
+    ``dev`` and one on the CPU at ``SESSION_GEOM``: each save flushes and
+    runs an L0->L1 job, each store must load the state back bit for bit,
+    and the two must write the same SST files (every store kernel against
+    its plain version at 1,024-word values and 32 KiB blocks).  The
+    launch counts are read around the ``dev`` store's run.  (``db_cfg``
+    as in ``session_phase``.)"""
+    host = synthetic_state(np.random.default_rng(seed), nbytes)
+    db_cfg = db_cfg or session_config()
+    runs = []
+    for i, d in enumerate((torch.device(dev), torch.device("cpu"))):
+        path = os.path.join(work, f"synthetic-{i}")
+        db = LsmDB(path, db_cfg, device=d)
+        try:
+            store = LsmSessionStore(db, host)
+            state = tree_map(lambda a, d=d: a.to(d), host)
+            before = ops.launch_counts()
+            records = store.save("synthetic", state)
+            check_state(store.load("synthetic"), state,
+                        f"the synthetic state on {d}")
+            after = ops.launch_counts()
+            runs.append(dict(device=d, records=records, stats=db.stats,
+                             levels=db.level_sizes(),
+                             launches={k: after[k] - before[k]
+                                       for k in after}))
+        finally:
+            db.close()
+        runs[-1]["files"] = sst_digests(path)
+        shutil.rmtree(path)
+    on_dev, on_cpu = runs
+    if on_dev["stats"].compactions < 1:
+        raise AssertionError("the synthetic save ran no compaction")
+    if on_dev["files"] != on_cpu["files"]:
+        raise AssertionError(f"the {dev} and cpu stores wrote different SST "
+                             "files")
+    return dict(bytes=state_bytes(host), dev=on_dev, cpu=on_cpu)
+
+
+def session_lines(ss: dict, xd: dict, card: str) -> str:
+    """The phase-7 report of ``session_phase`` and
+    ``cross_device_pages``."""
+    sv, rd, ch = ss["saved"], ss["read"], ss["churned"]
+    chunks = ss["records"] - 1
+    jobs = ", ".join(f"({lv}, {k}, {b / 1e6:.1f}, {d * 1e3:.2f})"
+                     for lv, k, b, d in ss["jobs"])
+    dv, cp = xd["dev"], xd["cpu"]
+    return "\n".join([
+        f"[7] save_session: {ss['bytes']} B of state, {ss['records']} "
+        f"records (a head and {chunks} chunks) in one write_batch, "
+        f"{ss['save_s']:.3f} s (host clock after a synchronize; "
+        f"encode_state alone {ss['encode_s']:.3f} s); "
+        f"{sv.flushes} flush ({sv.flush_host_seconds:.3f} s of it in the "
+        f"flush), {sv.compactions} compactions "
+        f"({sv.compact_wall_seconds:.3f} s of wall, "
+        f"{sv.compact_device_seconds:.4f} s of CUDA-event device time; a "
+        f"job (level, inputs, MB in, device ms): {jobs}); levels "
+        f"{ss['levels']} [{card}]",
+        f"[7] load_session {ss['load_s']:.3f} s (its multi_get of {chunks} "
+        f"keys: {rd.multi_get_waves - sv.multi_get_waves} waves, "
+        f"{rd.multi_get_stage_seconds - sv.multi_get_stage_seconds:.3f} s "
+        f"in the device stages, "
+        f"{rd.multi_get_staged_bytes - sv.multi_get_staged_bytes} B "
+        f"staged), load_sessions([session, 'absent']) "
+        f"{ss['load_many_s']:.3f} s (host clock); both bit for bit the "
+        f"saved state, the absent session None [{card}]",
+        f"[7] launches from the generate through the loads: " + ", ".join(
+            f"{k} {ss['launches'][k]}" for k in SESSION_PATH),
+        f"[7] the kernels against their plain versions at the path's "
+        f"shapes: each compaction job of the save and the churn (inputs, "
+        f"merge_runs launches, live rows) {ss['job_checks']} byte-identical "
+        f"to its rerun on the plain versions on the same device "
+        f"({ss['check_jobs_s']:.1f} s); load_session's read-wave calls "
+        + ", ".join(
+            f"{n} {list(shape)}" for n, shape in ss["waves"])
+        + " bit-identical to the plain versions on the same inputs",
+        f"[7] resume: {ss['resume']} captured decode steps from the loaded "
+        f"state in {ss['resume_s'] * 1e3:.1f} ms equal the last "
+        f"{ss['resume']} tokens of an uninterrupted generate",
+        f"[7] churn: the newest state saved over the session, flush and "
+        f"compact: {ss['churn_s']:.3f} s, "
+        f"{ch.compactions - sv.compactions} more compactions dropped "
+        f"{ch.compact_entries_dropped - sv.compact_entries_dropped} "
+        f"superseded entries; levels {ss['churn_levels']}; loads equal the "
+        f"newest state, also after a reopen ({ss['reopen_load_s']:.3f} s); "
+        f"drop_session leaves nothing [{card}]",
+        f"[7] a seeded {xd['bytes']} B state, {dv['records']} records, on "
+        f"{dv['device']} and on cpu: {dv['stats'].flushes} flush and "
+        f"{dv['stats'].compactions} compaction each, levels {dv['levels']};"
+        f" the same {len(dv['files'])} SST files, loads bit for bit; "
+        f"launches on {dv['device']}: " + ", ".join(
+            f"{k} {dv['launches'][k]}" for k in WRITE_PATH + READ_PATH)
+        + f", on cpu {sum(cp['launches'].values())}"])
 
 
 # ---------------------------------------------------------------------------
@@ -1874,10 +2293,21 @@ def main(argv: list[str]) -> int:
     n_scan = sv["launches"]["selective_scan"]
     log(f"[5] generate: {SERVE_BATCH} requests x {SERVE_PROMPT} prompt "
         f"tokens, {SERVE_NEW} new tokens each in {sv['gen_s'] * 1e3:.1f} ms "
-        f"= {sv['tokens_per_s']:.1f} tokens/s; prefill {sv['prefill_ms']:.1f}"
-        f" ms, decode {sv['decode_ms']:.2f} ms/token (host clock after a "
-        f"synchronize, median) [{card}]; selective_scan launches {n_scan} "
-        f"for {prefills} prefill of {cfg.n_layers} layers")
+        f"= {sv['tokens_per_s']:.1f} tokens/s (captured decode); prefill "
+        f"{sv['prefill_ms']:.1f} ms (host clock after a synchronize, median "
+        f"of 3) [{card}]; selective_scan launches {n_scan} for {prefills} "
+        f"prefill of {cfg.n_layers} layers")
+    for how, ms in (("eager (model.decode_step)", sv["decode_ms"]),
+                    ("captured (ServeEngine._decode, one CUDA graph)",
+                     sv["captured_ms"])):
+        log(f"[5] decode {how}: {ms:.2f} ms a step of {SERVE_BATCH} "
+            f"requests = {SERVE_BATCH / ms * 1e3:.1f} tokens/s (host clock "
+            f"after a synchronize, median of {SERVE_NEW - 1}) [{card}]")
+    log(f"[5] captured against eager decode: greedy tokens equal; last "
+        f"logits and cache "
+        + ("bit for bit equal" if sv["captured_bitwise"] else
+           f"differ, last logits by {sv['captured_logits_gap']:.3g} of the "
+           f"largest |logit| (limit {LOGIT_TOL})"))
     first = sv["tokens"][0].tolist()
     log(f"[5] req0 tokens {first}")
     if n_scan != cfg.n_layers * prefills:
@@ -1919,6 +2349,23 @@ def main(argv: list[str]) -> int:
     log(f"[6] every read and a full scan of each store agree with the "
         f"acknowledged writes; both stores wrote the same SST files; the "
         f"baseline launched no kernel; {time.perf_counter() - t0:.1f} s")
+
+    log(f"[7] the served session through the store on the card: "
+        f"{FALCON}'s (cache, pos) of phase 5's batch into an LsmDB at the "
+        f"serving launcher's geometry (16 B keys, {SESSION_GEOM.value_bytes} "
+        f"B values, {SESSION_GEOM.block_bytes} B blocks, "
+        f"{SESSION_GEOM.sst_bytes} B SSTs, a 256 KiB memtable)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        ss = session_phase(sv["engine"], sv["prompts"], work)
+        xd = cross_device_pages(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del sv
+    log(session_lines(ss, xd, card))
+    log(f"[7] {time.perf_counter() - t0:.1f} s")
 
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],

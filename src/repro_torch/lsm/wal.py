@@ -77,11 +77,12 @@ class WALWriter:
         ``i`` replays with sequence ``first_seq + i``.  Returns the
         number of ops framed."""
         ops = list(ops)
-        body = struct.pack("<BI", BATCH, first_seq)
-        body += struct.pack("<BI", BATCH_VERSION, len(ops))
-        for kind, key, value in ops:
-            body += _pack_op(kind, key, value)
-        self._emit(body, sync)
+        # the parts are joined once: growing one bytes object op by op
+        # copies the whole body at every op (quadratic in the batch)
+        parts = [struct.pack("<BI", BATCH, first_seq),
+                 struct.pack("<BI", BATCH_VERSION, len(ops))]
+        parts += [_pack_op(kind, key, value) for kind, key, value in ops]
+        self._emit(b"".join(parts), sync)
         return len(ops)
 
     def _emit(self, body: bytes, sync: bool | None):

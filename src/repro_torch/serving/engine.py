@@ -1,10 +1,21 @@
-"""Batched serving engine (the JAX package's ``repro.serving.engine``).
+"""Batched serving engine with pluggable session paging (the JAX
+package's ``repro.serving.engine``).
 
 ``ServeEngine.generate`` runs prefill and greedy decode for a batch of
-equal-length prompts and returns a resumable ``(cache, pos)``.  Paging
-sessions through the LSM store (``page_store`` / ``session_store`` and the
-session methods) waits for ROADMAP A11, metrics and tracing for A10:
-passing any of those arguments raises ``NotImplementedError``.
+equal-length prompts and returns a resumable ``(cache, pos)``.  Sessions
+are paged out through a ``SessionStore`` backend
+(``repro_torch.serving.session_store``) -- by default an
+``LsmSessionStore`` over the given LSM store, so long-lived sessions
+churn the store as the paper's YCSB updates do and the device
+compactions reclaim superseded pages.
+
+Decode is one captured step, the counterpart of JAX's jitted
+``_decode``: on ``cuda`` each batch size captures
+``model.decode_step`` once in a CUDA graph over static cache, token and
+position buffers, and every later step replays it.  On the CPU the step
+runs eagerly.  The prefill stays eager.  Metrics and tracing wait for
+ROADMAP A10: passing ``metrics`` or ``tracer`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +26,48 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_map
+from repro_torch.serving.session_store import LsmSessionStore
+
+
+def _load(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy ``src`` into the static buffer ``dst``; ``copy_`` alone would
+    broadcast or cast an input that does not fit."""
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError(f"decode input {tuple(src.shape)} {src.dtype} does "
+                         f"not fit the captured {tuple(dst.shape)} "
+                         f"{dst.dtype}")
+    dst.copy_(src)
+
+
+class _CapturedDecode:
+    """``model.decode_step`` captured in a CUDA graph over static
+    buffers: a call copies its inputs into them, replays the graph and
+    returns copies of the outputs, so no result is ever a view of a
+    buffer that the next replay overwrites."""
+
+    def __init__(self, params: dict, cfg: ModelConfig, cache, tokens, pos):
+        self.cache = tree_map(torch.clone, cache)
+        self.tokens = tokens.clone()
+        self.pos = pos.clone()
+        # PyTorch requires warm-up launches on a side stream before a
+        # capture (cuBLAS handles and workspaces are made there)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                model.decode_step(params, self.cache, self.tokens, self.pos,
+                                  cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.new_cache = model.decode_step(
+                params, self.cache, self.tokens, self.pos, cfg)
+
+    def __call__(self, cache, tokens, pos):
+        tree_map(_load, (self.cache, self.tokens, self.pos),
+                 (cache, tokens, pos))
+        self.graph.replay()
+        return self.logits.clone(), tree_map(torch.clone, self.new_cache)
 
 
 class ServeEngine:
@@ -25,20 +78,59 @@ class ServeEngine:
         keeps its own copy on ``device`` (None: ``cuda``) with the leaves
         every use casts to the compute dtype cast once
         (``model.cast_params``: the same results, and at bf16 half the
-        bytes of those leaves); the caller may drop its fp32 tree."""
-        late = {"page_store": (page_store, "A11"),
-                "session_store": (session_store, "A11"),
-                "metrics": (metrics, "A10"), "tracer": (tracer, "A10")}
-        for name, (value, item) in late.items():
+        bytes of those leaves); the caller may drop its fp32 tree.
+
+        ``session_store`` is any ``SessionStore``; ``page_store`` is an
+        ``LsmDB`` that gets wrapped in an ``LsmSessionStore`` with this
+        engine's state template.  Pass at most one of the two."""
+        for name, value in (("metrics", metrics), ("tracer", tracer)):
             if value is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet (ROADMAP "
-                    f"{item})")
+                    "A10)")
+        if page_store is not None and session_store is not None:
+            raise ValueError("pass page_store or session_store, not both")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len
         self.params = model.cast_params(
             tree_map(lambda a: a.to(self.device), params), cfg)
+        if session_store is None and page_store is not None:
+            session_store = LsmSessionStore(page_store, self._state_template)
+        self.sessions = session_store
+        # .store keeps pointing at the underlying LSM handle (tests and
+        # benches reach through it for flush/compact/stats)
+        self.store = (page_store if page_store is not None
+                      else getattr(session_store, "db", None))
+        self._graphs: dict[int, _CapturedDecode] = {}   # by batch size
+
+    def _state_template(self):
+        # only the tree STRUCTURE is used; leaf shapes come from the
+        # stored metadata, so batch size 1 is fine for any saved batch
+        return (model.init_cache(self.cfg, 1, self.max_len,
+                                 device=self.device),
+                torch.zeros((1, 1), dtype=torch.int32, device=self.device))
+
+    # ----------------------------------------------------------- generate
+
+    def _decode(self, params: dict, cache, tokens: torch.Tensor,
+                pos: torch.Tensor):
+        """One decode step, ``model.decode_step``'s contract.  On ``cuda``
+        it replays the graph captured for this batch size,
+        capturing it at the first call (the capture is over the engine's
+        params, so ``params`` must be ``self.params``); a capture or
+        replay that fails raises.  On the CPU it runs eagerly."""
+        if self.device.type != "cuda":
+            return model.decode_step(params, cache, tokens, pos, self.cfg)
+        if params is not self.params:
+            raise ValueError("the captured decode step runs over the "
+                             "engine's own params (pass engine.params)")
+        key = tokens.shape[0]
+        step = self._graphs.get(key)
+        if step is None:
+            step = _CapturedDecode(params, self.cfg, cache, tokens, pos)
+            self._graphs[key] = step
+        return step(cache, tokens, pos)
 
     def generate(self, prompts, max_new: int, eos: int | None = None):
         """``prompts``: int ``[B, S]`` (equal length).  Returns ``(tokens
@@ -48,8 +140,8 @@ class ServeEngine:
 
         The returned ``(cache, pos)`` is resumable: the last emitted token
         has NOT been decoded into the cache yet, so feeding it back through
-        ``model.decode_step`` at ``pos`` continues exactly where an
-        uninterrupted run would have gone."""
+        ``_decode`` at ``pos`` continues exactly where an uninterrupted run
+        would have gone."""
         prompts = torch.as_tensor(prompts, dtype=torch.int32,
                                   device=self.device)
         logit, cache, pos = model.prefill(
@@ -60,8 +152,34 @@ class ServeEngine:
             outs.append(tok[:, 0])
             if i + 1 == max_new:
                 break   # keep the state resumable (and skip a dead decode)
-            logits, cache = model.decode_step(self.params, cache, tok, pos,
-                                              self.cfg)
+            logits, cache = self._decode(self.params, cache, tok, pos)
             tok = torch.argmax(logits[:, 0], -1)[:, None].to(torch.int32)
             pos = pos + 1
         return torch.stack(outs, dim=1).cpu().numpy(), cache, pos
+
+    # ------------------------------------------------------- KV paging
+
+    def save_session(self, session: str, cache, pos) -> int:
+        """Page the session state out through the session store.
+        Returns the number of records written (backend-defined)."""
+        assert self.sessions is not None, "no session store configured"
+        return self.sessions.save(session, (cache, pos))
+
+    def load_session(self, session: str):
+        """Page one session back in; raises ``KeyError`` if absent."""
+        assert self.sessions is not None, "no session store configured"
+        cache, pos = self.sessions.load(session)
+        return cache, pos
+
+    def load_sessions(self, sessions, *, missing_ok: bool = False):
+        """Batched resume: ``load_many`` on the backend collapses the
+        per-session reads into two multi_get waves on the LSM backend.
+        Returns ``[(cache, pos) | None, ...]`` aligned with input."""
+        assert self.sessions is not None, "no session store configured"
+        return self.sessions.load_many(list(sessions), missing_ok=missing_ok)
+
+    def drop_session(self, session: str) -> bool:
+        """Remove a paged session (head + all chunks, atomically on the
+        LSM backend).  Returns True if it existed."""
+        assert self.sessions is not None, "no session store configured"
+        return self.sessions.drop(session)

@@ -578,3 +578,110 @@ def test_falcon_prefill_then_decode_equals_prefill(dev):
     assert torch.isfinite(full).all()
     assert float((dec[:, 0] - full).abs().max()) <= \
         5e-2 * float(full.abs().max())
+
+
+@pytest.fixture
+def falcon4(dev):
+    """falcon-mamba-7b at full width and 4 layers, served on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServeEngine
+    cfg = get_config("falcon-mamba-7b").with_(n_layers=4)
+    eng = ServeEngine(cfg, model.init(0, cfg, device=dev), max_len=64,
+                      device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32)).to(dev)
+    return eng, toks
+
+
+def test_captured_decode_equals_eager_decode(falcon4):
+    """The engine's captured step against ``model.decode_step`` from one
+    prefill: the same greedy tokens, and the same last logits and cache
+    bit for bit (the graph replays the eager step's kernels) or, should
+    cuBLAS take other kernels under capture, within ``LOGIT_TOL``."""
+    from repro_torch.models import model
+    eng, toks = falcon4
+    logit, cache0, pos0 = model.prefill(eng.params, {"tokens": toks},
+                                        eng.cfg, eng.max_len)
+    runs = []
+    for step in (lambda c, t, p: model.decode_step(eng.params, c, t, p,
+                                                   eng.cfg),
+                 lambda c, t, p: eng._decode(eng.params, c, t, p)):
+        c, p = cache0, pos0
+        tok = logit.argmax(-1)[:, None].to(torch.int32)
+        outs = []
+        for _ in range(5):
+            logits, c = step(c, tok, p)
+            tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+            outs.append(tok)
+            p = p + 1
+        runs.append((torch.cat(outs, 1), logits, c))
+    (te, le, ce), (tc, lc, cc) = runs
+    assert torch.equal(te, tc)
+    if not chip_smoke.same_state((lc, cc), (le, ce)):
+        gap = chip_smoke.last_logits_gap(lc[:, 0], le[:, 0])[0]
+        assert gap <= chip_smoke.LOGIT_TOL
+    assert len(eng._graphs) == 1   # one capture for the batch
+
+
+def test_generate_returns_state_no_replay_overwrites(falcon4):
+    """``generate``'s resumable state is the caller's own: a second
+    ``generate`` (more replays of the same graph) leaves it as it was,
+    and it still resumes to the uninterrupted run's tokens."""
+    eng, toks = falcon4
+    full = eng.generate(toks, 8)[0]
+    part, cache, pos = eng.generate(toks, 4)
+    kept = chip_smoke.tree_map(torch.clone, (cache, pos))
+    eng.generate(toks[:, :7], 6)
+    assert chip_smoke.same_state((cache, pos), kept)
+    tok = torch.from_numpy(part[:, -1:]).to(toks.device)
+    outs = []
+    for _ in range(4):
+        logits, cache = eng._decode(eng.params, cache, tok, pos)
+        tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+        outs.append(tok[:, 0].cpu().numpy())
+        pos = pos + 1
+    np.testing.assert_array_equal(np.stack(outs, 1), full[:, 4:])
+
+
+def test_capture_failure_raises_and_never_runs_eagerly(falcon4, monkeypatch):
+    """A decode step that cannot be captured raises out of ``_decode`` and
+    ``generate``; the engine keeps no graph and runs no eager step in its
+    place."""
+    from repro_torch.models import model
+    eng, toks = falcon4
+    real = model.decode_step
+    eager_calls = []
+
+    def step(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("not capturable")
+        eager_calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(model, "decode_step", step)
+    with pytest.raises(RuntimeError, match="not capturable"):
+        eng.generate(toks, 3)
+    assert eng._graphs == {}
+    assert len(eager_calls) == 2   # the two warm-up steps before a capture
+    cache = model.init_cache(eng.cfg, 2, 8, device=toks.device)
+    pos = torch.zeros((2, 1), dtype=torch.int32, device=toks.device)
+    with pytest.raises(RuntimeError, match="not capturable"):
+        eng._decode(eng.params, cache, toks[:, :1], pos)
+    assert eng._graphs == {} and len(eager_calls) == 4
+    with pytest.raises(ValueError, match="engine's own params"):
+        eng._decode(dict(eng.params), cache, toks[:, :1], pos)
+
+
+def test_session_pages_on_the_card_as_on_the_cpu(dev, tmp_path):
+    """A seeded 4 MiB state paged at the serving launcher's geometry (4
+    KiB values, 32 KiB blocks) through a store on the card and one on the
+    CPU: a flush and an L0->L1 job each, the same SST files, each state
+    loaded back bit for bit, and the store kernels launched on the card
+    only."""
+    xd = chip_smoke.cross_device_pages(str(tmp_path), dev)
+    assert xd["dev"]["stats"].compactions >= 1
+    assert xd["dev"]["files"] == xd["cpu"]["files"] != {}
+    assert all(xd["dev"]["launches"][k] for k in chip_smoke.WRITE_PATH
+               + chip_smoke.READ_PATH)
+    assert not any(xd["cpu"]["launches"].values())

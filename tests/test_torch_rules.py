@@ -27,6 +27,7 @@ from repro_torch.launch import serve, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.session_store import MemorySessionStore
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -81,9 +82,13 @@ def no_cuda(monkeypatch):
     lambda tmp: ycsb.run(WorkloadSpec(records=20, operations=20),
                          DBConfig(engine="cpu"), path=str(tmp / "db")),
     lambda tmp: ycsb.main(["--records", "20", "--engine", "cpu"]),
+    lambda tmp: MemorySessionStore(lambda: None),
+    lambda tmp: ServeEngine(get_smoke_config("falcon-mamba-7b"), {},
+                            page_store=object()),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
-        "ycsb.run", "launch.ycsb"])
+        "ycsb.run", "launch.ycsb", "MemorySessionStore",
+        "ServeEngine-page_store"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -529,3 +534,69 @@ def test_chip_smoke_serve_phase_rehearsal():
     for ratio, agree in (sv["decode_gap"], sv["plain_gap"]):
         assert 0 <= ratio <= cs.LOGIT_TOL and 0 <= agree <= 1
     assert sv["plain_gap"][0] == 0.0   # on the CPU both are the plain scan
+    # on the CPU the engine's decode is the eager step itself
+    assert sv["captured_bitwise"] and sv["captured_logits_gap"] == 0.0
+    assert sv["decode_ms"] > 0 and sv["captured_ms"] > 0
+    assert sv["engine"].device.type == "cpu"
+    assert tuple(sv["prompts"].shape) == (2, 12)
+
+
+def test_chip_smoke_session_phase_rehearsal(tmp_path):
+    """Phase 7 on the CPU at falcon-mamba-7b's smoke config and a store
+    scaled to the small session (256 B values, 8 KiB SSTs, a 4 KiB
+    memtable): the session pages out through a flush and compactions,
+    loads back bit for bit both ways, resumes to the uninterrupted run's
+    tokens, is compacted away when saved over, survives a reopen and
+    drops; each compaction job and each read wave of the load is held
+    against the plain versions; the synthetic state writes the same SST
+    files twice (``cpu`` against ``cpu`` here)."""
+    cs = _chip_smoke()
+    cfg = get_smoke_config("falcon-mamba-7b")
+    eng = ServeEngine(cfg, model.init(0, cfg, device="cpu"), max_len=32,
+                      device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 12), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(0))
+    small = DBConfig(geom=SSTGeometry(key_bytes=16, value_bytes=256,
+                                      block_bytes=2048, sst_bytes=8192),
+                     memtable_bytes=4096,
+                     scheduler=SchedulerConfig(l0_trigger=4,
+                                               base_bytes=32 * 1024))
+    ss = cs.session_phase(eng, prompts, str(tmp_path), max_new=4, resume=3,
+                          db_cfg=small)
+    one = cs.state_bytes(eng._state_template())   # a batch of 1
+    assert ss["bytes"] == (one - 4) * 2 + 2 * 4
+    chunks = -(-ss["bytes"] // 248)   # at least: the JSON adds a few
+    assert ss["records"] - 1 >= chunks
+    assert ss["saved"].flushes >= 1 and ss["saved"].compactions >= 1
+    assert ss["churned"].compact_entries_dropped > \
+        ss["saved"].compact_entries_dropped
+    assert ss["tokens"].shape == (2, 3)
+    assert not any(ss["launches"].values())   # CPU tensors launch none
+    assert len(ss["job_checks"]) == ss["churned"].compactions
+    assert sorted({n for n, _ in ss["waves"]}) == sorted(cs.WAVE_WRAPPERS)
+    f = torch.zeros((8, 5), dtype=torch.int32)
+    q = torch.ones((8, 4), dtype=torch.int32)
+    hit = cs.ref.bloom_multi_probe(f, q, n_probes=6)
+    assert cs.check_waves([("bloom_multi_probe", (f, q), {"n_probes": 6},
+                            hit)]) == [("bloom_multi_probe", (8,))]
+    with pytest.raises(AssertionError, match="differs from its plain"):
+        cs.check_waves([("bloom_multi_probe", (f, q), {"n_probes": 6},
+                         ~hit)])
+    xd = cs.cross_device_pages(str(tmp_path), "cpu", nbytes=64 * 1024,
+                               db_cfg=small)
+    assert xd["bytes"] == 64 * 1024
+    assert xd["dev"]["stats"].compactions >= 1
+    assert xd["dev"]["files"] == xd["cpu"]["files"] != {}
+    lines = cs.session_lines(ss, xd, "card").splitlines()
+    assert len(lines) == 7 and all(ln.startswith("[7] ") for ln in lines)
+    assert "to its rerun on the plain versions" in lines[3]
+    assert "bit for bit" in lines[1] and "[card]" in lines[0]
+    assert os.listdir(tmp_path) == ["pages"]
+    # the phase's store at the serving launcher's geometry
+    geom = cs.session_config().geom
+    assert (geom.value_bytes, geom.block_bytes, geom.sst_kvs) == (4096,
+                                                                  32768, 256)
+    full = cs.get_config("falcon-mamba-7b")   # phase 5's batch of 4
+    assert 4 * full.n_layers * ((full.ssm_conv - 1) * full.d_inner * 2 +
+                                full.d_inner * full.ssm_state * 4) \
+        + 4 * 4 == 146_800_656

@@ -4,10 +4,15 @@ falcon-mamba-7b's smoke config (4 layers, d_model 64) in fp32.
 Greedy tokens must be identical; the resumable ``(cache, pos)`` must agree
 within 1e-4 (absolute and relative; fp32 on both sides, sums in another
 order).  The params are JAX's, carried across with
-``convert.params_from_numpy``.
+``convert.params_from_numpy``.  Sessions page through the port's store on
+the CPU at the serving launcher's 4 KiB values; a session JAX paged into
+its own store loads in the port bit for bit.
 """
 
+import importlib.util
 import json
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -15,12 +20,27 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke
+from repro.core.formats import SSTGeometry as JaxGeometry
+from repro.launch import serve as jax_serve
+from repro.lsm.db import DBConfig as JaxDBConfig
+from repro.lsm.db import LsmDB as JaxDB
 from repro.models import model as jmodel
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.formats import SSTGeometry
 from repro_torch.launch import serve
+from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.models import convert, model
+from repro_torch.models.convert import tree_map
+from repro_torch.serving import session_store
 from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.session_store import (LsmSessionStore,
+                                               MemorySessionStore)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)   # same_state
 
 FALCON = "falcon-mamba-7b"
 FP32 = dict(dtype="float32", ssm_scan_dtype="float32")
@@ -89,21 +109,178 @@ def test_returned_state_is_resumable(engines):
     np.testing.assert_array_equal(np.stack(outs, 1), full[:, 4:])
 
 
-@pytest.mark.parametrize("arg", ["page_store", "session_store", "metrics",
-                                 "tracer"])
+@pytest.mark.parametrize("arg", ["metrics", "tracer"])
 def test_session_paging_and_metrics_wait(engines, arg):
     _, teng = engines
     with pytest.raises(NotImplementedError, match="ROADMAP A1[01]"):
         ServeEngine(teng.cfg, teng.params, device="cpu", **{arg: object()})
 
 
-def test_launcher_serves_on_the_cpu_when_asked(capsys):
-    serve.main(["--arch", FALCON, "--smoke", "--batch", "2",
-                "--prompt-len", "5", "--max-new", "3", "--device", "cpu"])
+# the serving launcher's store, with tests/test_serving.py's smaller SSTs
+# and memtable
+KV = dict(key_bytes=16, value_bytes=4096, block_bytes=32 * 1024,
+          sst_bytes=256 * 1024)
+
+
+def port_pages(path):
+    return LsmDB(str(path), DBConfig(geom=SSTGeometry(**KV),
+                                     memtable_bytes=128 * 1024), device="cpu")
+
+
+def jax_pages(path):
+    return JaxDB(str(path), JaxDBConfig(geom=JaxGeometry(**KV), engine="cpu",
+                                       memtable_bytes=128 * 1024))
+
+
+def paged(teng, store=None, **kw):
+    """The fixture's port engine again (the same params), with a store."""
+    return ServeEngine(teng.cfg, teng.params, max_len=64, device="cpu",
+                       page_store=store, **kw)
+
+
+def decode_from(eng, state, last_tok, n):
+    """``n`` greedy tokens from a resumable state, through ``_decode``."""
+    cache, pos = state
+    tok = torch.as_tensor(last_tok, dtype=torch.int32)
+    outs = []
+    for _ in range(n):
+        logits, cache = eng._decode(eng.params, cache, tok, pos)
+        tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+        outs.append(tok[:, 0].numpy())
+        pos = pos + 1
+    return np.stack(outs, 1)
+
+
+def test_page_out_resume_equals_uninterrupted_and_jax(engines, tmp_path):
+    """4 tokens, page out, reload, 4 more through ``_decode``: the 8 equal
+    an uninterrupted run's, and JAX's."""
+    jeng, teng = engines
+    eng = paged(teng, port_pages(tmp_path / "pages"))
+    p = prompts(2, 6)
+    full, _, _ = eng.generate(p, max_new=8)
+    np.testing.assert_array_equal(full, jeng.generate(p, max_new=8)[0])
+    part, cache, pos = eng.generate(p, max_new=4)
+    n = eng.save_session("sess-a", cache, pos)
+    head = eng.store.get(eng.sessions._key("sess-a", 0))
+    assert n == 1 + int.from_bytes(head[:4], "big")
+    back = eng.load_session("sess-a")
+    assert chip_smoke.same_state(back, (cache, pos))
+    resumed = decode_from(eng, back, part[:, -1:], 4)
+    np.testing.assert_array_equal(np.concatenate([part, resumed], 1), full)
+    assert eng.drop_session("sess-a") is True
+    assert not eng.sessions.exists("sess-a")
+    eng.store.close()
+
+
+def test_load_sessions_equals_the_load_session_loop(engines, tmp_path):
+    _, teng = engines
+    eng = paged(teng, port_pages(tmp_path / "pages"))
+    _, cache, pos = eng.generate(prompts(1, 4), max_new=3)
+    names = [f"sess-{i}" for i in range(3)]
+    for i, s in enumerate(names):
+        eng.save_session(s, tree_map(lambda x, i=i: x + i, cache), pos)
+    for s, got in zip(names, eng.load_sessions(names)):
+        assert chip_smoke.same_state(got, eng.load_session(s))
+    assert eng.load_sessions(["sess-0", "nope"], missing_ok=True)[1] is None
+    with pytest.raises(KeyError, match="nope"):
+        eng.load_session("nope")
+    assert eng.drop_session("sess-1") is True
+    assert eng.drop_session("sess-1") is False
+    eng.store.close()
+
+
+def test_session_churn_is_reclaimed_by_compaction(engines, tmp_path):
+    """Repeated saves of one session supersede its pages; the compactions
+    drop them, and the session still loads as saved."""
+    _, teng = engines
+    eng = paged(teng, port_pages(tmp_path / "pages"))
+    _, cache, pos = eng.generate(prompts(2, 4), max_new=2)
+    for _ in range(4):   # an L0 file a save: the compaction trigger
+        eng.save_session("hot-session", cache, pos)
+        eng.store.flush()
+    eng.store.maybe_compact()
+    assert chip_smoke.same_state(eng.load_session("hot-session"),
+                                 (cache, pos))
+    s = eng.store.stats
+    assert s.flushes >= 1 and s.compactions >= 1
+    assert s.compact_entries_dropped > 0   # superseded pages reclaimed
+    eng.store.close()
+
+
+def test_session_store_arguments(engines, tmp_path):
+    _, teng = engines
+    db = port_pages(tmp_path / "pages")
+    mem = MemorySessionStore(teng._state_template, device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        paged(teng, db, session_store=mem)
+    eng = paged(teng, session_store=mem)
+    assert eng.sessions is mem and eng.store is None
+    _, cache, pos = eng.generate(prompts(1, 3), max_new=2)
+    assert eng.save_session("m", cache, pos) == 1
+    assert chip_smoke.same_state(eng.load_session("m"), (cache, pos))
+    bare = paged(teng)
+    assert bare.sessions is None and bare.store is None
+    for call in (lambda: bare.save_session("s", cache, pos),
+                 lambda: bare.load_session("s"),
+                 lambda: bare.load_sessions(["s"]),
+                 lambda: bare.drop_session("s")):
+        with pytest.raises(AssertionError, match="no session store"):
+            call()
+    db.close()
+
+
+def test_port_resumes_a_session_jax_paged(engines, tmp_path):
+    """JAX's engine pages a session into a JAX store directory; the port's
+    store opens the directory, and the port's engine loads JAX's cache bit
+    for bit and decodes JAX's tokens from it."""
+    jeng, teng = engines
+    path = tmp_path / "pages"
+    jdb = jax_pages(path)
+    jpaged = JaxServeEngine(jeng.cfg, jeng.params, max_len=64,
+                            page_store=jdb)
+    p = prompts(2, 5, seed=8)
+    full = jpaged.generate(p, max_new=8)[0]
+    part, jcache, jpos = jpaged.generate(p, max_new=4)
+    jpaged.save_session("from-jax", jcache, jpos)
+    jdb.flush()
+    jdb.close()
+    eng = paged(teng, port_pages(path))
+    cache, pos = eng.load_session("from-jax")
+    got = session_store._leaves((cache, pos))
+    want = jax.tree.leaves((jcache, jpos))
+    assert len(got) == len(want)
+    for t, j in zip(got, want):
+        assert t.numpy().tobytes() == np.asarray(j).tobytes()
+    np.testing.assert_array_equal(
+        decode_from(eng, (cache, pos), part[:, -1:], 4), full[:, 4:])
+    eng.store.close()
+
+
+def test_launcher_serves_on_the_cpu_when_asked(capsys, tmp_path,
+                                              monkeypatch):
+    args = ["--arch", FALCON, "--smoke", "--batch", "2", "--prompt-len",
+            "5", "--max-new", "3"]
+    monkeypatch.setattr(sys, "argv", ["serve", *args, "--page-dir",
+                                      str(tmp_path / "jax")])
+    jax_serve.main()
+    jline = capsys.readouterr().out.splitlines()[2]
+    records = int(jline.split("(")[1].split()[0])
+    serve.main(args + ["--device", "cpu", "--page-dir",
+                       str(tmp_path / "port")])
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines[:2]] == ["req0", "req1"]
     assert len(json.loads(lines[0].split(": ")[1])) == 3
-    assert "not ported yet (ROADMAP A11)" in lines[2]
+    # the same page-out as JAX's launcher: the state's shapes are the same
+    assert records > 1
+    assert lines[2] == (f"session paged to LSM store ({records} records, "
+                        f"dir={tmp_path / 'port'})")
+    db = LsmDB(str(tmp_path / "port"), DBConfig(geom=SSTGeometry(
+        key_bytes=16, value_bytes=4096, block_bytes=32 * 1024,
+        sst_bytes=512 * 1024)), device="cpu")
+    store = LsmSessionStore(db, lambda: (model.init_cache(
+        get_smoke_config(FALCON), 1, 8, device="cpu"), torch.zeros(1, 1)))
+    assert store.exists("serve-cli")
+    db.close()
     # the same tokens as the engine built by hand
     cfg = get_smoke_config(FALCON)
     eng = ServeEngine(cfg, model.init(0, cfg, device="cpu"), max_len=128,
