@@ -42,7 +42,7 @@ Phases, any fault exits non-zero:
    tokens;
 6. the paper's evaluation (``repro_torch.launch.ycsb.run`` at
    ``configs.luda_paper.PAPER``): YCSB-A at each of the paper's value
-   sizes, 10 memtables of records and as many operations, on the LUDA
+   sizes, 9 memtables of records and as many operations, on the LUDA
    store (the device engine on ``cuda``) and on the CPU baseline
    (``DBConfig(engine="cpu")`` on ``device="cpu"``); every read and a full
    scan checked against the acknowledged writes, the two stores' SST files
@@ -57,7 +57,20 @@ Phases, any fault exits non-zero:
    steps from it against an uninterrupted run; save over it, compact the
    superseded pages away, reopen, load and drop; every kernel of the
    session's path must have launched; and a seeded 4 MiB state paged
-   through a ``cuda`` and a ``cpu`` store must give the same SST files.
+   through a ``cuda`` and a ``cpu`` store must give the same SST files;
+8. drive the sharded store (``repro_torch.lsm.sharded.ShardedDB``, 4
+   shards split over the YCSB load keys, at the paper's geometry): two
+   deterministic rounds of 4 full memtables a shard and a
+   ``maybe_compact()`` each, the first one stacked launch of 4 same-shape
+   L0->L1 jobs (262,144 rows; the merge in the one job's 2 launches), each
+   job byte-identical to its rerun alone on the plain versions and each
+   batched kernel call to the plain batched version; the first round's
+   jobs again as one ``sort_mode="device"`` batch, and stacked against
+   one at a time; then a background round (``auto_compact=True``, the
+   queue draining while the caller writes) and a YCSB-A mix, every
+   acknowledged write read back by a scan across the shards (the mix's
+   writes and a sample of the loads by ``get`` and ``multi_get`` too),
+   before and after a reopen.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -95,6 +108,8 @@ from repro_torch.configs.luda_paper import PAPER  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
+from repro_torch.data.ycsb import (  # noqa: E402
+    WorkloadSpec, YCSBWorkload, key_of)
 from repro_torch.kernels import _build, merge_path, ops, ref  # noqa: E402
 from repro_torch.kernels import bitonic_sort as sort_plan  # noqa: E402
 from repro_torch.launch import ycsb  # noqa: E402
@@ -167,6 +182,8 @@ NO_LIBRARY = "no single PyTorch call computes it"
 MULTI_GET_BATCH = 256
 # phase 2's pack-shaped prefix case: 65,536 rows, of them 61,440 survivors
 PREFIX_COUNT = 61_440
+# phase 8: a ShardedDB of 4 shards, each round a stacked launch of 4 jobs
+BATCH_JOBS = 4
 # phase 5: falcon-mamba-7b serving 4 requests of 512 prompt tokens, 16 new
 # tokens each; the scan also at one request of 4,096 tokens
 FALCON = "falcon-mamba-7b"
@@ -337,6 +354,18 @@ def kernel_cases(rng, dev):
                       2 * n * (L + 2) * 4,
                       n * merge_levels(lens) * 2 * (L + 2)))
 
+    # the same merge for a batch of 4 jobs (phase 8's stacked L0 round):
+    # one launch a level for all of them
+    rows = torch.stack([as_i32(tuple_runs(rng, [15_360] * 4, 4096, L), dev)
+                        for _ in range(BATCH_JOBS)])
+    lens = [15_360] * 4 + [4096]
+    n = rows.shape[0] * rows.shape[1]
+    cases.append((f"merge_runs/{BATCH_JOBS}x{rows.shape[1]}",
+                  lambda r=rows, ln=lens: ops.merge_runs(r, ln),
+                  lambda r=rows, ln=lens: ref.merge_runs_batched(r, ln),
+                  2 * n * (L + 2) * 4,
+                  n * merge_levels(lens) * 2 * (L + 2)))
+
     n = 65_536
     keys_np = sorted_keys(rng, n, L)
     keys = as_i32(keys_np, dev)
@@ -359,6 +388,22 @@ def kernel_cases(rng, dev):
                   n * L * 4 + 8 + n * 4 + n * L * 4,
                   int(4 * lanes_compared) + 5 * n * L))
     valid_c = torch.arange(n, device=dev) < count   # as `pack` has it
+    # the pack's route for a batch of 4 jobs, one count a job, one launch
+    counts = [PREFIX_COUNT, n, 0, n // 3][:BATCH_JOBS]
+    bkeys_np = [np.where(np.arange(n)[:, None] < c, sorted_keys(rng, n, L),
+                         0) for c in counts]
+    keys_b = torch.stack([as_i32(k, dev) for k in bkeys_np])
+    count_b = torch.tensor(counts, dtype=torch.int64, device=dev)
+    compared = sum(int(np.minimum(ref.prefix_encode(
+        as_i32(k, "cpu"), restart_interval=16).numpy() // 4 + 1, L).sum())
+        for k in bkeys_np)
+    cases.append((f"prefix_encode/wire{BATCH_JOBS}",
+                  lambda: ops.prefix_encode_wire(keys_b, count_b,
+                                                 restart_interval=16),
+                  lambda: ref.prefix_encode_wire_batched(
+                      keys_b, count_b, restart_interval=16),
+                  BATCH_JOBS * (n * L * 4 + 8 + n * 4 + n * L * 4),
+                  4 * compared + 5 * BATCH_JOBS * n * L))
 
     def before():
         return pack_prefix_before(keys_c, valid_c, ops.prefix_encode(
@@ -1658,6 +1703,10 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
 
 # (label, DBConfig.engine): the LUDA store on the card, the numpy baseline
 STORES = (("LUDA", "device"), ("baseline", "cpu"))
+# phase 6's records, in memtables: 9 load 8 full memtables at every value
+# size (2 L0->L1 jobs of 4 files), which 10 did with one to spare (cut to
+# keep the script's time as phase 8 came)
+PAPER_MEMTABLES = 9
 
 
 def paper_records(geom: SSTGeometry, v: int, memtables: int = 10) -> int:
@@ -2148,6 +2197,457 @@ def session_lines(ss: dict, xd: dict, card: str) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the sharded store, its jobs stacked into batched launches
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARD_MEMTABLES = 4      # full memtables a shard a round
+SHARD_VALUE = 256
+SHARD_ROUNDS = 3         # two deterministic rounds, one in the background
+BG_OPS = 20_000          # the YCSB-A mix of the background round
+BG_SAMPLE = 5_000        # loaded keys read back by get and multi_get
+# the kernels a batched round runs, recorded with their inputs
+BATCH_WRAPPERS = ("merge_runs", "prefix_encode_wire", "bitonic_sort")
+
+
+def memtable_records(geom: SSTGeometry, value_size: int) -> int:
+    """Records of a 16-byte key and ``value_size`` bytes that fill one
+    memtable (``geom.sst_bytes``, the store's default): the flush comes
+    with the record that reaches the limit."""
+    return -(-geom.sst_bytes // (16 + value_size))
+
+
+def ycsb_value(i: int, width: int) -> bytes:
+    """YCSB's value of record ``i`` (``data.ycsb.YCSBWorkload``'s)."""
+    return ((b"%016d" % i) * (width // 16 + 1))[:width]
+
+
+def shard_keys(cuts: list[bytes], shards: int, per_shard: int
+               ) -> list[list[int]]:
+    """YCSB record ids routed to their shards by the boundary table, in id
+    order, until each shard has ``per_shard``."""
+    import bisect
+    out: list[list[int]] = [[] for _ in range(shards)]
+    i, full = 0, 0
+    while full < shards:
+        s = bisect.bisect_right(cuts, key_of(i))
+        if len(out[s]) < per_shard:
+            out[s].append(i)
+            full += len(out[s]) == per_shard
+        i += 1
+    return out
+
+
+def keep_batches(engine, keep_dir: str) -> list[dict]:
+    """Wrap ``engine.compact_many`` (what the compaction queue calls) so
+    that each round keeps, a job, its input files (hard links), its
+    signature and its installed image, and the round's ``merge_runs``
+    launches, for ``check_jobs`` and the device-sort batch."""
+    from repro_torch.core.scheduler import batch_signature
+    rounds: list[dict] = []
+    compact_many = engine.compact_many
+
+    def watch(jobs):
+        kept = []
+        for i, (paths, bottom) in enumerate(jobs):
+            d = os.path.join(keep_dir, f"{len(rounds)}-{i}")
+            os.makedirs(d)
+            links = [os.path.join(d, os.path.basename(p)) for p in paths]
+            for p, q in zip(paths, links):
+                os.link(p, q)
+            blocks = [sstable.read_sst(q).keys.shape[0] for q in links]
+            kept.append(dict(paths=links, bottom_level=bottom,
+                             sig=batch_signature(blocks, bottom)))
+        before = ops.launch_counts()["merge_runs"]
+        results = compact_many(jobs)
+        merges = ops.launch_counts()["merge_runs"] - before
+        for job, (out, es) in zip(kept, results):
+            job.update(out=formats.SSTImage(*(np.array(x) for x in out)),
+                       batched=es.batched, merge_launches=merges)
+        rounds.append(dict(jobs=kept, merge_launches=merges))
+        return results
+
+    engine.compact_many = watch
+    return rounds
+
+
+@contextlib.contextmanager
+def keep_batch_calls():
+    """Record each kernel call made inside on a batch of jobs (a leading
+    job axis): the wrapper, its inputs and keyword arguments, its output
+    and the launches it made."""
+    calls: list[tuple] = []
+
+    def watch(name, fn):
+        def call(*args, **kw):
+            before = ops.launch_counts()
+            got = fn(*args, **kw)
+            if args[0].dim() == 3:
+                after = ops.launch_counts()
+                calls.append((name, args, kw, got, {
+                    k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}))
+            return got
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in BATCH_WRAPPERS:
+            stack.enter_context(mock.patch.object(
+                ops, name, watch(name, getattr(ops, name))))
+        yield calls
+
+
+def check_batch_calls(calls: list[tuple]) -> list[tuple]:
+    """Hold each recorded batch call against its plain batched version on
+    the same inputs and device, bit for bit, and its launches against the
+    one job's on the card: ceil(log2 k') for the merge (its level plan),
+    one for the prefix step, ``bitonic_sort.launches(n, lanes)`` for the
+    sort.  Returns (wrapper, input shape, launches) a call."""
+    out = []
+    for name, args, kw, got, launches in calls:
+        rows = args[0]
+        if name == "merge_runs":
+            want = ref.merge_runs_batched(rows, args[1])
+            plan = {"merge_runs": len(merge_path.launch_tables(
+                tuple(args[1]))[0])}
+        elif name == "prefix_encode_wire":
+            want = ref.prefix_encode_wire_batched(*args, **kw)
+            plan = {"prefix_encode": 1}
+        else:
+            want = torch.stack([ref.sort_tuples(r) for r in rows])
+            plan = {"bitonic_sort": sort_plan.launches(*rows.shape[1:])}
+        plan = {k: v for k, v in plan.items() if v}
+        compare_outputs(f"the batched {name} of {tuple(rows.shape)}", got,
+                        want)
+        if rows.device.type == "cuda" and launches != plan:
+            raise AssertionError(f"the batched {name} of "
+                                 f"{tuple(rows.shape)} made {launches}, "
+                                 f"not the one job's {plan}")
+        out.append((name, tuple(rows.shape), sum(launches.values())))
+    return out
+
+
+@contextlib.contextmanager
+def one_round_per_notify():
+    """Keep the caller's thread on the interpreter (a long switch
+    interval) while ``maybe_compact`` notifies every shard, so the queue's
+    worker starts its round with all of them pending: which shards share
+    a round is otherwise a race with the worker."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1.0)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(old)
+
+
+def store_counts(db) -> dict:
+    """A sharded store's batching counters: the engine's stacked launches,
+    the shards' summed ``DBStats``, the queue's rounds."""
+    return dict(engine=(db.engine.batch_launches, db.engine.batch_jobs,
+                        db.engine.max_batch_jobs),
+                stats=db.stats,
+                queue=(db.queue.rounds, db.queue.jobs_run,
+                       db.queue.trivial_moves))
+
+
+def counts_line(what: str, c: dict) -> str:
+    st = c["stats"]
+    return (f"[8] {what}: engine batch_launches {c['engine'][0]}, "
+            f"batch_jobs {c['engine'][1]}, max_batch_jobs "
+            f"{c['engine'][2]}; batched_compactions "
+            f"{st.batched_compactions} of {st.compactions} compactions, "
+            f"{st.trivial_moves} trivial moves; queue rounds "
+            f"{c['queue'][0]}, jobs_run {c['queue'][1]}, trivial_moves "
+            f"{c['queue'][2]}")
+
+
+def read_back(db, model: dict, updated: dict, keys: list, value_size: int,
+              when: str) -> int:
+    """``keys`` by ``multi_get`` (batches of 4,096, first, so that its
+    waves find their blocks undecoded and run the bloom prune) and by
+    ``get``, and every acknowledged write through one scan across all
+    shards: raise on any difference.  ``model`` maps a loaded key
+    to its YCSB record id, ``updated`` a key the mix wrote to its value.
+    Returns the scan's rows."""
+    def want(k):
+        if k in updated:
+            return updated[k]
+        i = model.get(k)
+        return None if i is None else ycsb_value(i, value_size)
+
+    wants = [want(k) for k in keys]
+    for s in range(0, len(keys), 4096):
+        if db.multi_get(keys[s:s + 4096]) != wants[s:s + 4096]:
+            raise AssertionError(f"{when}: multi_get disagrees")
+    if [db.get(k) for k in keys] != wants:
+        raise AssertionError(f"{when}: get disagrees")
+    got = db.scan(b"\x00", b"\xff" * 16)
+    keys_all = sorted(set(model) | set(updated))
+    if [k for k, _ in got] != keys_all or \
+            any(v != want(k) for k, v in got):
+        raise AssertionError(f"{when}: the scan across shards disagrees "
+                             "with the acknowledged writes")
+    return len(got)
+
+
+def stacked_against_single(jobs: list, geom: SSTGeometry, device) -> dict:
+    """The same jobs through one engine as one stacked ``compact_many``
+    and one ``compact_paths`` at a time (each warmed up once): host wall,
+    CUDA-event span (the jobs' ``device_seconds``), ``merge_runs``
+    launches, and the CUPTI trace's device time and PyTorch kernel
+    launches.  Raises unless the two give the same images."""
+    eng = TorchCompactionEngine(geom, device=device)
+
+    def stacked():
+        return eng.compact_many(jobs)
+
+    def single():
+        return [eng.compact_paths(p, bottom_level=b) for p, b in jobs]
+
+    out = {}
+    try:
+        for name, fn in (("stacked", stacked), ("single", single)):
+            fn()
+            before = ops.launch_counts()["merge_runs"]
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+            merges = ops.launch_counts()["merge_runs"] - before
+            trace = max((device_trace(fn) for _ in range(2)), key=len)
+            by_name: dict[str, float] = {}
+            for n, ms in trace:
+                by_name[n] = by_name.get(n, 0.0) + ms
+            out[name] = dict(
+                res=res, wall_s=wall, merges=merges,
+                span_ms=sum(es.device_seconds for _, es in res) * 1e3,
+                device_ms=sum(ms for _, ms in trace),
+                pytorch=sum(event_kind(n) == PYTORCH for n, _ in trace),
+                split=split_device_time(by_name),
+                top=sorted(((ms, n) for n, ms in by_name.items()),
+                           reverse=True)[:4])
+    finally:
+        eng.close()
+    for (a, _), (b, _) in zip(out["stacked"]["res"], out["single"]["res"]):
+        same_image(a, b, "stacked vs one at a time")
+    if eng.max_batch_jobs != len(jobs) or \
+            not all(es.batched for _, es in out["stacked"]["res"]):
+        raise AssertionError("the timed jobs were not stacked")
+    return out
+
+
+def sharded_phase(work: str, dev, *, geom: SSTGeometry = PAPER_GEOM,
+                  sched: SchedulerConfig = PAPER_SCHED,
+                  value_size: int = SHARD_VALUE, shards: int = SHARDS,
+                  memtables: int = SHARD_MEMTABLES, bg_ops: int = BG_OPS,
+                  sample: int = BG_SAMPLE, seed: int = 42,
+                  timing: bool = True) -> dict:
+    """Phase 8: ``ShardedDB`` on ``dev``, ``shards`` shards split by
+    ``boundaries_from_sample`` over the YCSB load keys.
+
+    Two deterministic rounds (``auto_compact=False``): ``memtables`` full
+    memtables a shard, then ``maybe_compact()``, the queue's round seen
+    by ``keep_batches`` and its kernel calls by ``keep_batch_calls``.  A
+    background round (``auto_compact=True``, the store reopened): as many
+    records again through ``write_batch`` while the queue drains on its
+    worker, then ``bg_ops`` of YCSB-A (zipfian 0.99), every read checked;
+    every acknowledged write read back by one scan across the shards,
+    and the mix's writes and a sample of the loaded keys by ``get`` and
+    ``multi_get`` (``read_back``), again after a reopen.  The launch counts are set to 0 before the first round and
+    read after the background round's read-back.  Then: each kept job rerun alone on
+    the plain versions (``check_jobs``), the batch calls held against
+    the plain batched versions, the first round's jobs as one
+    ``sort_mode="device"`` batch (its images and its batched sort held
+    likewise), and, with ``timing``, the first round stacked against the
+    same jobs one at a time (``stacked_against_single``)."""
+    from repro_torch.lsm.sharded import ShardedDB, boundaries_from_sample
+    per_round = memtables * memtable_records(geom, value_size)
+    cuts = boundaries_from_sample(
+        [key_of(i) for i in range(4 * shards * per_round)], shards)
+    ids = shard_keys(cuts, shards, SHARD_ROUNDS * per_round)
+    path = os.path.join(work, "sharded")
+    model: dict[bytes, int] = {}
+    updated: dict[bytes, bytes] = {}
+    out: dict = {"per_round": per_round, "cuts": cuts}
+
+    ops.reset_launch_counts()
+    db = ShardedDB(path, DBConfig(geom=geom, scheduler=sched,
+                                  auto_compact=False),
+                   shards=shards, boundaries=cuts, device=dev)
+    rounds = keep_batches(db.engine, os.path.join(work, "kept"))
+    calls = []
+    det = []
+    for r in range(2):
+        t0 = time.perf_counter()
+        for s in range(shards):
+            for i in ids[s][r * per_round:(r + 1) * per_round]:
+                k = key_of(i)
+                db.put(k, ycsb_value(i, value_size))
+                model[k] = i
+        t_load = time.perf_counter() - t0
+        flushes = [st.flushes for st in db.shard_stats()]
+        if flushes != [memtables * (r + 1)] * shards:
+            raise AssertionError(f"round {r + 1}: shard flushes {flushes}")
+        t0 = time.perf_counter()
+        with keep_batch_calls() as got, one_round_per_notify():
+            db.maybe_compact()
+        det.append(dict(load_s=t_load, compact_s=time.perf_counter() - t0,
+                        levels=db.level_sizes(), rounds=db.queue.rounds,
+                        batch_launches=db.engine.batch_launches))
+        calls += got
+    out["det"] = det
+    first = rounds[0]["jobs"]
+    if len(rounds[0]["jobs"]) != shards or \
+            not all(j["batched"] for j in first) or \
+            db.engine.max_batch_jobs != shards:
+        raise AssertionError(f"the first round was not one stacked launch "
+                             f"of {shards} jobs: {[j['sig'] for j in first]}")
+    out["det_counts"] = store_counts(db)
+    db.close()
+
+    # the background round: the queue drains while the caller writes
+    db = ShardedDB(path, DBConfig(geom=geom, scheduler=sched), device=dev)
+    bg = keep_batches(db.engine, os.path.join(work, "kept-bg"))
+    t0 = time.perf_counter()
+    batch = []
+    for i in sorted(i for s in range(shards)
+                    for i in ids[s][2 * per_round:]):
+        k = key_of(i)
+        batch.append(("put", k, ycsb_value(i, value_size)))
+        model[k] = i
+        if len(batch) == 1000:
+            db.write_batch(batch)
+            batch = []
+    if batch:
+        db.write_batch(batch)
+    t_load = time.perf_counter() - t0
+    spec = WorkloadSpec.ycsb_a(records=max(model.values()) + 1,
+                               operations=bg_ops, value_size=value_size,
+                               seed=seed)
+    t0 = time.perf_counter()
+    reads = 0
+    for kind, k, v in YCSBWorkload(spec).run_ops():
+        if kind == "read":
+            want = updated.get(k)
+            if want is None and k in model:
+                want = ycsb_value(model[k], value_size)
+            if db.get(k) != want:
+                raise AssertionError(f"a YCSB read of {k!r} disagrees")
+            reads += 1
+        else:
+            db.put(k, v)
+            updated[k] = v
+    t_mix = time.perf_counter() - t0
+    db.wait_idle()
+    out["bg"] = dict(load_s=t_load, mix_s=t_mix, reads=reads,
+                     updates=bg_ops - reads, rounds=len(bg),
+                     jobs=sum(len(r["jobs"]) for r in bg),
+                     groups=[[j["sig"][1] for j in r["jobs"]] for r in bg],
+                     levels=db.level_sizes())
+    rng = np.random.default_rng(seed)
+    loaded = list(model)
+    keys = list(updated) + [loaded[i] for i in rng.choice(
+        len(loaded), min(sample, len(loaded)), replace=False)] + \
+        [b"absent%010d" % i for i in range(200)]
+    t0 = time.perf_counter()
+    out["scan_rows"] = read_back(db, model, updated, keys, value_size,
+                                 "before reopen")
+    out["read_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["bg_counts"] = store_counts(db)
+    db.close()
+    db = ShardedDB(path, DBConfig(geom=geom, scheduler=sched), device=dev)
+    t0 = time.perf_counter()
+    if read_back(db, model, updated, keys, value_size,
+                 "after reopen") != out["scan_rows"]:
+        raise AssertionError("the reopened store scans other rows")
+    out["reopen_read_s"] = time.perf_counter() - t0
+    db.close()
+    out["checked_keys"] = len(keys)
+
+    # each job alone on the plain versions; the batch calls likewise
+    t0 = time.perf_counter()
+    kept = [j for r in rounds for j in r["jobs"]]
+    out["job_checks"] = check_jobs(kept, geom, dev)
+    out["calls"] = check_batch_calls(calls)
+    out["rounds"] = [[(j["sig"][1], j["batched"]) for j in r["jobs"]]
+                     + [("merge launches", r["merge_launches"])]
+                     for r in rounds]
+
+    # the first round's jobs as one sort_mode="device" batch
+    jobs = [(j["paths"], j["bottom_level"]) for j in first]
+    eng = TorchCompactionEngine(geom, device=dev, sort_mode="device")
+    try:
+        with keep_batch_calls() as dcalls:
+            res = eng.compact_many(jobs)
+        if eng.batch_launches != 1 or not all(es.batched for _, es in res):
+            raise AssertionError("the device-sort jobs were not stacked")
+    finally:
+        eng.close()
+    for job, (img, _) in zip(first, res):
+        same_trimmed(job["out"], img, "sort_mode device batch vs merge")
+    out["device_calls"] = check_batch_calls(dcalls)
+    out["check_s"] = time.perf_counter() - t0
+    if timing and torch.device(dev).type == "cuda":
+        out["timing"] = stacked_against_single(jobs, geom, dev)
+    shutil.rmtree(path)
+    return out
+
+
+def sharded_lines(sh: dict, card: str) -> str:
+    """The phase-8 report of ``sharded_phase``."""
+    lines = [
+        f"[8] boundaries from the YCSB load keys: "
+        f"{[c.decode() for c in sh['cuts']]}; {sh['per_round']} records a "
+        f"shard a round ({SHARD_MEMTABLES} full memtables)"]
+    for r, (d, groups) in enumerate(zip(sh["det"], sh["rounds"]), 1):
+        lines.append(
+            f"[8] deterministic round {r}: load {d['load_s']:.1f} s, "
+            f"maybe_compact {d['compact_s']:.2f} s; jobs (bucket blocks, "
+            f"batched) and the round's merge_runs launches: {groups}; "
+            f"levels {d['levels']} [{card}]")
+    bg = sh["bg"]
+    lines += [
+        f"[8] background round (auto_compact=True): load "
+        f"{bg['load_s']:.1f} s while the queue drained ({bg['rounds']} "
+        f"rounds, {bg['jobs']} jobs, buckets a round {bg['groups']}); "
+        f"YCSB-A {bg['reads']} reads (each checked) and {bg['updates']} "
+        f"updates in {bg['mix_s']:.1f} s; levels {bg['levels']} [{card}]",
+        f"[8] every acknowledged write read back by a {sh['scan_rows']}-"
+        f"row scan across the shards, and {sh['checked_keys']} keys (every "
+        f"write of the mix, a sample of the loads, absent keys) by get and "
+        f"multi_get ({sh['read_s']:.1f} s); the same after close and reopen "
+        f"({sh['reopen_read_s']:.1f} s)",
+        counts_line("the deterministic rounds", sh["det_counts"]),
+        counts_line("the background round", sh["bg_counts"]),
+        f"[8] launches (the rounds and the background): " + ", ".join(
+            f"{k} {sh['launches'][k]}" for k in STORE_PATH),
+        f"[8] each job rerun alone on the plain versions (inputs, merge "
+        f"launches of its batch, live rows) {sh['job_checks']} "
+        f"byte-identical; the batched calls (wrapper, shape, launches) "
+        f"{sh['calls']} bit-identical to the plain batched versions; the "
+        f"first round as one sort_mode='device' batch: images equal the "
+        f"merge's, its calls {sh['device_calls']} ({sh['check_s']:.1f} s)"]
+    tm = sh.get("timing")
+    if tm:
+        parts = []
+        for name in ("stacked", "single"):
+            t = tm[name]
+            split = ", ".join(f"{k} {ms:.4f}" for k, ms in sorted(
+                t["split"].items(), key=lambda x: -x[1]))
+            top = "; ".join(f"{n[:50]} {ms:.4f}" for ms, n in t["top"])
+            parts.append(
+                f"{name}: {t['merges']} merge_runs launches, "
+                f"{t['pytorch']} PyTorch kernel launches, CUDA-event span "
+                f"{t['span_ms']:.3f} ms, device time {t['device_ms']:.3f} "
+                f"ms (CUPTI, ms: {split}; largest: {top}), host wall "
+                f"{t['wall_s'] * 1e3:.1f} ms")
+        lines.append(f"[8] the first round's {SHARDS} jobs stacked against "
+                     f"one at a time: " + "; ".join(parts) + f" [{card}]")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -2340,8 +2840,9 @@ def main(argv: list[str]) -> int:
     host = host_line()
     t0 = time.perf_counter()
     try:
-        rows = paper_phase(work, dev, report=lambda r: log(
-            paper_row_line(r, card, host)))
+        rows = paper_phase(work, dev, memtables=PAPER_MEMTABLES,
+                           report=lambda r: log(
+                               paper_row_line(r, card, host)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for luda, base in zip(rows[::2], rows[1::2]):
@@ -2367,6 +2868,23 @@ def main(argv: list[str]) -> int:
     log(session_lines(ss, xd, card))
     log(f"[7] {time.perf_counter() - t0:.1f} s")
 
+    log(f"[8] the sharded store on the card: a ShardedDB of {SHARDS} shards "
+        f"at PAPER.geometry({SHARD_VALUE}) and PAPER.scheduler(), one engine "
+        f"and one compaction queue for all of them")
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        sh = sharded_phase(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(sharded_lines(sh, card))
+    idle = [k for k in STORE_PATH if not sh["launches"][k]]
+    if idle:
+        raise AssertionError(f"kernels not launched on the sharded store's "
+                             f"paths: {idle}")
+    log(f"[8] {time.perf_counter() - t0:.1f} s")
+
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -2379,7 +2897,8 @@ def main(argv: list[str]) -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], plain_call_ms=r["plain_call_ms"]))
-    for case in ("merge_runs/262144", "bitonic_sort/262144",
+    for case in ("merge_runs/262144", f"merge_runs/{BATCH_JOBS}x65536",
+                 f"prefix_encode/wire{BATCH_JOBS}", "bitonic_sort/262144",
                  "bloom_multi_probe/1024", "lookup_blocks/1024",
                  "selective_scan/1x4096"):
         big = checks[case]

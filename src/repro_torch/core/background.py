@@ -2,14 +2,17 @@
 
 * ``BackgroundExecutor`` -- a named worker pool with a ``wait_idle()``
   barrier and first-error capture.
+* ``GlobalCompactionQueue`` -- the cross-shard compaction coordinator
+  behind ``ShardedDB``: shards publish that they have work, one worker
+  drains them in rounds through the shared engine's ``compact_many``.
 * ``PrefetchReader`` -- a one-thread I/O pipeline the compaction engine
   uses to double-buffer SST file reads against staging and device work
   (the paper's "judicious data movement" applied across the files of a
   job).
 
-The install sequencer and the cross-shard compaction queue come with the
-async write path and sharding.  Both primitives are stdlib threading;
-their threads are daemons, and ``shutdown``/``close`` joins them.
+The install sequencer comes with the async write path.  The primitives
+are stdlib threading; their threads are daemons, and
+``shutdown``/``close`` joins or stops them.
 """
 
 from __future__ import annotations
@@ -104,6 +107,133 @@ class BackgroundExecutor:
             self._q.put(None)
         for t in self._threads:
             t.join()
+
+
+class GlobalCompactionQueue:
+    """Cross-shard compaction coordinator (the ``ShardedDB`` backend).
+
+    Shards publish "I have compaction work" notifications
+    (``LsmDB(compaction_sink=queue.notify)``); one worker drains the
+    queue in rounds: each round picks at most ONE job per pending shard
+    (jobs within a shard are ordered -- installing one changes what the
+    next should be -- but jobs from different shards are independent)
+    and hands the whole round to ``engine.compact_many``, which stacks
+    same-signature jobs into one batched launch.  Installs then run per
+    shard in pick order, so each shard's version history is exactly what
+    sequential compaction would have produced.
+
+    A failed install (a CRC verdict) is isolated to its shard: the other
+    jobs of the round still install, and the first error re-raises
+    through the executor (on ``wait_idle``).  The worker launches on the
+    current device's default stream, as the caller's thread does.
+    """
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._lock = threading.Lock()
+        # id(db) -> db
+        self._pending: dict[int, object] = {}   # guarded-by: _lock
+        self._scheduled = False                 # guarded-by: _lock
+        self._closed = False                    # guarded-by: _lock
+        self._exec = BackgroundExecutor(workers=1, name="shard-compact")
+        # accounting: written by the drain worker, read by the caller
+        self.rounds = 0                         # guarded-by: _lock
+        self.jobs_run = 0                       # guarded-by: _lock
+        self.trivial_moves = 0                  # guarded-by: _lock
+
+    def notify(self, db):
+        """Mark ``db`` as having (possible) compaction work and make sure
+        the drain worker runs.  Callable as a ``compaction_sink``."""
+        with self._lock:
+            if self._closed:
+                return
+            self._pending[id(db)] = db
+            if self._scheduled:
+                return
+            self._scheduled = True
+        try:
+            self._exec.submit(self._drain)
+        except BaseException:
+            with self._lock:
+                self._scheduled = False
+            raise
+
+    def _drain(self):
+        try:
+            while True:
+                with self._lock:
+                    dbs = list(self._pending.values())
+                    self._pending.clear()
+                    if not dbs:
+                        self._scheduled = False
+                        return
+                self._drain_round(dbs)
+        except BaseException:
+            with self._lock:
+                self._scheduled = False
+            raise
+
+    def _drain_round(self, dbs):
+        """Pick <= 1 real job a shard, compact them together, install per
+        shard.  Shards that yielded a job are queued again (they may have
+        more)."""
+        owners, jobs = [], []
+        for db in dbs:
+            job = db.pick_compaction()
+            # trivial moves only touch metadata: apply inline and pick
+            # again (bounded: each move shrinks the source level)
+            guard = 0
+            while job is not None and db.is_trivial_move(job) and guard < 64:
+                db.apply_trivial_move(job)
+                with self._lock:
+                    self.trivial_moves += 1
+                job = db.pick_compaction()
+                guard += 1
+            if job is not None:
+                owners.append((db, job))
+                jobs.append(([f.path for f in job.all_inputs],
+                             job.bottom_level))
+        if not jobs:
+            return
+        with self._lock:
+            self.rounds += 1
+            self.jobs_run += len(jobs)
+        results = self.engine.compact_many(jobs)
+        err = None
+        for (db, job), (out, es) in zip(owners, results):
+            try:
+                db.apply_compaction(job, out, es)
+            except BaseException as e:  # noqa: BLE001 - per shard
+                if err is None:
+                    err = e
+            with self._lock:
+                if not self._closed:
+                    self._pending[id(db)] = db
+        if err is not None:
+            raise err
+
+    def wait_idle(self):
+        """Barrier: returns once no shard has pending compaction work.
+        Re-raises the first background error."""
+        while True:
+            self._exec.wait_idle()
+            resubmit = False
+            with self._lock:
+                if not self._pending and not self._scheduled:
+                    return
+                if not self._scheduled:
+                    # a previous drain died with work still queued (its
+                    # error already surfaced above); restart it
+                    self._scheduled = True
+                    resubmit = True
+            if resubmit:
+                self._exec.submit(self._drain)
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            self._pending.clear()
+        self._exec.shutdown(wait=False)
 
 
 class PrefetchReader:

@@ -281,11 +281,22 @@ def image_from_numpy(img, device,
 def image_to_numpy(img: SSTImage,
                    staging: PinnedStaging | None = None) -> SSTImage:
     """A device image as numpy arrays with the SST file's dtypes."""
-    if staging is not None and img.keys.device.type == "cuda":
-        words = staging.to_host(list(img))
+    return images_to_numpy([img], staging)[0]
+
+
+def images_to_numpy(images: list[SSTImage],
+                    staging: PinnedStaging | None = None) -> list[SSTImage]:
+    """Device images as host images (:func:`image_to_numpy`), through one
+    copy back for all of them when ``staging`` is given on the card."""
+    tensors = [t for img in images for t in img]
+    if staging is not None and tensors and tensors[0].device.type == "cuda":
+        words = staging.to_host(tensors)
     else:
-        words = [t.detach().cpu().numpy() for t in img]
-    return SSTImage(*(w.view(dt) for w, dt in zip(words, HOST_DTYPES)))
+        words = [t.detach().cpu().numpy() for t in tensors]
+    n = len(HOST_DTYPES)
+    return [SSTImage(*(w.view(dt) for w, dt in zip(words[i:i + n],
+                                                   HOST_DTYPES)))
+            for i in range(0, len(words), n)]
 
 
 # ---------------------------------------------------------------------------

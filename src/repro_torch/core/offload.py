@@ -3,7 +3,9 @@
 
 ``CompactionExecutor`` is what the engine talks to: it owns the device and
 the sort mode, concatenates the input images, pads them to the requested
-block count and runs the pipeline.
+block count and runs the pipeline, one job (``compact``) or a stack of
+same-shape jobs in one batched pipeline (``compact_many`` over
+``compact_batch``).
 """
 
 from __future__ import annotations
@@ -41,8 +43,8 @@ class CompactionExecutor:
             raise ValueError(f"image on {img.keys.device}, executor on "
                              f"{self.device}")
 
-    def _input(self, images: list[SSTImage], pad_blocks: int | None):
-        """The concatenated (and padded) input image and its runs."""
+    def _concat(self, images: list[SSTImage], pad_blocks: int | None):
+        """The concatenated (and padded) input image and its run lengths."""
         for im in images:
             self._check_device(im)
         img, run_lens = formats.concat_images(images, with_runs=True)
@@ -51,6 +53,12 @@ class CompactionExecutor:
                                              run_lens=run_lens)
         if self.debug_check_runs and self.sort_mode == "merge":
             self._check_runs(img, run_lens)
+        return img, tuple(run_lens)
+
+    def _input(self, images: list[SSTImage], pad_blocks: int | None):
+        """The concatenated (and padded) input image and its runs (None
+        for the modes that re-sort)."""
+        img, run_lens = self._concat(images, pad_blocks)
         return img, run_lens if self.sort_mode == "merge" else None
 
     def compact(self, images: list[SSTImage], *, bottom_level: bool = False,
@@ -63,6 +71,44 @@ class CompactionExecutor:
         return compaction.compact(
             img, geom=self.geom, bottom_level=bottom_level,
             sort_mode=self.sort_mode, run_lens=run_lens, timer=timer)
+
+    def compact_many(self, jobs: list[list[SSTImage]], *,
+                     bottom_level: bool = False,
+                     pad_blocks: int | None = None, timer=None
+                     ) -> list[tuple[SSTImage, compaction.CompactionStats]]:
+        """Compact several *same-shape* jobs in one batched pipeline
+        (``compact_batch``).  Each job is one input image list; after its
+        concatenation (and the padding to ``pad_blocks``) every job must
+        have the same block count and, in merge mode, the same run lengths
+        (callers group jobs by ``scheduler.batch_signature`` first; see
+        ``TorchCompactionEngine.compact_many``), else ``ValueError``.
+        Returns ``(image, stats)`` a job, in input order, each
+        bit-identical to ``compact`` of that job alone, with its own
+        ``crc_ok``."""
+        if not jobs:
+            raise AssertionError("compact_many needs at least one job")
+        imgs, sigs = [], []
+        for images in jobs:
+            img, run_lens = self._concat(images, pad_blocks)
+            imgs.append(img)
+            sigs.append(run_lens)
+        if self.sort_mode == "merge" and any(s != sigs[0] for s in sigs):
+            raise ValueError(
+                f"compact_many jobs have mismatched run signatures {sigs}; "
+                "group jobs by shape bucket before batching")
+        if any(im.keys.shape != imgs[0].keys.shape for im in imgs):
+            raise ValueError(
+                "compact_many jobs have mismatched block counts "
+                f"{[im.keys.shape[0] for im in imgs]}; pass pad_blocks or "
+                "group jobs by shape bucket before batching")
+        stacked = SSTImage(*(torch.stack(parts) for parts in zip(*imgs)))
+        out, stats = compact_batch(
+            stacked, geom=self.geom, bottom_level=bottom_level,
+            sort_mode=self.sort_mode,
+            run_lens=sigs[0] if self.sort_mode == "merge" else None,
+            timer=timer)
+        return [(SSTImage(*(a[j] for a in out)), s)
+                for j, s in enumerate(stats)]
 
     def compact_overlapped(self, images: list[SSTImage], *,
                            bottom_level: bool = False,
@@ -99,6 +145,23 @@ class CompactionExecutor:
     def build_image(self, keys, meta, vals, n_live=None) -> SSTImage:
         """A fresh SST image from sorted entries (the memtable flush)."""
         return build_image(keys, meta, vals, n_live, geom=self.geom)
+
+
+def compact_batch(img: SSTImage, *, geom: SSTGeometry,
+                  bottom_level: bool = False, sort_mode: str = "device",
+                  run_lens: tuple[int, ...] | None = None, timer=None
+                  ) -> tuple[SSTImage, list[compaction.CompactionStats]]:
+    """One batched pipeline over a leading *job* axis: ``img`` holds J
+    independent jobs stacked on axis 0 (every field ``[J, ...]`` of one
+    job's shape).  The kernels take the batch in the one job's launches
+    (``compaction.launch_batch``), and the counts come back in one
+    read-back.  Returns the stacked output image and each job's
+    ``CompactionStats`` (``crc_ok`` a per-job verdict: one corrupt input
+    does not taint its batch mates)."""
+    out, counts = compaction.launch_batch(
+        img, geom=geom, bottom_level=bottom_level, sort_mode=sort_mode,
+        run_lens=run_lens, timer=timer)
+    return out, compaction.read_stats_batch(counts, img.keys.shape[1], geom)
 
 
 def build_image(keys: torch.Tensor, meta: torch.Tensor, vals: torch.Tensor,

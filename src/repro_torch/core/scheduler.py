@@ -1,5 +1,5 @@
-"""Compaction scheduling: LevelDB's leveling policy (a copy of
-``repro.core.scheduler``; batched-launch signatures come later).
+"""Compaction scheduling: LevelDB's leveling policy, and the shape key
+that lets jobs share a stacked launch (a copy of ``repro.core.scheduler``).
 
 Picks which SSTs feed the (device or CPU) compaction engine:
 
@@ -37,6 +37,28 @@ class CompactionJob:
     @property
     def bytes_in(self) -> int:
         return sum(f.size_bytes for f in self.all_inputs)
+
+
+def batch_signature(block_counts, bottom_level: bool,
+                    sort_mode: str = "merge") -> tuple:
+    """Shape-bucket key for batched device launches.
+
+    Jobs whose signatures are equal present identical array shapes (and,
+    in merge mode, identical run lengths) after the engine's pow2 padding,
+    so they can stack into one launch
+    (``TorchCompactionEngine.compact_many``).  ``block_counts`` are the
+    per-input SST block counts of one job.
+
+    * merge mode: each input run is padded to a pow2 block count and the
+      total to a pow2 bucket, so the key is (per-run padded counts, bucket,
+      bottom_level);
+    * re-sort modes ignore run structure: only the padded total matters.
+    """
+    from repro_torch.core.offload import next_pow2
+    if sort_mode == "merge":
+        padded = tuple(next_pow2(b) for b in block_counts)
+        return (padded, next_pow2(sum(padded)), bool(bottom_level))
+    return ((), next_pow2(sum(block_counts)), bool(bottom_level))
 
 
 @dataclasses.dataclass

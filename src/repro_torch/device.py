@@ -25,11 +25,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 class DeviceTimer:
-    """Named spans timed by CUDA events on the current stream.  On the
-    CPU it records nothing and every span reads 0.0: a CPU run has no
-    device time."""
+    """Named spans timed by CUDA events on ``device``'s current stream
+    (named when the events are recorded, so a timer built on one thread
+    times that thread's stream).  On the CPU it records nothing and every
+    span reads 0.0: a CPU run has no device time."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.enabled = device.type == "cuda"
         self._spans: dict[str, list] = {}
 
@@ -38,13 +40,14 @@ class DeviceTimer:
         if not self.enabled:
             yield
             return
+        stream = torch.cuda.current_stream(self.device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         try:
             yield
         finally:
-            end.record()
+            end.record(stream)
             self._spans.setdefault(name, []).append((start, end))
 
     def seconds(self, name: str) -> float:

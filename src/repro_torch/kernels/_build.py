@@ -40,13 +40,14 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "crc32_sections": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                        ctypes.c_uint32, _P, _LL, _P),
-    "merge_runs": (_P, _P, _P, _I, _I, _P, _I, _P),
-    "prefix_encode": (_P, _LL, _I, _I, _P, _P, _P, _P),
+    "merge_runs": (_P, _P, _P, _I, _I, _P, _I, _I, _LL, _P),
+    "prefix_encode": (_P, _LL, _I, _I, _P, _LL, _P, _P, _P),
     "bloom_build": (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P),
     "bloom_multi_probe": (_P, _P, _LL, _I, _I, _I, _P, _P),
     "bloom_query": (_P, _P, _LL, _LL, _I, _I, _I, _P, _P),
     "lookup_blocks": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P),
-    "bitonic_sort": (_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P),
+    "bitonic_sort": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P,
+                     _P),
     "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P),
 }

@@ -78,17 +78,29 @@ def launches(n: int, lanes: int) -> int:
 def bitonic_sort(rows: torch.Tensor) -> torch.Tensor:
     """Sort int32 ``[n, lanes]`` CUDA rows ascending lexicographically over
     all lanes (unsigned), any ``n`` and ``lanes``; ``rows`` is left as it
-    was.  One call enqueues :func:`launches` kernels, each counted."""
-    _build.check_cuda(rows, "bitonic_sort rows", torch.int32, 2)
-    n, lanes = rows.shape
-    if n == 0:
+    was.  One call enqueues :func:`launches` kernels, each counted.
+
+    ``rows`` of ``[J, n, lanes]`` is a batch of J jobs, each sorted on its
+    own, in the same :func:`launches` (``launches(n, lanes)``): both
+    kernels take the job as their grid's y dimension, and no tile
+    straddles two jobs (a job's last tile is short when the tile does not
+    divide ``n``)."""
+    if rows.dim() not in (2, 3):
+        raise ValueError(f"bitonic_sort: rows of shape {tuple(rows.shape)}")
+    _build.check_cuda(rows, "bitonic_sort rows", torch.int32, rows.dim())
+    jobs = rows.shape[0] if rows.dim() == 3 else 1
+    n, lanes = rows.shape[-2:]
+    if n == 0 or jobs == 0:
         return rows.clone()
+    if jobs > merge_path.MAX_JOBS:
+        raise ValueError(f"bitonic_sort: {jobs} jobs; a launch takes at "
+                         f"most {merge_path.MAX_JOBS}")
     tile, counts, pairs, n_bufs = plan(n, lanes)
     bufs = [torch.empty_like(rows) for _ in range(n_bufs)]
     ptrs = [b.data_ptr() for b in bufs] + [0] * (3 - n_bufs)
     launched = ctypes.c_int(0)
     _build.launch("bitonic_sort", rows.data_ptr(), *ptrs, n, lanes, tile,
-                  len(counts), counts.buffer_info()[0],
+                  jobs, len(counts), counts.buffer_info()[0],
                   pairs.buffer_info()[0], ctypes.addressof(launched),
                   _build.stream_handle(rows), launched=launched)
     return bufs[1] if len(counts) else bufs[0]

@@ -44,6 +44,12 @@
 // block's chain of dependent steps: nine passes of a search and a serial
 // merge for the tile, a split search and a merge for each level.
 //
+// A batch of jobs (rows [jobs, n, lanes], each job sorted on its own) adds
+// the job as the grid's y dimension of both launches: a tile never
+// straddles two jobs (a job's last tile is short when the tile does not
+// divide n), and the level kernels offset every buffer by the job's rows,
+// so J jobs take the one job's launches.
+//
 // Rows of more than kMaxLanes words take the same two steps with `lanes` at
 // run time: the tile sort with its rows in shared memory (one thread a
 // pair, T chosen by the host so the tile fits), the merge levels one thread
@@ -86,16 +92,18 @@ __device__ __forceinline__ void load_srow(const uint32_t* p,
   for (int l = 0; l < L; ++l) r[l] = p[l];
 }
 
-// One tile of kSortTile rows sorted by one block of kSortThreads; `sm`
-// holds kSortThreads * (kRowsPerThread * L + 1) words.
+// Tile blockIdx.x of job blockIdx.y (n rows a job): kSortTile rows sorted
+// by one block of kSortThreads; `sm` holds kSortThreads * (kRowsPerThread
+// * L + 1) words.
 template <int L>
 __device__ __forceinline__ void tile_sort_regs(const uint32_t* rows,
                                                long long n, uint32_t* out,
                                                uint32_t* sm) {
   constexpr int R = kRowsPerThread;
   constexpr int T = kSortTile;
-  const long long base = (long long)blockIdx.x * T;
-  const int nt = (int)min((long long)T, n - base);
+  const long long first = (long long)blockIdx.x * T;
+  const long long base = (long long)blockIdx.y * n + first;
+  const int nt = (int)min((long long)T, n - first);
   const int t = threadIdx.x;
   // 1. the tile into shared memory, coalesced; all-ones sentinels past the
   //    end of a short tile (they sort last and are not written)
@@ -173,14 +181,16 @@ __device__ __forceinline__ void tile_sort_regs(const uint32_t* rows,
   for (int w = t; w < nt * L; w += kSortThreads) o[w] = srow<L>(sm, w / L)[w % L];
 }
 
-// One tile of `tile` rows of `lanes` words (run time) sorted in shared
-// memory (`tile` * `lanes` words), tile / 2 threads, one pair a stage.
+// Tile blockIdx.x of job blockIdx.y: `tile` rows of `lanes` words (run
+// time) sorted in shared memory (`tile` * `lanes` words), tile / 2
+// threads, one pair a stage.
 __device__ __forceinline__ void tile_sort_wide(const uint32_t* rows,
                                                long long n, int lanes,
                                                int tile, uint32_t* out,
                                                uint32_t* sm) {
-  const long long base = (long long)blockIdx.x * tile;
-  const int nt = (int)min((long long)tile, n - base);
+  const long long first = (long long)blockIdx.x * tile;
+  const long long base = (long long)blockIdx.y * n + first;
+  const int nt = (int)min((long long)tile, n - first);
   const uint32_t* g = rows + base * lanes;
   for (int w = threadIdx.x; w < tile * lanes; w += blockDim.x)
     sm[w] = w < nt * lanes ? g[w] : ~0u;
@@ -219,13 +229,15 @@ sort_tile_kernel(const uint32_t* __restrict__ rows, long long n, int lanes,
     tile_sort_wide(rows, n, lanes, tile, out, sm);
 }
 
-// One output row a thread, kThreads a block: its split by a binary search
-// of the merge path in global memory, then the row taken.
+// One output row a thread, kThreads a block (job blockIdx.y): its split
+// by a binary search of the merge path in global memory, then the row
+// taken.
 __device__ __forceinline__ void merge_level_wide(const Level& lv,
                                                  int lanes) {
   const int t = blockIdx.x;
   const int p = pair_of_tile(lv, t);
-  const long long off = lv.off[p], na = lv.len_a[p], nb = lv.len_b[p];
+  const long long off = (long long)blockIdx.y * lv.job_rows + lv.off[p];
+  const long long na = lv.len_a[p], nb = lv.len_b[p];
   const uint32_t* a = lv.buf[lv.src_a[p]] + off * lanes;
   const uint32_t* b = lv.buf[lv.src_b[p]] + (off + na) * lanes;
   uint32_t* out = lv.buf[lv.dst[p]] + off * lanes;
@@ -260,7 +272,7 @@ sort_level_kernel(const __grid_constant__ Level lv, int lanes) {
 
 template <int L>
 int launch_tiles(const uint32_t* rows, long long n, int lanes, int tile,
-                 uint32_t* out, cudaStream_t s) {
+                 int jobs, uint32_t* out, cudaStream_t s) {
   const size_t smem =
       L > 0 ? (size_t)kSortThreads * (kRowsPerThread * L + 1) *
                   sizeof(uint32_t)
@@ -274,52 +286,54 @@ int launch_tiles(const uint32_t* rows, long long n, int lanes, int tile,
     opted = smem;
   }
   const unsigned threads = L > 0 ? kSortThreads : (unsigned)(tile / 2);
-  const unsigned grid = (unsigned)((n + tile - 1) / tile);
+  const dim3 grid((unsigned)((n + tile - 1) / tile), (unsigned)jobs);
   sort_tile_kernel<L><<<grid, threads, smem, s>>>(rows, n, lanes, tile, out);
   return (int)cudaGetLastError();
 }
 
 int launch_tiles_by_lanes(const uint32_t* rows, long long n, int lanes,
-                          int tile, uint32_t* out, cudaStream_t s) {
+                          int tile, int jobs, uint32_t* out,
+                          cudaStream_t s) {
   switch (lanes) {
-    case 1: return launch_tiles<1>(rows, n, lanes, tile, out, s);
-    case 2: return launch_tiles<2>(rows, n, lanes, tile, out, s);
-    case 3: return launch_tiles<3>(rows, n, lanes, tile, out, s);
-    case 4: return launch_tiles<4>(rows, n, lanes, tile, out, s);
-    case 5: return launch_tiles<5>(rows, n, lanes, tile, out, s);
-    case 6: return launch_tiles<6>(rows, n, lanes, tile, out, s);
-    case 7: return launch_tiles<7>(rows, n, lanes, tile, out, s);
-    case 8: return launch_tiles<8>(rows, n, lanes, tile, out, s);
-    default: return launch_tiles<0>(rows, n, lanes, tile, out, s);
+    case 1: return launch_tiles<1>(rows, n, lanes, tile, jobs, out, s);
+    case 2: return launch_tiles<2>(rows, n, lanes, tile, jobs, out, s);
+    case 3: return launch_tiles<3>(rows, n, lanes, tile, jobs, out, s);
+    case 4: return launch_tiles<4>(rows, n, lanes, tile, jobs, out, s);
+    case 5: return launch_tiles<5>(rows, n, lanes, tile, jobs, out, s);
+    case 6: return launch_tiles<6>(rows, n, lanes, tile, jobs, out, s);
+    case 7: return launch_tiles<7>(rows, n, lanes, tile, jobs, out, s);
+    case 8: return launch_tiles<8>(rows, n, lanes, tile, jobs, out, s);
+    default: return launch_tiles<0>(rows, n, lanes, tile, jobs, out, s);
   }
 }
 
 template <int L>
-int launch_level(const Level& lv, int tiles, int lanes, cudaStream_t s) {
-  sort_level_kernel<L><<<tiles, kThreads, 0, s>>>(lv, lanes);
+int launch_level(const Level& lv, dim3 grid, int lanes, cudaStream_t s) {
+  sort_level_kernel<L><<<grid, kThreads, 0, s>>>(lv, lanes);
   return (int)cudaGetLastError();
 }
 
-int launch_level_by_lanes(const Level& lv, int tiles, int lanes,
+int launch_level_by_lanes(const Level& lv, dim3 grid, int lanes,
                           cudaStream_t s) {
   switch (lanes) {
-    case 1: return launch_level<1>(lv, tiles, lanes, s);
-    case 2: return launch_level<2>(lv, tiles, lanes, s);
-    case 3: return launch_level<3>(lv, tiles, lanes, s);
-    case 4: return launch_level<4>(lv, tiles, lanes, s);
-    case 5: return launch_level<5>(lv, tiles, lanes, s);
-    case 6: return launch_level<6>(lv, tiles, lanes, s);
-    case 7: return launch_level<7>(lv, tiles, lanes, s);
-    case 8: return launch_level<8>(lv, tiles, lanes, s);
-    default: return launch_level<0>(lv, tiles, lanes, s);
+    case 1: return launch_level<1>(lv, grid, lanes, s);
+    case 2: return launch_level<2>(lv, grid, lanes, s);
+    case 3: return launch_level<3>(lv, grid, lanes, s);
+    case 4: return launch_level<4>(lv, grid, lanes, s);
+    case 5: return launch_level<5>(lv, grid, lanes, s);
+    case 6: return launch_level<6>(lv, grid, lanes, s);
+    case 7: return launch_level<7>(lv, grid, lanes, s);
+    case 8: return launch_level<8>(lv, grid, lanes, s);
+    default: return launch_level<0>(lv, grid, lanes, s);
   }
 }
 
 }  // namespace
 
-// rows: uint32 [n, lanes] on the card (n >= 1), left as it is; buf0, buf1,
-// buf2: uint32 [n, lanes] scratch, 8-byte aligned (buf1 and buf2 may be
-// null when no level names them).  The tiles of `tile_rows` rows land
+// rows: uint32 [jobs, n, lanes] on the card (n >= 1, jobs 1 to 65,535),
+// each job sorted on its own, left as it is; buf0, buf1, buf2: uint32
+// [jobs, n, lanes] scratch, 8-byte aligned (buf1 and buf2 may be null when
+// no level names them); the pair tables are one job's.  The tiles of `tile_rows` rows land
 // sorted in buf0; then level table i merges table_pairs[i] pairs, the
 // next rows of `pairs` (int64 [*, 6] of (off, len_a, len_b, src_a, src_b,
 // dst), buffers 0-2 as above; the wrapper's `merge_path.plan_levels` over
@@ -330,13 +344,14 @@ int launch_level_by_lanes(const Level& lv, int tiles, int lanes,
 // kernels enqueued.
 REPRO_EXPORT int bitonic_sort(const void* rows, void* buf0, void* buf1,
                               void* buf2, long long n, int lanes,
-                              int tile_rows, int n_tables,
+                              int tile_rows, int jobs, int n_tables,
                               const int* table_pairs,
                               const long long* pairs, void* launched,
                               void* stream) {
   int* count = static_cast<int*>(launched);
   *count = 0;
-  if (n < 1 || lanes < 1 || n_tables < 0 || buf0 == nullptr)
+  if (n < 1 || lanes < 1 || n_tables < 0 || buf0 == nullptr || jobs < 1 ||
+      jobs > 65535)
     return cudaErrorInvalidValue;
   const uint32_t* r = static_cast<const uint32_t*>(rows);
   uint32_t* b0 = static_cast<uint32_t*>(buf0);
@@ -348,7 +363,7 @@ REPRO_EXPORT int bitonic_sort(const void* rows, void* buf0, void* buf1,
                 (tile_rows & (tile_rows - 1)) == 0 &&
                 (long long)tile_rows * lanes * 4 <= kWideSmemBytes;
   if (!fits) return cudaErrorInvalidValue;
-  int err = launch_tiles_by_lanes(r, n, lanes, tile_rows, b0, s);
+  int err = launch_tiles_by_lanes(r, n, lanes, tile_rows, jobs, b0, s);
   if (err != cudaSuccess) return err;
   ++*count;
   void* const bufs[3] = {buf0, buf1, buf2};
@@ -356,10 +371,12 @@ REPRO_EXPORT int bitonic_sort(const void* rows, void* buf0, void* buf1,
   for (int i = 0; i < n_tables; ++i) {
     Level lv;
     int tiles = 0;
-    err = make_level(bufs, table_pairs[i], pairs, rows_a_block, lv, &tiles);
+    err = make_level(bufs, table_pairs[i], pairs, rows_a_block, n, lv,
+                     &tiles);
     if (err != cudaSuccess) return err;
     pairs += 6 * table_pairs[i];
-    err = launch_level_by_lanes(lv, tiles, lanes, s);
+    err = launch_level_by_lanes(lv, dim3((unsigned)tiles, (unsigned)jobs),
+                                lanes, s);
     if (err != cudaSuccess) return err;
     ++*count;
   }

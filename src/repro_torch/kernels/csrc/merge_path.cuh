@@ -27,6 +27,11 @@
 // out with coalesced stores.  `lanes` (1 to kMaxLanes) is a template
 // argument, so a row lives in registers; for an even `lanes` rows move as
 // 8-byte words.
+//
+// A batch of jobs (a leading job axis, every job the same runs): the pair
+// table is the one job's, and the grid's y dimension is the job.  Job j's
+// rows start at row j * job_rows of each buffer, so one launch merges a
+// level of every job, and J jobs take the one job's launches.
 #pragma once
 
 #include "common.cuh"
@@ -42,6 +47,7 @@ constexpr int kMaxLanes = 8;
 // One launch's pair table (by value, in the kernel's parameter space).
 struct Level {
   uint32_t* buf[3];   // 0: the input rows; 1, 2: scratch
+  long long job_rows;           // rows a job: job blockIdx.y starts there
   long long off[kMaxPairs];     // first row of the pair's left run
   long long len_a[kMaxPairs];
   long long len_b[kMaxPairs];
@@ -52,12 +58,13 @@ struct Level {
 
 // The level of host pair table `pairs` (int64 [n_pairs, 6] of (off, len_a,
 // len_b, src_a, src_b, dst)) over buffers `bufs` (bufs[2] may be null when
-// no pair names it), `tile_rows` output rows a block.  Sets *tiles to the
-// blocks the level takes; returns cudaSuccess or the error to report.
+// no pair names it), `tile_rows` output rows a block, each pair inside a
+// job of `job_rows` rows.  Sets *tiles to the blocks a job's level takes;
+// returns cudaSuccess or the error to report.
 static inline int make_level(void* const (&bufs)[3], int n_pairs,
                              const long long* pairs, int tile_rows,
-                             Level& lv, int* tiles) {
-  if (n_pairs < 1 || n_pairs > kMaxPairs || tile_rows < 1)
+                             long long job_rows, Level& lv, int* tiles) {
+  if (n_pairs < 1 || n_pairs > kMaxPairs || tile_rows < 1 || job_rows < 1)
     return cudaErrorInvalidValue;
   for (const void* q : bufs)
     if (reinterpret_cast<uintptr_t>(q) % 8 != 0)
@@ -70,7 +77,7 @@ static inline int make_level(void* const (&bufs)[3], int n_pairs,
     if (q[1] < 1 || q[2] < 1 || q[3] < 0 || q[3] > 2 || q[4] < 0 ||
         q[4] > 2 || q[5] < 1 || q[5] > 2 || q[3] == q[5] || q[4] == q[5] ||
         bufs[q[3]] == nullptr || bufs[q[4]] == nullptr ||
-        bufs[q[5]] == nullptr)
+        bufs[q[5]] == nullptr || q[0] < 0 || q[0] + q[1] + q[2] > job_rows)
       return cudaErrorInvalidValue;
     lv.off[p] = q[0];
     lv.len_a[p] = q[1];
@@ -84,6 +91,7 @@ static inline int make_level(void* const (&bufs)[3], int n_pairs,
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   lv.first_tile[n_pairs] = (int)n_tiles;
   lv.n_pairs = n_pairs;
+  lv.job_rows = job_rows;
   *tiles = (int)n_tiles;
   return cudaSuccess;
 }
@@ -172,7 +180,7 @@ __device__ __forceinline__ void cp_async(uint32_t* dst, const uint32_t* src) {
 }
 
 // The body of a level kernel: block blockIdx.x merges its tile of kTile
-// output rows; run by kThreads threads.
+// output rows of job blockIdx.y; run by kThreads threads.
 template <int L>
 __device__ __forceinline__ void merge_level(const Level& lv) {
   // words move W at a time: 2 for an even `lanes`, else 1
@@ -182,7 +190,8 @@ __device__ __forceinline__ void merge_level(const Level& lv) {
 
   const int t = blockIdx.x;
   const int p = pair_of_tile(lv, t);
-  const long long off = lv.off[p], na = lv.len_a[p], nb = lv.len_b[p];
+  const long long off = (long long)blockIdx.y * lv.job_rows + lv.off[p];
+  const long long na = lv.len_a[p], nb = lv.len_b[p];
   const uint32_t* a = lv.buf[lv.src_a[p]] + off * L;
   const uint32_t* b = lv.buf[lv.src_b[p]] + (off + na) * L;
   uint32_t* out = lv.buf[lv.dst[p]] + off * L;

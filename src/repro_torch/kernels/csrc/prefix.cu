@@ -12,6 +12,10 @@
 // count, and the wire key is the key with its first shared[i] bytes zeroed
 // -- the pack's `torch.where(valid, shared, 0)` and
 // `formats.zero_prefix_lanes`, which were 15 PyTorch launches, in this one.
+// A batch of jobs (keys [J * job_rows, lanes], one survivor count a job)
+// reads row i's count at count[i / job_rows], and shares nothing across a
+// job's first row: job_rows is a whole number of restart intervals (the
+// host checks it), so a job starts at a restart point.
 //
 // Bound on the H100: HBM bytes (each key read once, the int32 written
 // once, and on the wire route each wire key written once).
@@ -50,7 +54,8 @@ struct Args {
   int restart;
   bool pow2;     // restart is a power of two
   bool vec4;     // 16-byte loads and stores
-  const long long* count;   // wire route: survivors, on the device
+  const long long* count;   // wire route: survivors a job, on the device
+  uint32_t job_rows;        // rows a job (a multiple of restart)
   int32_t* shared;
   uint32_t* wire;           // nullptr: the shared-only route
 };
@@ -107,7 +112,8 @@ prefix_encode_kernel(Args a) {
     if (!in) return;
     if (restart_row) s = 0;
     if constexpr (kWire) {
-      if (i >= *a.count) s = 0;
+      const uint32_t j = u / a.job_rows;
+      if ((long long)(u - j * a.job_rows) >= a.count[j]) s = 0;
 #pragma unroll
       for (int l = 0; l < L; ++l) k[l] = zero_prefix(k[l], s, l);
       uint32_t* w = a.wire + i * L;
@@ -137,7 +143,8 @@ prefix_encode_kernel(Args a) {
       }
     }
     if constexpr (kWire) {
-      if (i >= *a.count) s = 0;
+      const uint32_t j = u / a.job_rows;
+      if ((long long)(u - j * a.job_rows) >= a.count[j]) s = 0;
       uint32_t* w = a.wire + i * lanes;
       for (int l = 0; l < lanes; ++l)
         w[l] = zero_prefix(__ldg(k + l), s, l);
@@ -170,15 +177,18 @@ cudaError_t launch(const Args& a, unsigned grid, cudaStream_t st) {
 
 }  // namespace
 
-// keys: uint32 [n, lanes]; shared: int32 [n].  count (int64 scalar on the
-// device) and wire (uint32 [n, lanes]) both null: the shared-only route;
-// both given: the wire route.
+// keys: uint32 [n, lanes]; shared: int32 [n].  count and wire (uint32 [n,
+// lanes]) both null: the shared-only route; both given: the wire route,
+// count an int64 [n / job_rows] on the device, the survivors of each job
+// of job_rows rows (n itself for one job).
 REPRO_EXPORT int prefix_encode(const void* keys, long long n, int lanes,
-                               int restart, const void* count, void* shared,
-                               void* wire, void* stream) {
+                               int restart, const void* count,
+                               long long job_rows, void* shared, void* wire,
+                               void* stream) {
   if (n <= 0) return cudaSuccess;
   if (restart <= 0 || lanes <= 0 || n >= (1ll << 31) ||
-      (count == nullptr) != (wire == nullptr))
+      (count == nullptr) != (wire == nullptr) || job_rows <= 0 ||
+      n % job_rows != 0 || job_rows % restart != 0)
     return cudaErrorInvalidValue;
   Args a;
   a.keys = static_cast<const uint32_t*>(keys);
@@ -189,6 +199,7 @@ REPRO_EXPORT int prefix_encode(const void* keys, long long n, int lanes,
   a.vec4 = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
            reinterpret_cast<uintptr_t>(wire) % 16 == 0;
   a.count = static_cast<const long long*>(count);
+  a.job_rows = (uint32_t)job_rows;
   a.shared = static_cast<int32_t*>(shared);
   a.wire = static_cast<uint32_t*>(wire);
   const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);

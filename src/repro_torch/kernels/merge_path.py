@@ -27,6 +27,8 @@ TILE_ROWS = 512
 MAX_PAIRS = 64
 #: Lanes the kernel is built for (``kMaxLanes``): 1 to 8.
 MAX_LANES = 8
+#: Jobs one launch takes (the grid's y dimension).
+MAX_JOBS = 65535
 
 
 class Pair(NamedTuple):
@@ -130,18 +132,28 @@ def merge_runs(rows: torch.Tensor, run_lens) -> torch.Tensor:
     pairwise tree, one launch a level (``ceil(log2 k')`` for ``k'``
     non-empty runs; a level of more than ``MAX_PAIRS`` pairs takes one
     launch for each ``MAX_PAIRS``).  Empty runs are skipped; one run
-    passes through with no launch."""
-    _build.check_cuda(rows, "merge_runs rows", torch.int32, 2)
+    passes through with no launch.
+
+    ``rows`` of ``[J, n, lanes]`` is a batch of J jobs with the same
+    ``run_lens``, each merged on its own: the launches are the one job's
+    (the kernel's grid gains the job as its y dimension), not J times
+    them."""
+    if rows.dim() not in (2, 3):
+        raise ValueError(f"merge_runs: rows of shape {tuple(rows.shape)}")
+    _build.check_cuda(rows, "merge_runs rows", torch.int32, rows.dim())
+    jobs = rows.shape[0] if rows.dim() == 3 else 1
+    n, lanes = rows.shape[-2:]
     run_lens = tuple(int(r) for r in run_lens)
-    if sum(run_lens) != rows.shape[0]:
-        raise ValueError(f"run_lens {run_lens} must cover "
-                         f"{rows.shape[0]} rows")
-    lanes = rows.shape[1]
+    if sum(run_lens) != n:
+        raise ValueError(f"run_lens {run_lens} must cover {n} rows")
     if not 1 <= lanes <= MAX_LANES:
         raise ValueError(f"merge_runs: {lanes} lanes; the kernel takes 1 "
                          f"to {MAX_LANES}")
+    if jobs > MAX_JOBS:
+        raise ValueError(f"merge_runs: {jobs} jobs; a launch takes at most "
+                         f"{MAX_JOBS}")
     tables, uses_spare = launch_tables(run_lens)
-    if not tables:
+    if not tables or jobs == 0:
         return rows
     if rows.data_ptr() % 8:
         rows = rows.clone()   # the kernel moves rows as 8-byte words
@@ -152,5 +164,5 @@ def merge_runs(rows: torch.Tensor, run_lens) -> torch.Tensor:
     stream = _build.stream_handle(rows)
     for n_pairs, table in tables:
         _build.launch("merge_runs", *ptrs, lanes, n_pairs,
-                      table.buffer_info()[0], TILE_ROWS, stream)
+                      table.buffer_info()[0], TILE_ROWS, jobs, n, stream)
     return out

@@ -120,10 +120,15 @@ def prefix_encode_wire(keys: torch.Tensor, count: torch.Tensor, *,
     ``shared`` 0 from row ``count`` (an int64 scalar tensor, the survivors)
     on and the keys' first ``shared`` bytes zeroed in ``wire``; equal to
     JAX's ``where(valid, prefix_encode(...), 0)`` then
-    ``formats.zero_prefix_lanes``."""
+    ``formats.zero_prefix_lanes``.  Keys ``[J, n, L]`` with int64 counts
+    ``[J]`` are a batch of jobs, each encoded on its own (still one launch
+    on the card; plain version ``ref.prefix_encode_wire_batched``)."""
     if _on_card(keys):
         return _prefix.prefix_encode_wire(keys, count,
                                           restart_interval=restart_interval)
+    if keys.dim() == 3:
+        return ref.prefix_encode_wire_batched(
+            keys, count, restart_interval=restart_interval)
     return ref.prefix_encode_wire(keys, count,
                                   restart_interval=restart_interval)
 
@@ -146,20 +151,30 @@ def sort_tuples(rows: torch.Tensor, num_keys: int | None = None
 def bitonic_sort(rows: torch.Tensor) -> torch.Tensor:
     """Ascending lexicographic sort over all lanes (``sort_mode=
     "device"``).  On the card there is no row cap: the JAX package's
-    2**17 (``ops.sort_tuples(device_sort_max=...)``) is a VMEM limit."""
+    2**17 (``ops.sort_tuples(device_sort_max=...)``) is a VMEM limit.
+    Rows ``[J, n, L]`` are a batch of jobs, each sorted on its own, in
+    the one job's launches on the card."""
     if _on_card(rows):
         return _bitonic.bitonic_sort(rows)
+    if rows.dim() == 3:
+        return torch.stack([ref.sort_tuples(r) for r in rows]) \
+            if rows.shape[0] else rows.clone()
     return ref.sort_tuples(rows)
 
 
 def merge_runs(rows: torch.Tensor, run_lens=None) -> torch.Tensor:
     """Merge ``k`` sorted runs stored back to back in int32 ``[n, L]``
     rows; ``run_lens`` gives their lengths (None: one run).  With a
-    unique index lane the result equals a stable sort of the rows."""
-    n = rows.shape[0]
+    unique index lane the result equals a stable sort of the rows.  Rows
+    ``[J, n, L]`` are a batch of jobs with the same runs, each merged on
+    its own, in the one job's launches on the card (plain version
+    ``ref.merge_runs_batched``)."""
+    n = rows.shape[-2]
     run_lens = (n,) if run_lens is None else tuple(int(r) for r in run_lens)
     if _on_card(rows):
         return _merge_path.merge_runs(rows, run_lens)
+    if rows.dim() == 3:
+        return ref.merge_runs_batched(rows, run_lens)
     return ref.merge_runs(rows, run_lens)
 
 

@@ -233,6 +233,20 @@ def prefix_encode_wire(keys: torch.Tensor, count: torch.Tensor, *,
     return shared, zero_prefix_lanes(keys, shared)
 
 
+def prefix_encode_wire_batched(keys: torch.Tensor, counts: torch.Tensor, *,
+                               restart_interval: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`prefix_encode_wire` for a batch of jobs: keys ``[J, n, L]``
+    and int64 ``counts [J]``, each job on its own (``shared [J, n]``,
+    ``wire [J, n, L]``)."""
+    parts = [prefix_encode_wire(k, c, restart_interval=restart_interval)
+             for k, c in zip(keys, counts)]
+    if not parts:
+        return (keys.new_zeros(keys.shape[:-1]), keys.clone())
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
+
+
 def prefix_decode(shared: torch.Tensor, keys_raw: torch.Tensor, *,
                   restart_interval: int) -> torch.Tensor:
     """Restore full keys from the prefix-zeroed lanes: row ``t`` of an
@@ -346,6 +360,14 @@ def merge_runs(rows: torch.Tensor, run_lens) -> torch.Tensor:
     if not runs:
         return rows
     return tree_merge(runs, merge_sorted)
+
+
+def merge_runs_batched(rows: torch.Tensor, run_lens) -> torch.Tensor:
+    """:func:`merge_runs` for a batch of jobs with the same runs: rows
+    ``[J, n, L]``, each job merged on its own."""
+    if rows.shape[0] == 0:
+        return rows
+    return torch.stack([merge_runs(r, run_lens) for r in rows])
 
 
 def sort_tuples(rows: torch.Tensor, num_keys: int | None = None

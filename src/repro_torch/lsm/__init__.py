@@ -4,9 +4,11 @@ flush and compaction running through ``engine.TorchCompactionEngine``, or
 through the numpy baseline ``cpu_engine.CpuCompactionEngine`` where the
 store's config names it.
 
-The read surface mirrors ``repro.lsm``: ``LsmDB`` and ``TableReader``
-expose ``get(key, opts=None)``, ``multi_get(keys, opts=None)`` and
-``scan(start, end, opts=None)`` taking the same frozen ``ReadOptions``.
+The read surface mirrors ``repro.lsm``: ``LsmDB``, ``ShardedDB`` and
+``TableReader`` expose ``get(key, opts=None)``, ``multi_get(keys,
+opts=None)`` and ``scan(start, end, opts=None)`` taking the same frozen
+``ReadOptions``.  The stores and caches are importable from here, as in
+``repro.lsm``.
 """
 
 from __future__ import annotations
@@ -47,3 +49,16 @@ class ReadOptions:
 
 #: Default options singleton (avoids per-get allocation on the hot path).
 DEFAULT_READ_OPTIONS = ReadOptions()
+
+
+def __getattr__(name):  # lazy: avoids core.scheduler <-> lsm.db cycle
+    if name in ("LsmDB", "DBConfig", "DBStats", "Snapshot"):
+        from repro_torch.lsm import db
+        return getattr(db, name)
+    if name in ("ShardedDB", "ShardedSnapshot"):
+        from repro_torch.lsm import sharded
+        return getattr(sharded, name)
+    if name in ("TableReader", "TableCache", "BlockCache"):
+        from repro_torch.lsm import sstable
+        return getattr(sstable, name)
+    raise AttributeError(name)

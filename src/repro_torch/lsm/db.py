@@ -15,8 +15,18 @@ numpy ``CpuCompactionEngine`` on the host.  The
 store writes the same SST files, WAL and manifest as ``repro.lsm.db.LsmDB``
 for the same operations, so a directory written by either opens in the
 other.  Reads: ``get``, ``scan`` and the batched ``multi_get``
-(``lsm.read``), each through an optional pinned ``snapshot()``.  Not here
-yet: async mode, failpoints, repair, metrics and tracing.
+(``lsm.read``), each through an optional pinned ``snapshot()``.
+
+A store can also take a shared engine and hand its compactions to a
+``compaction_sink`` instead of running them (``engine=``,
+``compaction_sink=``): ``lsm.sharded.ShardedDB`` gives every shard one
+engine and one ``core.background.GlobalCompactionQueue``, whose worker
+thread drives ``pick_compaction`` / ``apply_trivial_move`` /
+``apply_compaction`` while the caller writes.  One ``RLock`` guards the
+memtable, the version set and manifest, the scheduler's pointers, the
+file numbers and the installs; reads take the memtable and
+``versions.current`` once under it and search outside it.  Not here yet:
+async mode, failpoints, repair, metrics and tracing.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
+import threading
 import time
 from typing import NamedTuple
 
@@ -76,17 +87,25 @@ class DBStats:
     flushes: int = 0
     compactions: int = 0
     trivial_moves: int = 0
+    batched_compactions: int = 0   # jobs installed from a stacked launch
     compact_bytes_in: int = 0
     compact_bytes_out: int = 0
     compact_entries_in: int = 0
     compact_entries_dropped: int = 0
     compact_host_seconds: float = 0.0
-    compact_wall_seconds: float = 0.0     # around the engine's calls
+    compact_wall_seconds: float = 0.0     # around the store's own engine
+    #   calls (a compaction queue's jobs are not timed here)
     compact_device_seconds: float = 0.0   # CUDA events (0.0 on the CPU)
     compact_sort_seconds: float = 0.0     # phase-2 share of the above
     flush_host_seconds: float = 0.0
     bloom_negative_skips: int = 0
     orphans_removed: int = 0
+
+    def add(self, other: "DBStats") -> "DBStats":
+        """Field-wise sum (aggregation across shards)."""
+        return DBStats(**{f.name: getattr(self, f.name) +
+                          getattr(other, f.name)
+                          for f in dataclasses.fields(DBStats)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,35 +141,50 @@ def make_engine(cfg: DBConfig, device=None):
 
 class LsmDB:
     def __init__(self, path: str, cfg: DBConfig | None = None, *,
-                 device=None):
+                 device=None, engine=None, compaction_sink=None):
         """Open (or create) the store at ``path``.  ``device``: where the
         device engine's flushes and compactions and the read path's
         batched stages run; None means ``cuda``, which must be present
-        (pass ``device="cpu"`` to run on the CPU)."""
+        (pass ``device="cpu"`` to run on the CPU).
+
+        ``engine``: a (possibly shared) compaction engine to use instead
+        of building one from ``cfg``; a shared engine is not closed with
+        the store.  ``compaction_sink``: when set, the store never runs
+        compactions itself; it calls ``compaction_sink(self)`` whenever it
+        has compaction work, and the sink's owner drives
+        ``pick_compaction`` / ``apply_trivial_move`` /
+        ``apply_compaction`` (``core.background.GlobalCompactionQueue``).
+        """
         self.path = path
         self.cfg = cfg or DBConfig()
         self.geom = self.cfg.geom
         self._device = resolve_device(device)
-        self.engine = make_engine(self.cfg, self._device)
+        self._owns_engine = engine is None
+        self._compaction_sink = compaction_sink
+        self.engine = (engine if engine is not None
+                       else make_engine(self.cfg, self._device))
         os.makedirs(path, exist_ok=True)
+        self._lock = threading.RLock()
         self._stats = DBStats()
-        self.compactions: list[CompactionRecord] = []
-        self.versions = VersionSet(path)
+        self.compactions: list[CompactionRecord] = []  # guarded-by: _lock
+        self.versions = VersionSet(path)                # guarded-by: _lock
         self.versions.open()
-        self.scheduler = CompactionScheduler(self.cfg.scheduler)
+        self.scheduler = CompactionScheduler(           # guarded-by: _lock
+            self.cfg.scheduler)
         self.scheduler.compact_pointer = dict(self.versions.compact_pointer)
         self.block_cache = BlockCache(self.cfg.block_cache_blocks)
         self.cache = TableCache(self.cfg.table_cache, geom=self.geom,
                                 block_cache=self.block_cache,
                                 device=self._device)
-        self.mem = memtable.MemTable()
+        self.mem = memtable.MemTable()                  # guarded-by: _lock
         self._memtable_limit = self.cfg.memtable_bytes or self.geom.sst_bytes
         self._wal_path = os.path.join(path, "wal.log")
-        self._extra_wals: list[str] = []
-        self._replay_wal()
-        self._gc_orphans()
-        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
-        self._closed = False
+        self._extra_wals: list[str] = []                # guarded-by: _lock
+        self._replay_wal_locked()
+        self._gc_orphans_locked()
+        self._wal = wal.WALWriter(                      # guarded-by: _lock
+            self._wal_path, sync=self.cfg.sync_wal)
+        self._closed = False                            # guarded-by: _lock
 
     @property
     def device(self):
@@ -163,7 +197,7 @@ class LsmDB:
         difference is what happened in between."""
         return dataclasses.replace(self._stats)
 
-    def _replay_wal(self):
+    def _replay_wal_locked(self):
         """Replay rotated WAL segments (an async-mode store leaves them),
         oldest first, then the active WAL.  They stay on disk until the
         recovered memtable flushes."""
@@ -177,7 +211,7 @@ class LsmDB:
                     self.mem.delete(key, seq)
                 self.versions.last_seq = max(self.versions.last_seq, seq)
 
-    def _gc_orphans(self):
+    def _gc_orphans_locked(self):
         """Delete crash leftovers: stale ``*.tmp`` files and SSTs that no
         version references (their data is in the WAL just replayed, or in
         installed compaction outputs)."""
@@ -213,32 +247,34 @@ class LsmDB:
             raise ValueError(f"value too long ({len(value)} > "
                              f"{self.geom.value_bytes - 4} bytes)")
 
-    def _check_open(self):
+    def _check_open_locked(self):
         if self._closed:
             raise IOError("database is closed")
 
-    def _next_seq(self) -> int:
+    def _next_seq_locked(self) -> int:
         self.versions.last_seq += 1
         return self.versions.last_seq
 
     def put(self, key: bytes, value: bytes):
         self._check_key(key)
         self._check_value(value)
-        self._check_open()
-        seq = self._next_seq()
-        self._wal.append(wal.PUT, seq, key, value)
-        self.mem.put(key, seq, value)
-        self._stats.puts += 1
-        self._maybe_flush()
+        with self._lock:
+            self._check_open_locked()
+            seq = self._next_seq_locked()
+            self._wal.append(wal.PUT, seq, key, value)
+            self.mem.put(key, seq, value)
+            self._stats.puts += 1
+            self._maybe_flush_locked()
 
     def delete(self, key: bytes):
         self._check_key(key)
-        self._check_open()
-        seq = self._next_seq()
-        self._wal.append(wal.DELETE, seq, key)
-        self.mem.delete(key, seq)
-        self._stats.deletes += 1
-        self._maybe_flush()
+        with self._lock:
+            self._check_open_locked()
+            seq = self._next_seq_locked()
+            self._wal.append(wal.DELETE, seq, key)
+            self.mem.delete(key, seq)
+            self._stats.deletes += 1
+            self._maybe_flush_locked()
 
     def write_batch(self, ops) -> int:
         """Apply ``("put", key, value)`` / ``("delete", key)`` ops in order
@@ -259,21 +295,22 @@ class LsmDB:
                                  "(want 'put' or 'delete')")
         if not rows:
             return 0
-        self._check_open()
-        first_seq = self.versions.last_seq + 1
-        self.versions.last_seq += len(rows)
-        self._wal.append_batch(rows, first_seq)
-        for i, (kind, key, value) in enumerate(rows):
-            if kind == wal.PUT:
-                self.mem.put(key, first_seq + i, value)
-            else:
-                self.mem.delete(key, first_seq + i)
-        self._stats.write_batches += 1
-        self._stats.batch_ops += len(rows)
-        self._maybe_flush()
+        with self._lock:
+            self._check_open_locked()
+            first_seq = self.versions.last_seq + 1
+            self.versions.last_seq += len(rows)
+            self._wal.append_batch(rows, first_seq)
+            for i, (kind, key, value) in enumerate(rows):
+                if kind == wal.PUT:
+                    self.mem.put(key, first_seq + i, value)
+                else:
+                    self.mem.delete(key, first_seq + i)
+            self._stats.write_batches += 1
+            self._stats.batch_ops += len(rows)
+            self._maybe_flush_locked()
         return len(rows)
 
-    def _maybe_flush(self):
+    def _maybe_flush_locked(self):
         if self.mem.approx_bytes < self._memtable_limit:
             return
         self.flush()
@@ -286,20 +323,22 @@ class LsmDB:
 
     def snapshot(self) -> Snapshot:
         """Capture a pinned read view (pass as ``ReadOptions.snapshot``)."""
-        return Snapshot(mems=(self.mem,), version=self.versions.current)
+        with self._lock:
+            return Snapshot(mems=(self.mem,), version=self.versions.current)
 
     def _read(self, opts: ReadOptions, read):
-        """``read(mems, version)`` on the snapshot's view or the latest one.
-        A file compacted away under the latest view is retried on a fresh
-        one; under a pinned snapshot it is gone for good and re-raises.
-        (The retry is the JAX store's, whose background compactions can
-        remove a file during a read; this store compacts between calls.)"""
+        """``read(mems, version)`` on the snapshot's view or the latest one
+        (taken once, under the lock; the search runs outside it).  A file
+        compacted away under the latest view (a compaction queue's worker
+        installs while the caller reads) is retried on a fresh one; under
+        a pinned snapshot it is gone for good and re-raises."""
         err = None
         for _ in range(8):
             if opts.snapshot is not None:
                 mems, version = opts.snapshot.mems, opts.snapshot.version
             else:
-                mems, version = (self.mem,), self.versions.current
+                with self._lock:
+                    mems, version = (self.mem,), self.versions.current
             try:
                 return read(mems, version)
             except FileNotFoundError as e:
@@ -307,7 +346,6 @@ class LsmDB:
                     raise
                 err = e
         raise err
-
     def get(self, key: bytes, opts: ReadOptions | None = None
             ) -> bytes | None:
         """The value, or None if absent or deleted."""
@@ -419,27 +457,29 @@ class LsmDB:
 
     def flush(self):
         """Persist the memtable as L0 SST(s) and start a fresh WAL."""
-        self._check_open()
-        if len(self.mem) == 0:
-            return
-        t0 = time.perf_counter()
-        keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
-        img = self.engine.build_image(keys, meta, vals)
-        self._install_ssts(img, level=0)
-        self.mem = memtable.MemTable()
-        self._wal.close()
-        for p in self._extra_wals + [self._wal_path]:
-            try:
-                os.remove(p)
-            except FileNotFoundError:
-                pass
-        self._extra_wals = []
-        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
-        self._stats.flushes += 1
-        self._stats.flush_host_seconds += time.perf_counter() - t0
+        with self._lock:
+            self._check_open_locked()
+            if len(self.mem) == 0:
+                return
+            t0 = time.perf_counter()
+            keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
+            img = self.engine.build_image(keys, meta, vals)
+            self._install_ssts_locked(img, level=0)
+            self.mem = memtable.MemTable()
+            self._wal.close()
+            for p in self._extra_wals + [self._wal_path]:
+                try:
+                    os.remove(p)
+                except FileNotFoundError:
+                    pass
+            self._extra_wals = []
+            self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+            self._stats.flushes += 1
+            self._stats.flush_host_seconds += time.perf_counter() - t0
 
-    def _install_ssts(self, img: SSTImage, level: int,
-                      edit: VersionEdit | None = None) -> list[FileMeta]:
+    def _install_ssts_locked(self, img: SSTImage, level: int,
+                             edit: VersionEdit | None = None
+                             ) -> list[FileMeta]:
         """Split a (possibly multi-SST) image into files of at most
         ``blocks_per_sst`` live blocks and install them; when ``edit`` is
         given the caller logs it."""
@@ -464,10 +504,10 @@ class LsmDB:
             edit.added.append((level, fm))
             metas.append(fm)
         if own_edit:
-            self._log_edit(edit)
+            self._log_edit_locked(edit)
         return metas
 
-    def _log_edit(self, edit: VersionEdit):
+    def _log_edit_locked(self, edit: VersionEdit):
         """Stamp the counters and make the edit durable (the files it
         names are already on disk)."""
         edit.last_seq = self.versions.last_seq
@@ -476,7 +516,11 @@ class LsmDB:
 
     def maybe_compact(self):
         """Run compactions until no level is over its trigger (at most 16
-        jobs; one in ``paper_faithful`` mode)."""
+        jobs; one in ``paper_faithful`` mode).  With a compaction sink,
+        hand the store to the sink instead (its owner runs them)."""
+        if self._compaction_sink is not None:
+            self._compaction_sink(self)
+            return
         if self.cfg.scheduler.paper_faithful:
             self.compact_once()
             return
@@ -485,15 +529,34 @@ class LsmDB:
                 return
 
     def compact_once(self) -> bool:
-        """Run the next compaction job, if one is due."""
-        self._check_open()
-        job = self.scheduler.pick(self.versions.current)
+        """Run the next compaction job, if one is due.  With a compaction
+        sink, tell the sink when one is due (without picking it: a pick
+        moves the round-robin pointer) and return whether one is."""
+        with self._lock:
+            self._check_open_locked()
+            v = self.versions.current
+            if self._compaction_sink is not None:
+                pending = any(self.scheduler.score(v, lvl) >= 1.0
+                              for lvl in range(len(v.levels) - 1))
+            else:
+                job = self.scheduler.pick(v)
+        if self._compaction_sink is not None:
+            if pending:
+                self._compaction_sink(self)
+            return pending
         if job is None:
             return False
         self.compact_job(job)
         return True
 
-    def _pointer_edit(self, level: int):
+    def pick_compaction(self) -> CompactionJob | None:
+        """Pick the next compaction job (advances the round-robin pointer).
+        A compaction sink's owner pairs this with ``apply_trivial_move`` /
+        ``apply_compaction``."""
+        with self._lock:
+            return self.scheduler.pick(self.versions.current)
+
+    def _pointer_edit_locked(self, level: int):
         ptr = self.scheduler.compact_pointer.get(level)
         return (level, ptr.hex()) if ptr is not None else None
 
@@ -502,13 +565,19 @@ class LsmDB:
         # single input, nothing overlapping below
         return len(job.inputs_lo) == 1 and not job.inputs_hi and job.level > 0
 
+    def apply_trivial_move(self, job: CompactionJob):
+        """Move a trivial job's one file down a level (metadata only)."""
+        fm = job.inputs_lo[0]
+        with self._lock:
+            self.versions.log_and_apply(VersionEdit(
+                added=[(job.level + 1, fm)],
+                deleted=[(job.level, fm.file_no)],
+                compact_pointer=self._pointer_edit_locked(job.level)))
+            self._stats.trivial_moves += 1
+
     def compact_job(self, job: CompactionJob):
         if self.is_trivial_move(job):
-            fm = job.inputs_lo[0]
-            self.versions.log_and_apply(VersionEdit(
-                added=[(job.level + 1, fm)], deleted=[(job.level, fm.file_no)],
-                compact_pointer=self._pointer_edit(job.level)))
-            self._stats.trivial_moves += 1
+            self.apply_trivial_move(job)
             return
         t0 = time.perf_counter()
         out, es = self.engine.compact_paths(
@@ -525,25 +594,27 @@ class LsmDB:
             # a corrupt input must leave the store exactly as it was
             raise IOError("compaction input failed CRC verification; "
                           "inputs retained")
-        edit = VersionEdit(
-            deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
-                    [(job.level + 1, f.file_no) for f in job.inputs_hi],
-            compact_pointer=self._pointer_edit(job.level))
-        self._install_ssts(out, level=job.level + 1, edit=edit)
-        self._log_edit(edit)
-        for f in job.all_inputs:
-            self.cache.drop(f.file_no)
-        s = self._stats
-        s.compactions += 1
-        s.compact_bytes_in += es.bytes_in
-        s.compact_bytes_out += es.bytes_out
-        s.compact_entries_in += es.n_input
-        s.compact_entries_dropped += es.n_dropped
-        s.compact_host_seconds += es.host_seconds
-        s.compact_device_seconds += es.device_seconds
-        s.compact_sort_seconds += es.sort_seconds
-        self.compactions.append(CompactionRecord(
-            level=job.level, inputs=len(job.all_inputs), stats=es))
+        with self._lock:
+            edit = VersionEdit(
+                deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
+                        [(job.level + 1, f.file_no) for f in job.inputs_hi],
+                compact_pointer=self._pointer_edit_locked(job.level))
+            self._install_ssts_locked(out, level=job.level + 1, edit=edit)
+            self._log_edit_locked(edit)
+            for f in job.all_inputs:
+                self.cache.drop(f.file_no)
+            s = self._stats
+            s.compactions += 1
+            s.batched_compactions += es.batched
+            s.compact_bytes_in += es.bytes_in
+            s.compact_bytes_out += es.bytes_out
+            s.compact_entries_in += es.n_input
+            s.compact_entries_dropped += es.n_dropped
+            s.compact_host_seconds += es.host_seconds
+            s.compact_device_seconds += es.device_seconds
+            s.compact_sort_seconds += es.sort_seconds
+            self.compactions.append(CompactionRecord(
+                level=job.level, inputs=len(job.all_inputs), stats=es))
         for f in job.all_inputs:
             try:
                 os.remove(f.path)
@@ -554,14 +625,18 @@ class LsmDB:
 
     def close(self):
         """Close the WAL and manifest (the memtable stays in the WAL and
-        is replayed on reopen).  A second close is a no-op."""
-        if self._closed:
-            return
-        self._closed = True
-        self.engine.close()
-        self._wal.flush()
-        self._wal.close()
-        self.versions.close()
+        is replayed on reopen), and the engine unless it was given to the
+        store.  A second close is a no-op."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            if self._owns_engine:
+                self.engine.close()
+            self._wal.flush()
+            self._wal.close()
+            self.versions.close()
 
     def level_sizes(self) -> list[int]:
-        return [len(files) for files in self.versions.current.levels]
+        with self._lock:
+            return [len(files) for files in self.versions.current.levels]

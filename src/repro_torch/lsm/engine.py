@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import binascii
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -130,7 +131,8 @@ class EngineStats:
     """Per-job compaction accounting.  ``device_seconds`` and
     ``sort_seconds`` (phase 2, inside ``device_seconds``) are CUDA-event
     times; ``host_seconds`` is the rest of the job's wall time (file
-    reads, staging, read-back)."""
+    reads, staging, read-back).  A job of a stacked launch (``batched``)
+    gets the launch's event times divided by its jobs."""
     n_input: int = 0
     n_live: int = 0
     n_dropped: int = 0
@@ -140,6 +142,7 @@ class EngineStats:
     host_seconds: float = 0.0
     device_seconds: float = 0.0
     sort_seconds: float = 0.0
+    batched: bool = False   # produced by a stacked multi-job launch
 
 
 class TorchCompactionEngine:
@@ -150,7 +153,18 @@ class TorchCompactionEngine:
     staging buffers that the engine owns (``formats.PinnedStaging``), and
     ``compact_paths`` reads file *i + 1* on a ``PrefetchReader`` thread
     while image *i* is staged.  ``close()`` stops the reader and releases
-    the buffers."""
+    the buffers.
+
+    ``compact_many`` takes several jobs at once (one a shard, from
+    ``ShardedDB``'s queue) and stacks the jobs that share a
+    ``scheduler.batch_signature`` into one batched pipeline
+    (``batch_launches``, ``batch_jobs``, ``max_batch_jobs`` count them).
+
+    One engine may serve several stores on two threads (a shard's flush
+    on the caller's thread, the queue's compactions on its worker).  The
+    staging buffers, the reader and the device timers are not built for
+    two callers, so every public call runs under the engine's lock, one
+    at a time (the card runs one job at a time anyway)."""
 
     name = "torch"
 
@@ -162,44 +176,164 @@ class TorchCompactionEngine:
             geom, device=self.device, sort_mode=sort_mode)
         self.staging = (formats.PinnedStaging(self.device)
                         if self.device.type == "cuda" else None)
-        self._reader = None   # a PrefetchReader, built at the first job
+        self._lock = threading.RLock()
+        # a PrefetchReader, built at the first job
+        self._reader = None           # guarded-by: _lock
+        # stacked launches (of >= 2 jobs each), the jobs they took, and
+        # the most jobs one took
+        self.batch_launches = 0       # guarded-by: _lock
+        self.batch_jobs = 0           # guarded-by: _lock
+        self.max_batch_jobs = 0       # guarded-by: _lock
 
     def close(self):
         """Stop the file reader's thread and release the pinned buffers."""
-        if self._reader is not None:
-            self._reader.close()
-            self._reader = None
-        if self.staging is not None:
-            self.staging.close()
+        with self._lock:
+            if self._reader is not None:
+                self._reader.close()
+                self._reader = None
+            if self.staging is not None:
+                self.staging.close()
+
+    def _read_all_locked(self, paths: list[str]):
+        """The host images of ``paths`` in order, file *i + 1* read on the
+        reader's thread while the caller stages image *i*."""
+        from repro_torch.core.background import PrefetchReader
+        from repro_torch.lsm import sstable
+        if self._reader is None:
+            self._reader = PrefetchReader()
+        return self._reader.read_all(paths, sstable.read_sst)
+
+    def _stage(self, images) -> list[SSTImage]:
+        return [formats.image_from_numpy(im, self.device, self.staging)
+                for im in images]
 
     def compact(self, images: list[SSTImage], *, bottom_level: bool = False
                 ) -> tuple[SSTImage, EngineStats]:
         """Compact host images (numpy); returns a host image."""
-        t0 = time.perf_counter()
-        imgs = [formats.image_from_numpy(im, self.device, self.staging)
-                for im in images]
-        real = sum(np.asarray(im.keys).shape[0] for im in images)
-        return self._compact_staged(imgs, real, bottom_level=bottom_level,
-                                    t0=t0)
+        with self._lock:
+            t0 = time.perf_counter()
+            imgs = self._stage(images)
+            real = sum(np.asarray(im.keys).shape[0] for im in images)
+            return self._compact_staged_locked(
+                imgs, real, bottom_level=bottom_level, t0=t0)
 
     def compact_paths(self, paths: list[str], *, bottom_level: bool = False
                       ) -> tuple[SSTImage, EngineStats]:
         """Compact straight from SST files, double-buffering the reads:
         while image *i* is staged, the reader thread reads file *i + 1*."""
-        from repro_torch.core.background import PrefetchReader
-        from repro_torch.lsm import sstable
-        t0 = time.perf_counter()
-        if self._reader is None:
-            self._reader = PrefetchReader()
-        imgs, real = [], 0
-        for im in self._reader.read_all(paths, sstable.read_sst):
-            real += im.keys.shape[0]
-            imgs.append(formats.image_from_numpy(im, self.device,
-                                                 self.staging))
-        return self._compact_staged(imgs, real, bottom_level=bottom_level,
-                                    t0=t0)
+        with self._lock:
+            t0 = time.perf_counter()
+            imgs, real = [], 0
+            for im in self._read_all_locked(paths):
+                real += im.keys.shape[0]
+                imgs.append(formats.image_from_numpy(im, self.device,
+                                                     self.staging))
+            return self._compact_staged_locked(
+                imgs, real, bottom_level=bottom_level, t0=t0)
 
-    def _compact_staged(self, imgs, real_blocks, *, bottom_level, t0):
+    def compact_many(self, jobs: list[tuple[list[str], bool]]
+                     ) -> list[tuple[SSTImage, EngineStats]]:
+        """Compact several independent jobs, ``[(input_paths,
+        bottom_level)]`` (one a shard, from ``ShardedDB``'s queue),
+        stacking the jobs of one ``scheduler.batch_signature`` (their
+        input block counts after the pow2 padding, and ``bottom_level``)
+        into one batched pipeline (``CompactionExecutor.compact_many``);
+        a job alone in its signature takes the single-job path.  Results
+        come back in input order, each bit-identical to ``compact_paths``
+        of that job.  A job of a batch whose inputs fail the CRC is run
+        again alone for its verdict.  A failed launch raises: there is no
+        CPU engine behind this one."""
+        from repro_torch.core.scheduler import batch_signature
+        with self._lock:
+            t_read0 = time.perf_counter()
+            flat = list(self._read_all_locked(
+                [p for paths, _ in jobs for p in paths]))
+            read_share = (time.perf_counter() - t_read0) / max(1, len(jobs))
+            job_imgs, off = [], 0
+            for paths, _ in jobs:
+                job_imgs.append(flat[off:off + len(paths)])
+                off += len(paths)
+            groups: dict[tuple, list[int]] = {}
+            for j, (_, bottom) in enumerate(jobs):
+                sig = batch_signature(
+                    [im.keys.shape[0] for im in job_imgs[j]], bottom,
+                    sort_mode=self.executor.sort_mode)
+                groups.setdefault(sig, []).append(j)
+            results: list = [None] * len(jobs)
+            for sig, idxs in groups.items():
+                if len(idxs) == 1:
+                    j = idxs[0]
+                    results[j] = self._single_locked(
+                        job_imgs[j], jobs[j][1], read_share)
+                    continue
+                batch = self._compact_batched_locked(
+                    [job_imgs[j] for j in idxs], bucket=sig[1],
+                    bottom_level=jobs[idxs[0]][1], read_share=read_share)
+                for j, res in zip(idxs, batch):
+                    if not res[1].crc_ok:
+                        # the single-job path gives its own verdict
+                        res = self._single_locked(job_imgs[j], jobs[j][1],
+                                                  read_share)
+                    results[j] = res
+            return results
+
+    def _single_locked(self, images, bottom_level: bool, read_share: float):
+        """One read job of ``compact_many`` through the single-job path."""
+        t0 = time.perf_counter()
+        out, es = self._compact_staged_locked(
+            self._stage(images), sum(im.keys.shape[0] for im in images),
+            bottom_level=bottom_level, t0=t0)
+        es.host_seconds += read_share
+        return out, es
+
+    def _compact_batched_locked(self, group_imgs, *, bucket: int,
+                                bottom_level: bool, read_share: float):
+        """One stacked launch over >= 2 jobs of one signature.  Each job's
+        ``device_seconds`` and ``sort_seconds`` are the launch's CUDA-event
+        spans divided by the jobs; its ``host_seconds`` the launch's host
+        time divided likewise, plus its share of the reads."""
+        t0 = time.perf_counter()
+        staged = []
+        for images in group_imgs:
+            imgs = self._stage(images)
+            if self.executor.sort_mode == "merge":
+                imgs = [offload.pad_image_blocks(
+                    im, offload.next_pow2(im.keys.shape[0]), self.geom)
+                    for im in imgs]
+            staged.append(imgs)
+        n_jobs = len(staged)
+        self.batch_launches += 1
+        self.batch_jobs += n_jobs
+        self.max_batch_jobs = max(self.max_batch_jobs, n_jobs)
+        timer = DeviceTimer(self.device)
+        t_exec = time.perf_counter()
+        with timer.span("pipeline"):
+            outs = self.executor.compact_many(
+                staged, bottom_level=bottom_level, pad_blocks=bucket,
+                timer=timer)
+        host = formats.images_to_numpy([out for out, _ in outs],
+                                       self.staging)
+        exec_wall = time.perf_counter() - t_exec
+        host_share = max(time.perf_counter() - t0 - exec_wall,
+                         0.0) / n_jobs
+        wire = self.geom.wire_words_per_block * 4
+        device_s = timer.seconds("pipeline") / n_jobs
+        sort_s = timer.seconds("sort") / n_jobs
+        results = []
+        for out, (_, s), raw in zip(host, outs, group_imgs):
+            stats = EngineStats(
+                n_input=s.n_input, n_live=s.n_live, n_dropped=s.n_dropped,
+                crc_ok=s.crc_ok,
+                bytes_in=sum(im.keys.shape[0] for im in raw) * wire,
+                bytes_out=s.bytes_out, batched=True)
+            stats.host_seconds = host_share + read_share
+            stats.device_seconds = device_s
+            stats.sort_seconds = sort_s
+            results.append((out, stats))
+        return results
+
+    def _compact_staged_locked(self, imgs, real_blocks, *, bottom_level,
+                               t0):
         if self.executor.sort_mode == "merge":
             # each run to a pow2 block count, as the JAX engine pads
             imgs = [offload.pad_image_blocks(
@@ -234,8 +368,9 @@ class TorchCompactionEngine:
         keys = np.pad(keys, ((0, pad), (0, 0)))
         meta = np.pad(np.asarray(meta, U32), (0, pad))
         vals = np.pad(np.asarray(vals, U32), ((0, pad), (0, 0)))
-        img = offload.build_image(
-            *formats.words_to_tensors([keys, meta, vals], self.device,
-                                      staging=self.staging),
-            n, geom=self.geom)
-        return formats.image_to_numpy(img, self.staging)
+        with self._lock:
+            img = offload.build_image(
+                *formats.words_to_tensors([keys, meta, vals], self.device,
+                                          staging=self.staging),
+                n, geom=self.geom)
+            return formats.image_to_numpy(img, self.staging)

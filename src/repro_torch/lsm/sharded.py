@@ -1,0 +1,308 @@
+"""Range-sharded store: N independent ``LsmDB`` shards over one engine (the
+port of ``repro.lsm.sharded``).
+
+``ShardedDB`` partitions the keyspace with a static boundary table
+(persisted in ``SHARDS.json``, JAX's bytes; each shard reopens its own WAL
+and manifest, so one shard's crash state never touches a sibling).
+``put`` / ``get`` / ``delete`` route to one shard by a binary search of the
+boundaries; ``scan`` merges the per-shard results; ``multi_get`` issues one
+``LsmDB.multi_get`` a shard hit.
+
+Compaction is shared: every shard gets the one engine and
+``compaction_sink=queue.notify`` of one ``GlobalCompactionQueue``.  Each
+drain round picks at most one job a shard and hands the round to the
+engine's ``compact_many``, which stacks the jobs of one shape signature
+from different shards into one batched pipeline on the card (one launch a
+merge level for all of them).  Per-job CRC verdicts and per-shard installs
+keep each shard's version history what sequential compaction would have
+produced.
+
+Boundary tables are uniform over the first key byte, or learned from a key
+sample (``boundaries_from_sample``: YCSB's ``user%012d`` keys occupy a thin
+slice of byte space).  Not here yet: write options, failpoints,
+``open(repair=True)`` (ROADMAP A9), metrics (A10), async shards (A8).
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import heapq
+import json
+import os
+
+from repro_torch.core.background import GlobalCompactionQueue
+from repro_torch.device import resolve_device
+from repro_torch.lsm import ReadOptions
+from repro_torch.lsm.db import DBConfig, DBStats, LsmDB, make_engine
+from repro_torch.lsm.fs import fsync_dir
+
+SHARDS_FILE = "SHARDS.json"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSnapshot:
+    """Pinned read view over every shard (``ShardedDB.snapshot()``): one
+    per-shard ``Snapshot`` each, captured back to back -- consistent per
+    shard, near-simultaneous across shards."""
+
+    shards: tuple   # one lsm.db.Snapshot per shard, in shard order
+
+
+def boundaries_from_sample(sample_keys, n_shards: int) -> list[bytes]:
+    """Learned boundary table: ``n_shards - 1`` split keys at the
+    quantiles of a key sample, so each shard receives about the same
+    share of a workload distributed like the sample.
+
+    Raises ``ValueError`` when the sample is too small or too
+    duplicate-heavy to give distinct split points."""
+    if n_shards < 1:
+        raise ValueError("n_shards must be >= 1")
+    if n_shards == 1:
+        return []
+    uniq = sorted(set(bytes(k) for k in sample_keys))
+    if len(uniq) < n_shards:
+        raise ValueError(
+            f"sample has {len(uniq)} distinct keys; need >= {n_shards} "
+            f"to split into {n_shards} ranges")
+    cuts = [uniq[(i * len(uniq)) // n_shards] for i in range(1, n_shards)]
+    if len(set(cuts)) != len(cuts):
+        raise ValueError("sample quantiles collide; provide a larger or "
+                         "less skewed sample")
+    return cuts
+
+
+def uniform_boundaries(n_shards: int) -> list[bytes]:
+    """Even split of the single-byte prefix space (for keys uniform in
+    byte space, e.g. hashes)."""
+    if n_shards > 256:
+        raise ValueError("uniform_boundaries supports at most 256 shards")
+    return [bytes([(i * 256) // n_shards]) for i in range(1, n_shards)]
+
+
+class ShardedDB:
+    """Range-partitioned store over independent ``LsmDB`` shards with a
+    shared, batching compaction backend.
+
+    ``boundaries`` (``n-1`` sorted split keys; shard ``i`` owns
+    ``[boundaries[i-1], boundaries[i])``) wins over ``sample_keys`` wins
+    over the uniform byte-space split (``shards``, default 4).  On reopen
+    the table in ``SHARDS.json`` is authoritative; a *conflicting*
+    explicit table raises (re-splitting a live store needs a migration:
+    see ``plan_rebalance``).  ``device``: where the shared engine and the
+    shards' read stages run; None means ``cuda``, which must be present
+    (pass ``device="cpu"`` to run on the CPU)."""
+
+    def __init__(self, path: str, cfg: DBConfig | None = None, *,
+                 shards: int | None = None,
+                 boundaries: list[bytes] | None = None,
+                 sample_keys=None, device=None):
+        self.path = path
+        self.cfg = cfg or DBConfig()
+        self.device = resolve_device(device)
+        os.makedirs(path, exist_ok=True)
+        self.boundaries = self._load_or_init_boundaries(
+            shards, boundaries, sample_keys)
+        self.n_shards = len(self.boundaries) + 1
+        self.engine = make_engine(self.cfg, self.device)
+        self.queue = GlobalCompactionQueue(self.engine)
+        self.shards = []
+        try:
+            for i in range(self.n_shards):
+                self.shards.append(LsmDB(
+                    os.path.join(path, f"shard-{i:04d}"), self.cfg,
+                    device=self.device, engine=self.engine,
+                    compaction_sink=self.queue.notify))
+        except BaseException:
+            # a later shard failed to open: stop what already started
+            self.queue.close()
+            for s in self.shards:
+                try:
+                    s.close()
+                except Exception:   # noqa: BLE001 - best-effort cleanup
+                    pass
+            self.engine.close()
+            raise
+        self._closed = False
+
+    def _load_or_init_boundaries(self, shards, boundaries, sample_keys):
+        meta_path = os.path.join(self.path, SHARDS_FILE)
+        stale_tmp = meta_path + ".tmp"
+        if os.path.exists(stale_tmp):
+            # left by a crash mid-write; the rename never happened, so the
+            # table (or its absence) on disk is authoritative
+            os.remove(stale_tmp)
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                stored = [bytes.fromhex(h)
+                          for h in json.load(f)["boundaries"]]
+            if boundaries is not None and list(boundaries) != stored:
+                raise ValueError(
+                    "explicit boundaries conflict with the persisted "
+                    f"table in {meta_path}; rebalancing a live store "
+                    "requires a migration (see plan_rebalance)")
+            if shards is not None and shards != len(stored) + 1:
+                raise ValueError(
+                    f"requested shards={shards} but {meta_path} holds a "
+                    f"{len(stored) + 1}-shard table; reopen without "
+                    "`shards` or migrate (see plan_rebalance)")
+            if sample_keys is not None:
+                raise ValueError(
+                    "sample_keys only applies at store creation; "
+                    f"{meta_path} already holds the boundary table "
+                    "(re-splitting needs a migration; see plan_rebalance)")
+            return stored
+        if shards is None:
+            shards = 4
+        if boundaries is not None:
+            cuts = [bytes(b) for b in boundaries]
+            if cuts != sorted(set(cuts)):
+                raise ValueError("boundaries must be sorted and distinct")
+        elif sample_keys is not None:
+            cuts = boundaries_from_sample(sample_keys, shards)
+        else:
+            cuts = uniform_boundaries(shards)
+        tmp = meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(json.dumps({"boundaries": [b.hex() for b in cuts]}))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, meta_path)   # atomic: a crash leaves old or new
+        fsync_dir(self.path)
+        return cuts
+
+    # ------------------------------------------------------------------
+    # routing
+    # ------------------------------------------------------------------
+
+    def shard_of(self, key: bytes) -> int:
+        """Index of the shard owning ``key``."""
+        return bisect.bisect_right(self.boundaries, key)
+
+    def _shard_opts(self, opts: ReadOptions | None, i: int
+                    ) -> ReadOptions | None:
+        """A store-level ``ReadOptions`` narrowed to shard ``i`` (a
+        ``ShardedSnapshot`` gives the shard's own pinned view)."""
+        if opts is None or not isinstance(opts.snapshot, ShardedSnapshot):
+            return opts
+        return dataclasses.replace(opts, snapshot=opts.snapshot.shards[i])
+
+    def snapshot(self) -> ShardedSnapshot:
+        """A pinned read view across every shard (pass as
+        ``ReadOptions.snapshot`` to ``get`` / ``multi_get`` / ``scan``)."""
+        return ShardedSnapshot(shards=tuple(s.snapshot()
+                                            for s in self.shards))
+
+    def put(self, key: bytes, value: bytes):
+        self.shards[self.shard_of(key)].put(key, value)
+
+    def delete(self, key: bytes):
+        self.shards[self.shard_of(key)].delete(key)
+
+    def write_batch(self, ops) -> int:
+        """Apply a group of writes, routed by key: one sub-batch a shard
+        (in order within it), each committed atomically by that shard's
+        ``LsmDB.write_batch``.  Atomicity is per shard: a crash between two
+        shards' commits can land one sub-batch without the other."""
+        by_shard: dict[int, list] = {}
+        for op in ops:
+            if op[0] not in ("put", "delete"):
+                raise ValueError(f"unknown batch op {op[0]!r} "
+                                 "(want 'put' or 'delete')")
+            by_shard.setdefault(self.shard_of(op[1]), []).append(op)
+        return sum(self.shards[i].write_batch(sub)
+                   for i, sub in sorted(by_shard.items()))
+
+    def get(self, key: bytes, opts: ReadOptions | None = None):
+        i = self.shard_of(key)
+        return self.shards[i].get(key, self._shard_opts(opts, i))
+
+    def multi_get(self, keys, opts: ReadOptions | None = None
+                  ) -> list[bytes | None]:
+        """Batched ``get`` across shards: one ``LsmDB.multi_get`` a shard
+        hit, results back in input order; equal to ``[self.get(k, opts)
+        for k in keys]``."""
+        keys = list(keys)
+        by_shard: dict[int, list[tuple[int, bytes]]] = {}
+        for slot, key in enumerate(keys):
+            by_shard.setdefault(self.shard_of(key), []).append((slot, key))
+        out: list[bytes | None] = [None] * len(keys)
+        for i, slot_keys in sorted(by_shard.items()):
+            values = self.shards[i].multi_get(
+                [k for _, k in slot_keys], self._shard_opts(opts, i))
+            for (slot, _), value in zip(slot_keys, values):
+                out[slot] = value
+        return out
+
+    def scan(self, start: bytes, end: bytes,
+             opts: ReadOptions | None = None):
+        """[(key, value)] for start <= key < end across shards, merged
+        from the per-shard scans."""
+        lo = self.shard_of(start)
+        hi = min(self.shard_of(end), self.n_shards - 1)
+        parts = [self.shards[i].scan(start, end, self._shard_opts(opts, i))
+                 for i in range(lo, hi + 1)]
+        return list(heapq.merge(*parts))
+
+    # ------------------------------------------------------------------
+    # maintenance
+    # ------------------------------------------------------------------
+
+    def flush(self):
+        for s in self.shards:
+            s.flush()
+
+    def maybe_compact(self):
+        """Publish every shard with pending work to the shared queue, and
+        wait until the queue has drained (returns with the compactions
+        installed)."""
+        for s in self.shards:
+            s.compact_once()
+        self.queue.wait_idle()
+
+    def wait_idle(self):
+        """Barrier: every published compaction has completed.  Re-raises
+        a background error."""
+        self.queue.wait_idle()
+
+    def close(self):
+        if self._closed:
+            return
+        try:
+            self.wait_idle()
+        finally:
+            self._closed = True
+            self.queue.close()
+            for s in self.shards:
+                try:
+                    s.close()
+                except Exception:   # noqa: BLE001 - close every shard
+                    pass
+            self.engine.close()
+
+    # ------------------------------------------------------------------
+    # introspection + rebalance
+    # ------------------------------------------------------------------
+
+    @property
+    def stats(self) -> DBStats:
+        """``DBStats`` summed over the shards."""
+        agg = DBStats()
+        for s in self.shards:
+            agg = agg.add(s.stats)
+        return agg
+
+    def shard_stats(self) -> list[DBStats]:
+        return [s.stats for s in self.shards]
+
+    def level_sizes(self) -> list[list[int]]:
+        return [s.level_sizes() for s in self.shards]
+
+    def plan_rebalance(self, sample_keys, n_shards: int | None = None
+                       ) -> list[bytes]:
+        """The boundary table that would balance a workload distributed
+        like ``sample_keys``.  Applying it means a new ``ShardedDB`` with
+        these boundaries and a migration (scan old, put new): the static
+        table never moves under live traffic."""
+        return boundaries_from_sample(sample_keys,
+                                      n_shards or self.n_shards)

@@ -29,6 +29,7 @@ import bisect
 import dataclasses
 import os
 import struct
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -176,31 +177,39 @@ class DecodedBlock:
 
 class BlockCache:
     """Host LRU cache of ``DecodedBlock``s keyed ``(file_no, block)`` (file
-    numbers are never reused); capacity in blocks, 0 disables it."""
+    numbers are never reused); capacity in blocks, 0 disables it.
+    Thread-safe: a sharded store's compaction worker drops files while the
+    caller reads."""
 
     def __init__(self, capacity: int = 4096):
         self.capacity = capacity
+        self._lock = threading.Lock()
+        # guarded-by: _lock
         self._c: OrderedDict[tuple[int, int], DecodedBlock] = OrderedDict()
 
     def get(self, file_no: int, block: int) -> DecodedBlock | None:
-        blk = self._c.get((file_no, block))
-        if blk is not None:
-            self._c.move_to_end((file_no, block))
-        return blk
+        with self._lock:
+            blk = self._c.get((file_no, block))
+            if blk is not None:
+                self._c.move_to_end((file_no, block))
+            return blk
 
     def put(self, file_no: int, block: int, blk: DecodedBlock):
         if self.capacity <= 0:
             return
-        self._c[(file_no, block)] = blk
-        while len(self._c) > self.capacity:
-            self._c.popitem(last=False)
+        with self._lock:
+            self._c[(file_no, block)] = blk
+            while len(self._c) > self.capacity:
+                self._c.popitem(last=False)
 
     def drop_file(self, file_no: int):
-        for k in [k for k in self._c if k[0] == file_no]:
-            del self._c[k]
+        with self._lock:
+            for k in [k for k in self._c if k[0] == file_no]:
+                del self._c[k]
 
     def __len__(self) -> int:
-        return len(self._c)
+        with self._lock:
+            return len(self._c)
 
 
 def _pack_rows(keys_u32: np.ndarray) -> np.ndarray:
@@ -221,10 +230,15 @@ class TableReader:
         self.geom = geom
         self.block_cache = block_cache
         self.device = device
-        self._img: SSTImage | None = None
-        self._first_keys: list[bytes] | None = None
+        self._lock = threading.Lock()
+        self._img: SSTImage | None = None             # guarded-by: _lock
+        self._first_keys: list[bytes] | None = None   # guarded-by: _lock
 
     def _load(self) -> SSTImage:
+        with self._lock:
+            return self._load_locked()
+
+    def _load_locked(self) -> SSTImage:
         if self._img is None:
             self._img = read_sst(self.meta.path)  # file CRC verified
         return self._img
@@ -233,12 +247,13 @@ class TableReader:
     def first_keys(self) -> list[bytes]:
         """Per-block smallest user key (block starts are restart points,
         so row 0 of the raw lanes is the full key)."""
-        if self._first_keys is None:
-            keys = np.asarray(self._load().keys, np.uint32)
-            self._first_keys = [
-                formats.unpack_key_bytes(keys[b, 0]).rstrip(b"\x00")
-                for b in range(keys.shape[0])]
-        return self._first_keys
+        with self._lock:
+            if self._first_keys is None:
+                keys = np.asarray(self._load_locked().keys, np.uint32)
+                self._first_keys = [
+                    formats.unpack_key_bytes(keys[b, 0]).rstrip(b"\x00")
+                    for b in range(keys.shape[0])]
+            return self._first_keys
 
     def candidate_block(self, key: bytes) -> int:
         """The one block that can hold ``key``: the rightmost block whose
@@ -367,7 +382,8 @@ class TableReader:
 
 class TableCache:
     """LRU cache of per-file ``TableReader``s plus the shared block cache;
-    its readers stage batched reads on ``device``."""
+    its readers stage batched reads on ``device``.  Thread-safe, as the
+    block cache."""
 
     def __init__(self, capacity: int = 64, *, geom: SSTGeometry,
                  block_cache: BlockCache | None = None, device=None):
@@ -375,23 +391,26 @@ class TableCache:
         self.geom = geom
         self.block_cache = block_cache
         self.device = device
-        self._c: OrderedDict[int, TableReader] = OrderedDict()
+        self._lock = threading.Lock()
+        self._c: OrderedDict[int, TableReader] = OrderedDict()  # guarded-by: _lock
 
     def reader(self, meta: FileMeta) -> TableReader:
         """The (cached) reader of ``meta``; nothing is read until it is
         first probed."""
-        rdr = self._c.get(meta.file_no)
-        if rdr is not None:
-            self._c.move_to_end(meta.file_no)
+        with self._lock:
+            rdr = self._c.get(meta.file_no)
+            if rdr is not None:
+                self._c.move_to_end(meta.file_no)
+                return rdr
+            rdr = TableReader(meta, self.geom, block_cache=self.block_cache,
+                              device=self.device)
+            self._c[meta.file_no] = rdr
+            while len(self._c) > self.capacity:
+                self._c.popitem(last=False)
             return rdr
-        rdr = TableReader(meta, self.geom, block_cache=self.block_cache,
-                          device=self.device)
-        self._c[meta.file_no] = rdr
-        while len(self._c) > self.capacity:
-            self._c.popitem(last=False)
-        return rdr
 
     def drop(self, file_no: int):
-        self._c.pop(file_no, None)
+        with self._lock:
+            self._c.pop(file_no, None)
         if self.block_cache is not None:
             self.block_cache.drop_file(file_no)

@@ -220,14 +220,16 @@ class MemorySessionStore(_TemplateMixin):
 # ------------------------------------------------------------- lsm backend
 
 class LsmSessionStore(_TemplateMixin):
-    """Pages sessions into an ``LsmDB``; loaded states land on the
-    store's device.  See the module docstring for the key layout and the
-    atomicity / batching contract."""
+    """Pages sessions into an LSM store (``LsmDB`` or ``ShardedDB``);
+    loaded states land on the store's device.  See the module docstring
+    for the key layout and the atomicity / batching contract."""
 
     def __init__(self, db, template):
         self.db = db
         self._init_template(template)
-        geom = db.geom
+        geom = getattr(db, "geom", None)
+        if geom is None:
+            geom = db.cfg.geom
         if geom.key_bytes < 16:
             raise ValueError(
                 f"session paging needs key_bytes >= 16, got {geom.key_bytes}")

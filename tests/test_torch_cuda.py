@@ -685,3 +685,186 @@ def test_session_pages_on_the_card_as_on_the_cpu(dev, tmp_path):
     assert all(xd["dev"]["launches"][k] for k in chip_smoke.WRITE_PATH
                + chip_smoke.READ_PATH)
     assert not any(xd["cpu"]["launches"].values())
+
+
+# ---------------------------------------------------------------------------
+# a batch of jobs: the job as the grid's y dimension (ROADMAP A7)
+# ---------------------------------------------------------------------------
+
+
+def batch_of(rng, jobs, make):
+    return torch.stack([make(rng) for _ in range(jobs)])
+
+
+def prefix_keys(rng, n, lanes, dev) -> torch.Tensor:
+    """Sorted keys ``[n, lanes]`` of ``PREFIX_WORDS`` drawn from ``rng``
+    (as ``chip_smoke.prefix_edge_keys``, but a batch's jobs differ)."""
+    words = chip_smoke.PREFIX_WORDS
+    rows = words[rng.integers(0, len(words), (max(n // 4, 1), lanes))]
+    k = rows[rng.integers(0, len(rows), n)]
+    k = k[np.lexsort(tuple(k[:, i] for i in reversed(range(lanes))))]
+    return torch.from_numpy(k.view(np.int32)).to(dev)
+
+
+def sort_rows(rng, n, lanes, job, dev) -> torch.Tensor:
+    """Rows ``[n, lanes]`` of ``SORT_WORDS`` with a unique index lane that
+    also names the job (as ``chip_smoke.sort_edge_rows``)."""
+    words = chip_smoke.SORT_WORDS
+    r = words[rng.integers(0, len(words), (n, lanes))]
+    r[:, -1] = (rng.permutation(n) + job * n).astype(np.uint32)
+    return torch.from_numpy(r.view(np.int32)).to(dev)
+
+
+def host_sst(rng, geom, n):
+    """A host image of ``n`` sorted entries (values and tombstones of
+    random sequence numbers), built on the CPU."""
+    from repro_torch.core import formats
+    from repro_torch.lsm.engine import TorchCompactionEngine
+    keys = np.unique(rng.integers(0, 2**32, (n, geom.key_lanes),
+                                  dtype=np.uint32) | 1, axis=0)
+    n = keys.shape[0]
+    meta = np.array([formats.make_meta(int(s), int(v)) for s, v in zip(
+        rng.integers(1, 10**6, n), rng.random(n) < 0.8)], np.uint32)
+    vals = rng.integers(0, 2**32, (n, geom.value_words), dtype=np.uint32)
+    return TorchCompactionEngine(geom, device="cpu").build_image(keys, meta,
+                                                                 vals)
+
+
+@pytest.mark.parametrize("jobs,lens,lanes", [
+    (1, (3000, 0, 2500, 4000), 6), (1, (500,), 6), (2, (0, 1000, 0, 24), 3),
+    (4, (16_384,) * 4, 6), (8, (513, 2000, 7, 4096, 1), 5),
+    (8, (T - 1, 4 * T, T + 1), 1), (3, (40,) * 150, 6), (5, (1, 1, 1), 8),
+    (2, (0, 0, 700), 7), (6, (T,) * 8, 2)],
+    ids=["J1", "J1-one-run", "J2-empty-runs", "J4-L0-job", "J8-ragged",
+         "J8-tile-edges", "J3-split-level", "J5-one-row-runs",
+         "J2-one-nonempty", "J6-8runs"])
+def test_merge_runs_batched(dev, jobs, lens, lanes):
+    """J jobs of the same runs merged in the one job's launches, each job
+    bit-identical to the plain merge of that job alone (duplicates, no
+    index lane: ties to the earlier run)."""
+    rng = np.random.default_rng(jobs * 1000 + sum(lens))
+    rows = batch_of(rng, jobs, lambda r: merge_case(r, lens, lanes, dev,
+                                                    distinct=4))
+    before = ops.launch_counts()["merge_runs"]
+    got = ops.merge_runs(rows, lens)
+    assert ops.launch_counts()["merge_runs"] == \
+        before + len(merge_path.launch_tables(lens)[0])
+    assert torch.equal(got, ref.merge_runs_batched(rows, lens))
+
+
+@pytest.mark.parametrize("jobs,n,lanes,restart", [
+    (1, 4096, 4, 16), (4, 65_536, 4, 16), (8, 4096, 1, 16),
+    (3, 1536, 5, 12), (2, 2048, 8, 16), (5, 960, 10, 16), (8, 48, 3, 24)])
+def test_prefix_encode_wire_batched(dev, jobs, n, lanes, restart):
+    """The pack's prefix step for J jobs in one launch, each job against
+    the plain version alone, with per-job survivor counts of 0, all rows,
+    one row, a restart point and mid-interval."""
+    rng = np.random.default_rng(n + lanes + jobs)
+    keys = batch_of(rng, jobs, lambda r: prefix_keys(r, n, lanes, dev))
+    counts = [0, n, 1, restart, restart + 5, n // 2, n - 1, 7][:jobs]
+    count = torch.tensor(counts, dtype=torch.int64, device=dev)
+    shared, wire = one_launch("prefix_encode", lambda: ops.prefix_encode_wire(
+        keys, count, restart_interval=restart))
+    want_shared, want_wire = ref.prefix_encode_wire_batched(
+        keys, count, restart_interval=restart)
+    assert torch.equal(shared, want_shared) and torch.equal(wire, want_wire)
+
+
+@pytest.mark.parametrize("jobs,n,lanes", [
+    (1, 3000, 6), (4, 65_536, 6), (8, 100, 6), (3, 5000, 3), (2, 2048, 8),
+    (5, 4097, 1), (3, 1500, 10)])
+def test_bitonic_sort_batched(dev, jobs, n, lanes):
+    """J jobs sorted on their own in ``launches(n, lanes)`` launches: no
+    tile straddles two jobs, also where the tile does not divide n."""
+    rng = np.random.default_rng(n + jobs)
+    rows = torch.stack([sort_rows(rng, n, lanes, j, dev)
+                        for j in range(jobs)])
+    before = ops.launch_counts()["bitonic_sort"]
+    got = ops.bitonic_sort(rows)
+    assert ops.launch_counts()["bitonic_sort"] == \
+        before + sort_plan.launches(n, lanes)
+    assert torch.equal(got, torch.stack([ref.sort_tuples(r) for r in rows]))
+
+
+@pytest.mark.parametrize("sort_mode", ["merge", "device"])
+def test_compact_many_on_card_equals_each_job_alone(dev, sort_mode):
+    """``CompactionExecutor.compact_many`` on the card: each job's image
+    and stats equal ``compact`` of that job alone, on the card and on the
+    CPU."""
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096)
+    rng = np.random.default_rng(5)
+    host = [[host_sst(rng, geom, int(rng.integers(600, 900)))
+             for _ in range(3)] for _ in range(3)]
+    from repro_torch.core import formats
+    results = {}
+    for d in (dev, "cpu"):
+        ex = offload.CompactionExecutor(geom, device=d, sort_mode=sort_mode)
+        # each input run padded to 64 blocks, as the engine pads it
+        jobs = [[offload.pad_image_blocks(formats.image_from_numpy(im, d),
+                                          64, geom) for im in job]
+                for job in host]
+        results[str(d)] = (ex.compact_many(jobs, pad_blocks=256),
+                           [ex.compact(j, pad_blocks=256) for j in jobs])
+    many, alone = results[str(dev)]
+    cpu_many, _ = results["cpu"]
+    for (img, st), (a, sa), (c, sc) in zip(many, alone, cpu_many):
+        assert st == sa == sc and st.crc_ok
+        for x, y, z in zip(img, a, c):
+            assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+
+
+def test_flush_while_the_queue_compacts_on_the_card(dev, tmp_path):
+    """A ShardedDB on the card: shards flush on the caller's thread while
+    the queue's worker compacts through the shared engine (its pinned
+    staging, its reader, its timers); every acknowledged write reads back
+    by get, multi_get and scan, and the engine's calls never overlapped."""
+    import threading
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.lsm.db import DBConfig
+    from repro_torch.lsm.sharded import ShardedDB
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=64 * 1024)
+    db = ShardedDB(str(tmp_path / "sh"), DBConfig(
+        geom=geom, scheduler=SchedulerConfig(l0_trigger=4,
+                                             base_bytes=512 * 1024)),
+        shards=4, device=dev)
+    inside, depth, threads = [0], [], set()
+    lock = threading.Lock()
+    ex = db.engine.executor
+
+    def watch(fn):
+        def call(*a, **kw):
+            with lock:
+                inside[0] += 1
+                depth.append(inside[0])
+                threads.add(threading.current_thread().name)
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    inside[0] -= 1
+        return call
+
+    ex.compact = watch(ex.compact)
+    ex.compact_many = watch(ex.compact_many)
+    offload_build = offload.build_image
+    offload.build_image = watch(offload_build)
+    try:
+        rng = np.random.default_rng(9)
+        model = {}
+        for i in range(6000):
+            k = bytes([int(rng.integers(1, 255))]) + b"k%06d" % i
+            v = rng.bytes(200)
+            db.put(k, v)
+            model[k] = v
+        db.wait_idle()
+    finally:
+        offload.build_image = offload_build
+    assert "shard-compact-0" in threads and len(threads) >= 2
+    assert max(depth) == 1
+    assert db.stats.compactions > 0
+    keys = sorted(model)
+    assert [db.get(k) for k in keys] == [model[k] for k in keys]
+    assert db.multi_get(keys) == [model[k] for k in keys]
+    assert db.scan(b"\x00", b"\xff\xff") == sorted(model.items())
+    db.close()

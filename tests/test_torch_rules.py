@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.data.ycsb import WorkloadSpec
 from repro_torch.lsm.db import DBConfig, LsmDB
+from repro_torch.lsm.sharded import ShardedDB
 from repro_torch.launch import serve, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
@@ -60,7 +61,7 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"db.py", "engine.py", "compaction.py", "ops.py", "ref.py",
-            "chip_smoke.py"} <= names
+            "sharded.py", "background.py", "chip_smoke.py"} <= names
 
 
 @pytest.fixture
@@ -85,10 +86,13 @@ def no_cuda(monkeypatch):
     lambda tmp: MemorySessionStore(lambda: None),
     lambda tmp: ServeEngine(get_smoke_config("falcon-mamba-7b"), {},
                             page_store=object()),
+    lambda tmp: ShardedDB(str(tmp / "db")),
+    lambda tmp: ShardedDB(str(tmp / "db"), DBConfig(engine="cpu"),
+                          shards=2),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
         "ycsb.run", "launch.ycsb", "MemorySessionStore",
-        "ServeEngine-page_store"])
+        "ServeEngine-page_store", "ShardedDB", "ShardedDB-cpu-engine"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -600,3 +604,52 @@ def test_chip_smoke_session_phase_rehearsal(tmp_path):
     assert 4 * full.n_layers * ((full.ssm_conv - 1) * full.d_inner * 2 +
                                 full.d_inner * full.ssm_state * 4) \
         + 4 * 4 == 146_800_656
+
+
+def test_chip_smoke_sharded_phase_rehearsal(tmp_path):
+    """Phase 8 on the CPU at 1/64 of the paper's SST and L1 sizes (241
+    records a memtable): two deterministic rounds, each one stacked
+    launch of the 4 shards' same-shape jobs (the first of 4 L0 runs, the
+    second of 4 L0 and 4 L1 runs), each job again alone on the plain
+    versions, the batched calls held against the plain batched versions
+    (also the device sort's), a background round and a YCSB-A mix, every
+    acknowledged write read back before and after a reopen; no kernel
+    launched (CPU tensors launch none); and the lines it prints."""
+    cs = _chip_smoke()
+    div = 64
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=4 * 1024 * 1024 // div)
+    sched = SchedulerConfig(l0_trigger=4, base_bytes=32 * 1024 * 1024 // div)
+    sh = cs.sharded_phase(str(tmp_path), "cpu", geom=geom, sched=sched,
+                          bg_ops=2000, sample=300)
+    assert sh["per_round"] == 4 * 241 == 4 * cs.memtable_records(geom, 256)
+    assert [[b for b, _ in r[:-1]] for r in sh["rounds"]] == \
+        [[64] * 4, [128] * 4]
+    assert all(batched for r in sh["rounds"] for _, batched in r[:-1])
+    det = sh["det_counts"]
+    assert det["engine"] == (2, 8, 4) and det["queue"] == (2, 8, 4)
+    assert det["stats"].batched_compactions == det["stats"].compactions == 8
+    assert [(inputs, live) for inputs, _, live in sh["job_checks"]] == \
+        [(4, 964)] * 4 + [(8, 1928)] * 4
+    assert [(n, shape) for n, shape, _ in sh["calls"]] == [
+        ("merge_runs", (4, 1024, 6)), ("prefix_encode_wire", (4, 1024, 4)),
+        ("merge_runs", (4, 2048, 6)), ("prefix_encode_wire", (4, 2048, 4))]
+    assert [n for n, _, _ in sh["device_calls"]] == ["bitonic_sort",
+                                                     "prefix_encode_wire"]
+    assert sh["bg"]["jobs"] > 0 and sh["bg"]["reads"] > 0
+    assert sh["bg_counts"]["stats"].compactions == sh["bg"]["jobs"]
+    assert sh["scan_rows"] >= 3 * 4 * sh["per_round"]   # + new keys
+    assert not any(sh["launches"].values())
+    assert "timing" not in sh   # the CUPTI comparison runs on the card
+    lines = cs.sharded_lines(sh, "card").splitlines()
+    assert len(lines) == 9 and all(ln.startswith("[8] ") for ln in lines)
+    assert "merge launches" in lines[1] and "[card]" in lines[2]
+    assert sorted(os.listdir(tmp_path)) == ["kept", "kept-bg"]
+    # with one checked batch call: a wrong output raises
+    rows = torch.zeros((2, 32, 3), dtype=torch.int32)
+    good = cs.ref.merge_runs_batched(rows, (16, 16))
+    assert cs.check_batch_calls([("merge_runs", (rows, (16, 16)), {}, good,
+                                  {})]) == [("merge_runs", (2, 32, 3), 0)]
+    with pytest.raises(AssertionError, match="differs from its plain"):
+        cs.check_batch_calls([("merge_runs", (rows, (16, 16)), {},
+                               good + 1, {})])

@@ -27,12 +27,15 @@ from repro.core.scheduler import SchedulerConfig as JScheduler
 from repro.lsm import wal as jwal
 from repro.lsm.db import DBConfig as JConfig
 from repro.lsm.db import LsmDB as JDB
+from repro.lsm.sharded import ShardedDB as JSharded
+from repro.lsm.sharded import uniform_boundaries as jax_uniform
 from repro.models import model as jmodel
 from repro.serving import session_store as jss
 from repro_torch.core.formats import SSTGeometry
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.lsm import wal
 from repro_torch.lsm.db import DBConfig, LsmDB
+from repro_torch.lsm.sharded import ShardedDB, uniform_boundaries
 from repro_torch.models import convert
 from repro_torch.serving import session_store as tss
 
@@ -133,12 +136,6 @@ def assert_same(port_state, jax_state):
         assert pa.shape == ja.shape and pa.tobytes() == ja.tobytes()
 
 
-def assert_port_equal(a, b):
-    """Two port states on the CPU with the same leaves, bit for bit."""
-    assert chip_smoke.same_state(a, b)
-    assert {t.device.type for t in convert.tree_leaves((a, b))} == {"cpu"}
-
-
 def sst_files(path):
     return {f: open(os.path.join(path, f), "rb").read()
             for f in sorted(os.listdir(path)) if f.endswith(".sst")}
@@ -163,7 +160,7 @@ def test_decode_state_round_trips(name):
     state = as_port(STATES[name]())
     meta, raw = tss.encode_state(state)
     back = tss.decode_state(meta, raw, state, "cpu")
-    assert_port_equal(back, state)
+    assert chip_smoke.same_state(back, state)
     # the template's structure, keys in its own order
     if isinstance(state, dict):
         assert list(back) == list(state)
@@ -227,7 +224,7 @@ def test_same_sequence_same_files_as_jax(tmp_path):
             k = tss.LsmSessionStore._key(s, i)
             assert k == jss.LsmSessionStore._key(s, i)
             assert tdb.get(k) == jdb.get(k)
-    assert_port_equal(tstore.load("a"), as_port(states["a_small"]))
+    assert chip_smoke.same_state(tstore.load("a"), as_port(states["a_small"]))
     assert_same(tstore.load("b"), jstore.load("b"))
     jdb.close()
     tdb.close()
@@ -247,8 +244,8 @@ def test_load_many_equals_the_load_loop_and_jax(tmp_path):
     batched = tstore.load_many(names)
     jbatched = jstore.load_many(names)
     for s, b, jb in zip(names, batched, jbatched):
-        assert_port_equal(b, tstore.load(s))
-        assert_port_equal(b, as_port(states[s]))
+        assert chip_smoke.same_state(b, tstore.load(s))
+        assert chip_smoke.same_state(b, as_port(states[s]))
         assert_same(b, jb)
     jdb.close()
     tdb.close()
@@ -265,7 +262,7 @@ def test_missing_and_truncated_sessions(tmp_path):
         store.load_many(["have", "nope"])
     out = store.load_many(["nope", "have"], missing_ok=True)
     assert out[0] is None
-    assert_port_equal(out[1], store.load("have"))
+    assert chip_smoke.same_state(out[1], store.load("have"))
     assert store.exists("have") and not store.exists("nope")
     assert store.drop("nope") is False
     # a head whose chunks are gone: loud, not garbage
@@ -275,6 +272,60 @@ def test_missing_and_truncated_sessions(tmp_path):
     with pytest.raises(IOError, match="truncated"):
         store.load_many(["have"])
     db.close()
+
+
+def test_sessions_page_through_sharded_stores_as_jax(tmp_path):
+    """The smoke config's sessions through both packages' ``ShardedDB``
+    (4 shards, ``uniform_boundaries``; a session's keys share its hash
+    prefix, so each session lives in one shard): the same counts, the
+    same SST files in every shard, and the states load back bit for bit,
+    equal to JAX's loads.  The queue compacts at fixed points
+    (``auto_compact=False``): a background round's timing would decide
+    the file numbers."""
+    cuts = uniform_boundaries(4)
+    assert cuts == jax_uniform(4)
+    sched = dict(l0_trigger=3, base_bytes=400_000)
+    jdb = JSharded(str(tmp_path / "jax"), JConfig(
+        geom=JGeometry(**GEOM), engine="cpu", memtable_bytes=4096,
+        scheduler=JScheduler(**sched), auto_compact=False), boundaries=cuts)
+    tdb = ShardedDB(str(tmp_path / "port"), DBConfig(
+        geom=SSTGeometry(**GEOM), memtable_bytes=4096,
+        scheduler=SchedulerConfig(**sched), auto_compact=False),
+        boundaries=cuts, device="cpu")
+    states = {f"s{i}": falcon_state(i) for i in range(6)}
+    jstore = jss.LsmSessionStore(jdb, as_jax(states["s0"]))
+    tstore = tss.LsmSessionStore(tdb, as_port(states["s0"]))
+    got, want = [], []
+    for s, st in states.items():
+        got.append(tstore.save(s, as_port(st)))
+        want.append(jstore.save(s, as_jax(st)))
+        tdb.maybe_compact()
+        jdb.maybe_compact()
+    assert got == want
+    got += [tstore.drop("s2"), tstore.save("s1", as_port(states["s4"]))]
+    want += [jstore.drop("s2"), jstore.save("s1", as_jax(states["s4"]))]
+    assert got == want
+    tdb.flush()
+    jdb.flush()
+    tdb.maybe_compact()
+    jdb.maybe_compact()
+    shards_used = {tdb.shard_of(tss.LsmSessionStore._key(s, 0))
+                   for s in states}
+    assert len(shards_used) > 1 and tdb.stats.compactions > 0
+    assert tdb.level_sizes() == jdb.level_sizes()
+    for i in range(4):
+        assert sst_files(tmp_path / "port" / f"shard-{i:04d}") == \
+            sst_files(tmp_path / "jax" / f"shard-{i:04d}")
+    names = ["s0", "s1", "s3", "s5"]
+    for s, b, jb in zip(names, tstore.load_many(names),
+                        jstore.load_many(names)):
+        want_state = states["s4" if s == "s1" else s]
+        assert chip_smoke.same_state(b, as_port(want_state))
+        assert chip_smoke.same_state(tstore.load(s), b)
+        assert_same(b, jb)
+    assert not tstore.exists("s2") and not jstore.exists("s2")
+    jdb.close()
+    tdb.close()
 
 
 def test_short_keys_are_refused(tmp_path):
@@ -294,8 +345,8 @@ def test_memory_store_decodes_as_the_lsm_store(tmp_path):
     assert isinstance(lsm, tss.SessionStore)
     assert mem.save("x", state) == 1
     lsm.save("x", state)
-    assert_port_equal(mem.load("x"), lsm.load("x"))
-    assert_port_equal(mem.load_many(["x"])[0], state)
+    assert chip_smoke.same_state(mem.load("x"), lsm.load("x"))
+    assert chip_smoke.same_state(mem.load_many(["x"])[0], state)
     assert mem.load_many(["y", "x"], missing_ok=True)[0] is None
     with pytest.raises(KeyError, match="y"):
         mem.load("y")
