@@ -70,9 +70,38 @@ Phases, any fault exits non-zero:
    queue draining while the caller writes) and a YCSB-A mix, every
    acknowledged write read back by a scan across the shards (the mix's
    writes and a sample of the loads by ``get`` and ``multi_get`` too),
-   before and after a reopen.
+   before and after a reopen;
+9. drive the async write path (``DBConfig(async_compaction=True)``) at the
+   paper's geometry at 1,024 B values: (a) one seeded stream of puts and
+   deletes (8 full memtables and more) into a sync and an async store
+   (``flush_workers=3``, ``auto_compact=False``): byte-identical SST
+   files after ``wait_idle()`` and again after ``maybe_compact()`` +
+   ``wait_idle()`` (that drain's CUPTI device time beside its CUDA-event
+   spans), every write-path kernel launched from the workers, the merge
+   once a level of each job's merge tree, a flush's wait at the engine
+   lock behind a running compaction, and the async store's jobs and
+   first flushes rebuilt byte-identical on the plain versions and its
+   read-back's wave calls bit-identical to them; (b) YCSB-A through
+   ``launch.ycsb.run``, sync against async on the same op streams (9
+   memtables of records and as many operations), a row a mode and the
+   async / sync p99 put; (c) in both, two reader threads ``get`` and
+   ``multi_get`` a fixed key sample beside the writer, every value one
+   issued to that key and none stale, ``bloom_multi_probe`` and
+   ``lookup_blocks`` launched on them while a background compaction ran,
+   the async run's first reader wave calls bit-identical to the plain
+   versions;
+   (d) one ``build_image`` made to raise: ``BackgroundError`` at
+   ``wait_idle()`` and the next rotation, the queued tables readable, L0
+   held, then ``resume()``: every write back and the L0 files a sync
+   store's; (e) an async ``ShardedDB`` of 4 shards under YCSB-A read back
+   by scan, ``get`` and ``multi_get`` before and after a reopen; (f) a 4
+   MiB served state saved into an async store whose flush builds inside
+   the CUDA graph capture of a new decode batch size: tokens equal an
+   eager run's, the state loads back bit for bit.
 
-The line before the last is a JSON ``kernels`` record; the last line is
+The line before the last is a JSON ``kernels`` record (each kernel's
+``launches`` sums phase 3's paths and phase 9's, split in
+``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
     python3 chip_smoke.py --kernels
@@ -85,7 +114,10 @@ checkout's kernels on the same cases.
 from __future__ import annotations
 
 import binascii
+import collections
 import contextlib
+import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -94,6 +126,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -1090,11 +1123,11 @@ def multi_get_line(when: str, m: dict) -> str:
             f"bytes = {m['stage_s'] / total_s:.1%} of multi_get time")
 
 
-def merge_jobs_line(jobs_seen, card: str) -> str:
-    """The phase-3 report of the merges: launches and ``"sort"`` span a
-    job.  Raises unless each job took ceil(log2 k') launches for its k
-    input files and the padding run the engine may add (k' = k or k + 1),
-    and at least one job launched the merge."""
+def merge_jobs_line(jobs_seen, card: str, phase: int = 3) -> str:
+    """The phase-3 (or ``phase``) report of the merges: launches and
+    ``"sort"`` span a job.  Raises unless each job took ceil(log2 k')
+    launches for its k input files and the padding run the engine may add
+    (k' = k or k + 1), and at least one job launched the merge."""
     for inputs, launches, _ in jobs_seen:
         if not merge_levels((1,) * inputs) <= launches <= \
                 merge_levels((1,) * (inputs + 1)):
@@ -1103,7 +1136,8 @@ def merge_jobs_line(jobs_seen, card: str) -> str:
     if not any(launches for _, launches, _ in jobs_seen):
         raise AssertionError("no compaction launched merge_runs")
     per_job = ", ".join(f"({k}, {n}, {s * 1e3:.3f})" for k, n, s in jobs_seen)
-    return (f"[3] merge_runs: {sum(n for _, n, _ in jobs_seen)} launches in "
+    return (f"[{phase}] merge_runs: {sum(n for _, n, _ in jobs_seen)} "
+            f"launches in "
             f"{len(jobs_seen)} compaction jobs; sort span "
             f"{sum(s for *_, s in jobs_seen):.4f} s (CUDA events); a job "
             f"(input files, launches, sort ms): [{per_job}] [{card}]")
@@ -1263,32 +1297,36 @@ PYTORCH = "PyTorch kernels"
 TRACE_PRELUDE = 64
 
 
-def device_trace(fn, attempts: int = 3) -> list[tuple[str, float]]:
+def trace_once(fn) -> list[tuple[str, float]]:
     """``(name, ms)`` of each device event (kernel or copy) of one call of
     ``fn``, from the profiler's CUPTI trace, after a prelude of
     ``TRACE_PRELUDE`` one-element fills and a ``torch.cuda._sleep``
-    marker (``spin_kernel``) whose events are left out.  A trace that
-    comes back without the marker or without device events after it is
-    taken again, up to ``attempts`` times in all."""
+    marker (``spin_kernel``) whose events are left out; empty when the
+    trace came back without the marker or without device events after
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     pad = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PRELUDE):
+            pad.zero_()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    events = [(e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [start for start, name, _ in events if "spin_kernel" in name]
+    if not marks:
+        return []
+    return [(name, ms) for start, name, ms in events if start > marks[-1]]
+
+
+def device_trace(fn, attempts: int = 3) -> list[tuple[str, float]]:
+    """``trace_once(fn)``, taken again (``fn`` called again) while it comes
+    back empty, up to ``attempts`` times in all."""
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_PRELUDE):
-                pad.zero_()
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        events = [(e.time_range.start, e.name,
-                   e.time_range.elapsed_us() / 1e3)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA]
-        marks = [start for start, name, _ in events if "spin_kernel" in name]
-        if not marks:
-            continue
-        events = [(name, ms) for start, name, ms in events
-                  if start > marks[-1]]
+        events = trace_once(fn)
         if events:
             return events
     raise RuntimeError(f"the profiler recorded no device time after its "
@@ -1867,31 +1905,82 @@ def check_state(got, want, what: str) -> None:
                              "saved one")
 
 
-def keep_jobs(db, keep_dir: str) -> list[dict]:
-    """Wrap ``db``'s engine so that each compaction job keeps its input
-    files (hard links: the store deletes them once the job is installed),
-    a copy of its output image (the engine's may lie in staging that the
-    next job reuses) and its ``merge_runs`` launches, for
+def keep_jobs(engine, keep_dir: str | None = None) -> list[dict]:
+    """Wrap ``engine.compact_paths`` (what a store's compaction calls) so
+    that each job records its input count ``n``, its ``merge_runs``
+    launches, its ``"sort"`` span (as phase 3 counts them) and its host
+    interval; given ``keep_dir``, also its input files (hard links: the
+    store deletes them once the job is installed) and a copy of its output
+    image (the engine's may lie in staging that the next job reuses), for
     ``check_jobs``."""
     kept: list[dict] = []
-    compact_paths = db.engine.compact_paths
+    compact_paths = engine.compact_paths
 
     def watch_job(paths, *, bottom_level=False):
-        d = os.path.join(keep_dir, str(len(kept)))
-        os.makedirs(d)
-        links = [os.path.join(d, os.path.basename(p)) for p in paths]
-        for p, q in zip(paths, links):
-            os.link(p, q)
+        job = dict(n=len(paths), bottom_level=bottom_level)
+        if keep_dir is not None:
+            d = os.path.join(keep_dir, str(len(kept)))
+            os.makedirs(d)
+            job["paths"] = [os.path.join(d, os.path.basename(p))
+                            for p in paths]
+            for p, q in zip(paths, job["paths"]):
+                os.link(p, q)
+        t0 = time.perf_counter()
         before = ops.launch_counts()["merge_runs"]
         out, es = compact_paths(paths, bottom_level=bottom_level)
-        kept.append(dict(
-            paths=links, bottom_level=bottom_level,
-            out=formats.SSTImage(*(np.array(x) for x in out)),
-            merge_launches=ops.launch_counts()["merge_runs"] - before))
+        job.update(span=(t0, time.perf_counter()), sort_s=es.sort_seconds,
+                   merge_launches=ops.launch_counts()["merge_runs"] - before)
+        if keep_dir is not None:
+            job["out"] = formats.SSTImage(*(np.array(x) for x in out))
+        kept.append(job)
         return out, es
 
-    db.engine.compact_paths = watch_job
+    engine.compact_paths = watch_job
     return kept
+
+
+def merges_seen(kept: list[dict]) -> list[tuple]:
+    """``keep_jobs``' jobs as ``merge_jobs_line`` takes them."""
+    return [(j["n"], j["merge_launches"], j["sort_s"]) for j in kept]
+
+
+def keep_flushes(engine, limit: int) -> list[dict]:
+    """Wrap ``engine.build_image`` (a flush's build) so that the first
+    ``limit`` flushes keep a copy of their entries and of the image they
+    built, for ``check_flushes``."""
+    kept: list[dict] = []
+    build_image = engine.build_image
+
+    def watch(keys, meta, vals):
+        args = tuple(np.array(x) for x in (keys, meta, vals))
+        img = build_image(keys, meta, vals)
+        if len(kept) < limit:
+            kept.append(dict(args=args, out=formats.SSTImage(
+                *(np.array(x) for x in img))))
+        return img
+
+    engine.build_image = watch
+    return kept
+
+
+def check_flushes(kept: list[dict], geom: SSTGeometry, device) -> list[int]:
+    """Each kept flush built again by an engine on ``device`` with every
+    kernel wrapper routed to its plain version (no kernel launches):
+    raise unless its image is byte-identical to the one the store's engine
+    built.  Returns the entries a flush."""
+    before = ops.launch_counts()
+    with mock.patch.object(ops, "_on_card", lambda t: False):
+        for f in kept:
+            eng = TorchCompactionEngine(geom, device=device)
+            try:
+                img = eng.build_image(*f["args"])
+            finally:
+                eng.close()
+            same_image(f["out"], img, f"the store's flush of "
+                       f"{len(f['args'][0])} entries vs the plain versions")
+    if ops.launch_counts() != before:
+        raise AssertionError("the plain rebuild launched a kernel")
+    return [len(f["args"][0]) for f in kept]
 
 
 def check_jobs(kept: list[dict], geom: SSTGeometry, device) -> list[tuple]:
@@ -1927,15 +2016,18 @@ WAVE_WRAPPERS = ("bloom_multi_probe", "lookup_blocks_packed")
 
 
 @contextlib.contextmanager
-def keep_waves():
-    """Record each read-wave kernel call made inside: the wrapper's name,
-    its inputs and keyword arguments, and its output."""
+def keep_waves(limit: int | None = None, threads: tuple[str, ...] = ("",)):
+    """Record each read-wave kernel call made inside (the first ``limit``,
+    from threads whose names start with one of ``threads``): the
+    wrapper's name, its inputs and keyword arguments, and its output."""
     calls: list[tuple] = []
 
     def watch(name, fn):
         def call(*args, **kw):
             got = fn(*args, **kw)
-            calls.append((name, args, kw, got))
+            if (limit is None or len(calls) < limit) and \
+                    threading.current_thread().name.startswith(threads):
+                calls.append((name, args, kw, got))
             return got
         return call
 
@@ -1982,7 +2074,7 @@ def session_phase(eng, prompts, work: str, *, max_new: int = SERVE_NEW,
     keep_dir = os.path.join(work, "session-jobs")
     db_cfg = db_cfg or session_config()
     db = LsmDB(path, db_cfg, device=dev)
-    kept = keep_jobs(db, keep_dir)
+    kept = keep_jobs(db.engine, keep_dir)
     # the engine's cast params again: no copy of the weights is made
     seng = ServeEngine(eng.cfg, eng.params, max_len=prompts.shape[1]
                        + max_new + resume, device=dev, page_store=db)
@@ -2648,6 +2740,896 @@ def sharded_lines(sh: dict, card: str) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the async write path (ROADMAP A8)
+# ---------------------------------------------------------------------------
+
+# LUDA's paper geometry at 1,024 B values: 4,033 records a 4 MB memtable
+ASYNC_VALUE = 1024
+ASYNC_GEOM = PAPER.geometry(ASYNC_VALUE)
+ASYNC_MEMTABLES = 8          # (a): full memtables of the seeded stream
+ASYNC_FLUSH_WORKERS = 3      # (a), (d)
+ASYNC_PENDING = 4            # (a), (d): max_pending_memtables
+HALT_MEMTABLES = 3           # (d): memtables queued when the build fails
+READERS = 2                  # (c): reader threads beside the writer
+READER_SAMPLE = 64           # (c): the fixed keys they read
+READER_PAUSE = 0.025         # (c): seconds a reader rests between passes
+ASYNC_SHARD_OPS = 20_000     # (e): the YCSB-A mix
+ASYNC_SHARD_SAMPLE = 2_000   # (e): loaded keys read back
+CAPTURE_BATCH = 2            # (f): a batch size phases 5 and 7 never capture
+CAPTURE_WAIT = 120.0         # (f): seconds the gated flush and capture wait
+KEPT_FLUSHES = 2             # (a): flushes rebuilt on the plain versions
+KEPT_WAVES = 8               # (a), (c): wave calls held against ``ref``
+# the async store's background threads, by name
+WORKERS = ("flush-", "compact-", "shard-compact-")
+
+
+@contextlib.contextmanager
+def launch_log():
+    """Record every kernel launch made while the block runs, as ``(thread
+    name, kernel, launches, host time)``: ``_build.launch`` is where every
+    wrapper launches and counts."""
+    log: list[tuple[str, str, int, float]] = []
+    real = _build.launch
+
+    def launch(name, *args, launched=None):
+        real(name, *args, launched=launched)
+        log.append((threading.current_thread().name, name,
+                    1 if launched is None else launched.value,
+                    time.perf_counter()))
+
+    with mock.patch.object(_build, "launch", launch):
+        yield log
+
+
+def launches_by(log, prefixes, spans=None) -> dict[str, int]:
+    """Launches a kernel in ``log`` made on threads whose names start with
+    one of ``prefixes`` (and, given ``spans``, inside one of those host
+    intervals)."""
+    out: collections.Counter = collections.Counter()
+    for thread, name, n, t in log:
+        if thread.startswith(prefixes) and (
+                spans is None or any(a <= t <= b for a, b in spans)):
+            out[name] += n
+    return dict(out)
+
+
+class TimedLock:
+    """The engine's lock, recording how long each ``with`` waited to take
+    it, by thread kind (the thread's name without its number): a flush
+    worker waits there behind another build or a compaction.  ``on_wait``,
+    if set, is called with the kind before each ``with`` takes the lock."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.waits: dict[str, list[float]] = collections.defaultdict(list)
+        self.on_wait = None
+
+    def __enter__(self):
+        kind = threading.current_thread().name.rstrip("0123456789")
+        if self.on_wait is not None:
+            self.on_wait(kind)
+        t0 = time.perf_counter()
+        self._lock.acquire()
+        self.waits[kind].append(time.perf_counter() - t0)
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+    def summary(self) -> dict[str, tuple[int, float, float]]:
+        """Per thread kind: entries, total and longest wait in ms."""
+        return {k: (len(w), 1e3 * sum(w), 1e3 * max(w))
+                for k, w in sorted(self.waits.items())}
+
+
+def seeded_stream(seed: int, n: int, value_size: int) -> list:
+    """``n`` seeded writes over ``2 n`` YCSB keys: puts of values stamped
+    with their op number (``ycsb_value(i)``), overwrites among them, and
+    one delete in ten (``None``)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 2 * n, n)
+    dels = rng.random(n) < 0.1
+    return [(key_of(int(k)), None if d else ycsb_value(i, value_size))
+            for i, (k, d) in enumerate(zip(ids, dels))]
+
+
+def apply_stream(db, stream, model: dict) -> None:
+    for k, v in stream:
+        if v is None:
+            db.delete(k)
+            model.pop(k, None)
+        else:
+            db.put(k, v)
+            model[k] = v
+
+
+def check_model(db, model: dict, keys, when: str) -> int:
+    """``keys`` by ``multi_get`` (first, so its waves reach the bloom
+    prune) and by ``get`` against ``model``; raises on a difference.
+    Returns the keys read."""
+    keys = list(keys)
+    want = [model.get(k) for k in keys]
+    if db.multi_get(keys) != want:
+        raise AssertionError(f"{when}: multi_get disagrees with the "
+                             "acknowledged writes")
+    if [db.get(k) for k in keys] != want:
+        raise AssertionError(f"{when}: get disagrees with the "
+                             "acknowledged writes")
+    return len(keys)
+
+
+def async_config(geom, sched, **kw) -> DBConfig:
+    return DBConfig(geom=geom, scheduler=sched, async_compaction=True,
+                    flush_workers=ASYNC_FLUSH_WORKERS,
+                    max_pending_memtables=ASYNC_PENDING, **kw)
+
+
+def drain(db, on_card: bool) -> float | None:
+    """``maybe_compact()`` + ``wait_idle()``: the compaction drain, on the
+    store's compaction worker when it is async.  On the card it runs once
+    under the profiler, and the CUPTI device time (ms) of all the card ran
+    meanwhile, kernels and copies, is returned: nothing else runs then, so
+    it is the drain's own.  None on the CPU, or when the trace lost its
+    marker (``trace_once``)."""
+    def run():
+        db.maybe_compact()
+        db.wait_idle()
+    if not on_card:
+        run()
+        return None
+    events = trace_once(run)
+    return sum(ms for _, ms in events) if events else None
+
+
+def flush_behind_compaction(db, lock: TimedLock, model: dict, *,
+                            geom: SSTGeometry, sched: SchedulerConfig,
+                            value_size: int, keys: list, first: int,
+                            seed: int) -> dict:
+    """Phase 9 (a), last: a flush's wait at the engine lock behind a
+    running compaction, on the async store ``db`` (``auto_compact=False``,
+    drained).  ``sched.l0_trigger + 1`` memtables of overwrites of
+    ``keys`` (values numbered from ``first``) fill L0; ``maybe_compact()``
+    starts a job, which takes the engine lock and holds it (here, not in
+    the package) until a flush worker waits there, while the writer
+    rotates one more memtable.  Returns the flush's wait and the job's
+    host time inside the lock (ms): the wait is the rest of the job."""
+    recs = memtable_records(geom, value_size)
+    rng = np.random.default_rng(seed)
+    i = first
+
+    def put(k):
+        nonlocal i
+        db.put(k, ycsb_value(i, value_size))
+        model[k] = ycsb_value(i, value_size)
+        i += 1
+
+    for j in rng.integers(0, len(keys), (sched.l0_trigger + 1) * recs):
+        put(keys[j])
+    db.wait_idle()
+    l0 = db.level_sizes()[0]
+    if l0 < sched.l0_trigger:
+        raise AssertionError(f"(a) {l0} L0 files make no compaction")
+    compacting, waiting = threading.Event(), threading.Event()
+    job_ms: list[float] = []
+    real = db.engine.compact_paths
+
+    def gated(paths, *, bottom_level=False):
+        if compacting.is_set():
+            return real(paths, bottom_level=bottom_level)
+        with lock:
+            compacting.set()
+            if not waiting.wait(timeout=CAPTURE_WAIT):
+                raise AssertionError("(a) no flush came to the engine lock")
+            t0 = time.perf_counter()
+            try:
+                return real(paths, bottom_level=bottom_level)
+            finally:
+                job_ms.append(1e3 * (time.perf_counter() - t0))
+
+    db.engine.compact_paths = gated
+    lock.on_wait = lambda kind: kind == "flush-" and waiting.set()
+    mark = len(lock.waits["flush-"])
+    try:
+        db.maybe_compact()
+        if not compacting.wait(timeout=CAPTURE_WAIT):
+            raise AssertionError("(a) maybe_compact() started no job")
+        for j in rng.integers(0, len(keys), 2 * recs):
+            put(keys[j])
+            if db.imm:
+                break
+        else:
+            raise AssertionError("(a) no memtable rotated")
+        db.wait_idle()
+    finally:
+        lock.on_wait = None
+        db.engine.compact_paths = real
+    waits = lock.waits["flush-"][mark:]
+    if len(waits) != 1 or not job_ms:
+        raise AssertionError(f"(a) {len(waits)} flushes behind the job")
+    return dict(l0=l0, wait_ms=1e3 * waits[0], job_ms=job_ms[0],
+                puts=i - first)
+
+
+def async_files_phase(work: str, dev, *, geom: SSTGeometry,
+                      sched: SchedulerConfig, value_size: int = ASYNC_VALUE,
+                      memtables: int = ASYNC_MEMTABLES, seed: int = 26
+                      ) -> dict:
+    """Phase 9 (a): one seeded stream of puts and deletes (``memtables``
+    full memtables and a quarter) into a sync store and an async one
+    (``flush_workers=3``, ``max_pending_memtables=4``), both with
+    ``auto_compact=False``.  After ``wait_idle()`` the SST files must be
+    byte-identical; again after the compaction drain (``drain``: on the
+    card its CUPTI device time, beside the jobs' CUDA-event spans).  Each
+    job's merge must take one launch a level of its merge tree; on the
+    card every write-path kernel must have launched from the async store's
+    worker threads.  A sample of keys is read back from both.  Then, on
+    the async store, one flush queued behind a running compaction
+    (``flush_behind_compaction``); and the async store's compaction jobs
+    and first ``KEPT_FLUSHES`` flushes are run again on the plain versions
+    (``check_jobs``, ``check_flushes``: byte-identical), and the wave
+    calls of its read-back held against ``ref`` (``check_waves``)."""
+    n = memtables * memtable_records(geom, value_size) * 5 // 4
+    stream = seeded_stream(seed, n, value_size)
+    keys = sorted(set(k for k, _ in stream))
+    on_card = torch.device(dev).type == "cuda"
+    out: dict = {"ops": n}
+    files = {}
+    keep_dir = os.path.join(work, "files-kept")
+    with launch_log() as log:
+        for mode in ("sync", "async"):
+            path = os.path.join(work, f"files-{mode}")
+            cfg = async_config(geom, sched, auto_compact=False)
+            if mode == "sync":
+                cfg = dataclasses.replace(cfg, async_compaction=False)
+            db = LsmDB(path, cfg, device=dev)
+            jobs = keep_jobs(db.engine,
+                             keep_dir if mode == "async" else None)
+            if mode == "async":
+                flushes = keep_flushes(db.engine, KEPT_FLUSHES)
+            db.engine._lock = lock = TimedLock(db.engine._lock)
+            model: dict = {}
+            mark = len(log)
+            t0 = time.perf_counter()
+            apply_stream(db, stream, model)
+            write_s = time.perf_counter() - t0
+            db.wait_idle()
+            drain_s = time.perf_counter() - t0 - write_s
+            l0 = sst_digests(path)
+            span0 = db.stats.compact_device_seconds
+            t0 = time.perf_counter()
+            drain_ms = drain(db, on_card)
+            compact_s = time.perf_counter() - t0
+            span_ms = 1e3 * (db.stats.compact_device_seconds - span0)
+            after = sst_digests(path)
+            rng = np.random.default_rng(seed)
+            sample = [keys[i] for i in rng.choice(
+                len(keys), min(2000, len(keys)), replace=False)]
+            with keep_waves(limit=KEPT_WAVES) as waves:
+                checked = check_model(db, model, sample, f"(a) {mode}")
+            st = db.stats
+            out[mode] = dict(
+                write_s=write_s, drain_s=drain_s, compact_s=compact_s,
+                flushes=st.flushes, compactions=st.compactions,
+                trivial_moves=st.trivial_moves, stalls=st.write_stalls,
+                l0_files=len(l0), files=len(after), levels=db.level_sizes(),
+                checked=checked, lock_waits=lock.summary(),
+                drain_device_ms=drain_ms, drain_span_ms=span_ms,
+                drain_jobs=len(jobs),
+                workers=launches_by(log[mark:], WORKERS))
+            if mode == "async":
+                out["behind"] = flush_behind_compaction(
+                    db, lock, model, geom=geom, sched=sched,
+                    value_size=value_size, keys=keys, first=n, seed=seed)
+                check_model(db, model, sample, "(a) after the flush behind "
+                            "a compaction")
+                out["jobs_seen"] = merges_seen(jobs)
+            db.close()
+            files[mode] = (l0, after)
+            shutil.rmtree(path)
+    s, a = out["sync"], out["async"]
+    if files["sync"][0] != files["async"][0]:
+        raise AssertionError("(a) the async store's L0 files differ from "
+                             "the sync store's")
+    if files["sync"][1] != files["async"][1]:
+        raise AssertionError("(a) after the compaction drain the async "
+                             "store's files differ from the sync store's")
+    if s["flushes"] != a["flushes"] or a["flushes"] < memtables or \
+            a["compactions"] < 1:
+        raise AssertionError(f"(a) flushes {s['flushes']} / {a['flushes']}"
+                             f", compactions {a['compactions']}")
+    t0 = time.perf_counter()
+    out["job_checks"] = check_jobs(jobs, geom, dev)
+    out["flush_checks"] = check_flushes(flushes, geom, dev)
+    out["wave_checks"] = check_waves(waves)
+    out["check_s"] = time.perf_counter() - t0
+    shutil.rmtree(keep_dir)
+    if len(out["flush_checks"]) != KEPT_FLUSHES or \
+            {name for name, _ in out["wave_checks"]} != set(WAVE_WRAPPERS):
+        raise AssertionError(f"(a) {len(out['flush_checks'])} flushes and "
+                             f"{out['wave_checks']} wave calls checked")
+    if on_card:
+        merge_jobs_line(out["jobs_seen"], "")   # raises unless a launch a level
+        idle = [k for k in WRITE_PATH if not a["workers"].get(k)]
+        if idle:
+            raise AssertionError(f"(a) no launch of {idle} from the async "
+                                 f"store's workers: {a['workers']}")
+    return out
+
+
+class WatchedDB(LsmDB):
+    """An ``LsmDB`` with ``readers`` threads beside its writer (phase 9 (b),
+    (c)): each ``multi_get``s the keys of ``sample`` and ``get``s every
+    sixteenth of them, with ``ReadOptions(fill_cache=False)`` so that each
+    wave reaches the bloom prune, then rests ``READER_PAUSE`` s, until the
+    store closes.  A read must
+    return a value the writer issued to that key and none older than the
+    last one acknowledged before the read began (``None`` only before the
+    first); the store's puts of ``sample`` keys record both.  Each
+    compaction job lands in ``jobs`` (``keep_jobs``), with its host
+    interval."""
+
+    OPTS = ReadOptions(fill_cache=False)
+
+    def __init__(self, path, cfg, *, device, sample, readers: int):
+        super().__init__(path, cfg, device=device)
+        self.sample = list(sample)
+        self.issued = {k: [] for k in self.sample}   # values, put order
+        self.acked = {k: 0 for k in self.sample}     # puts that returned
+        self.errors: list = []
+        self.reads = [0] * readers
+        self.jobs = keep_jobs(self.engine)
+        self.engine._lock = self.lock = TimedLock(self.engine._lock)
+        self._stop = threading.Event()
+        self._readers = [threading.Thread(target=self._read_loop, args=(i,),
+                                          name=f"reader-{i}", daemon=True)
+                         for i in range(readers)]
+        for t in self._readers:
+            t.start()
+
+    def put(self, key: bytes, value: bytes):
+        hist = self.issued.get(key)
+        if hist is None:
+            return super().put(key, value)
+        hist.append(value)
+        super().put(key, value)
+        self.acked[key] += 1
+
+    def _check(self, key, got, floor: int) -> None:
+        ok = floor == 0 if got is None else \
+            got in self.issued[key][max(floor - 1, 0):]
+        if not ok:
+            self.errors.append((key, got, floor))
+
+    def _read_loop(self, i: int) -> None:
+        try:
+            while not self._stop.is_set():
+                floors = [self.acked[k] for k in self.sample]
+                got = self.multi_get(self.sample, self.OPTS)
+                for k, v, f in zip(self.sample, got, floors):
+                    self._check(k, v, f)
+                for k in self.sample[i::16]:
+                    f = self.acked[k]
+                    self._check(k, self.get(k, self.OPTS), f)
+                self.reads[i] += len(self.sample) + len(self.sample[i::16])
+                self._stop.wait(READER_PAUSE)
+        except BaseException as e:   # noqa: BLE001 - raised at close
+            self.errors.append(("reader failed", repr(e), -1))
+
+    def close(self):
+        self._stop.set()
+        for t in self._readers:
+            t.join(timeout=60)
+        alive = any(t.is_alive() for t in self._readers)
+        super().close()
+        if alive or self.errors:
+            raise AssertionError(f"readers beside the writer: alive {alive},"
+                                 f" errors {self.errors[:5]}")
+
+
+def watched_db(made: list, path, cfg, device=None, *, sample,
+               readers: int) -> WatchedDB:
+    """``ycsb.run``'s store as a ``WatchedDB``, kept in ``made``."""
+    made.append(WatchedDB(path, cfg, device=device, sample=sample,
+                          readers=readers))
+    return made[-1]
+
+
+def async_ycsb_phase(work: str, dev, *, geometry=PAPER.geometry,
+                     sched: SchedulerConfig = PAPER_SCHED,
+                     value_size: int = ASYNC_VALUE,
+                     memtables: int = PAPER_MEMTABLES,
+                     readers: int = READERS, sample: int = READER_SAMPLE
+                     ) -> dict:
+    """Phase 9 (b) and (c): YCSB-A through ``ycsb.run`` at
+    ``geometry(value_size)`` (the LUDA store on ``dev``), ``memtables``
+    memtables of records and as many operations (phase 6's sizing), on a
+    sync store and on an async one (``ycsb.store_config(async_mode=True)``,
+    two flush workers): the same op streams, every read, the full scan and
+    a post-drain ``get`` of every key checked by ``ycsb.run``.  In both
+    runs ``readers`` reader threads read a fixed sample of the load keys
+    (``WatchedDB``); the async run's first ``KEPT_WAVES`` wave calls on
+    the reader threads are held against ``ref`` (``check_waves``); on the
+    card, ``bloom_multi_probe`` and ``lookup_blocks`` must have launched
+    on the readers while the async store's compaction worker ran a job."""
+    n = paper_records(geometry(value_size), value_size, memtables)
+    spec = PAPER.workload(value_size, records=n, operations=n)
+    sample_keys = [key_of(i) for i in range(0, n, max(1, n // sample))]
+    on_card = torch.device(dev).type == "cuda"
+    rows = {}
+    for mode in ("sync", "async"):
+        cfg = dataclasses.replace(
+            ycsb.store_config(value_size, paper=True,
+                              async_mode=mode == "async"),
+            geom=geometry(value_size), scheduler=sched)
+        made: list[WatchedDB] = []
+        make = functools.partial(watched_db, made, sample=sample_keys,
+                                 readers=readers)
+        path = os.path.join(work, f"ycsb-{mode}")
+        with launch_log() as log, mock.patch.object(ycsb, "LsmDB", make), \
+                keep_waves(limit=KEPT_WAVES if mode == "async" else 0,
+                           threads=("reader-",)) as waves:
+            r = ycsb.run(spec, cfg, device=dev, path=path, check_gets=True)
+        shutil.rmtree(path)
+        db = made[0]
+        spans = [j["span"] for j in db.jobs]
+        r.update(reads=sum(db.reads), jobs_run=len(spans),
+                 lock_waits=db.lock.summary(),
+                 reader_launches=launches_by(log, ("reader-",)),
+                 during_jobs=launches_by(log, ("reader-",), spans))
+        rows[mode] = r
+    a = rows["async"]
+    a["wave_checks"] = check_waves(waves)
+    if {name for name, _ in a["wave_checks"]} != set(WAVE_WRAPPERS):
+        raise AssertionError(f"(c) the readers' wave calls checked: "
+                             f"{a['wave_checks']}")
+    if a["compactions"] < 1 or a["jobs_run"] < 1:
+        raise AssertionError("(b) the async store ran no compaction")
+    if on_card:
+        idle = [k for k in READ_PATH if not a["during_jobs"].get(k)]
+        if idle:
+            raise AssertionError(f"(c) the readers launched no {idle} "
+                                 "while a background compaction ran: "
+                                 f"{a['during_jobs']}")
+    return rows
+
+
+def fail_build_of(engine, first_key: np.ndarray, gate: threading.Event
+                  ) -> list:
+    """Make ``engine.build_image`` raise ``RuntimeError`` once, for the
+    memtable whose smallest packed key is ``first_key`` (whichever worker
+    builds it), after ``gate`` is set.  Returns the list that receives
+    the failing thread's name."""
+    real = engine.build_image
+    failed: list[str] = []
+
+    def build(keys, meta, vals):
+        if not failed and np.array_equal(np.asarray(keys)[0], first_key):
+            failed.append(threading.current_thread().name)
+            gate.wait(timeout=CAPTURE_WAIT)
+            raise RuntimeError("injected build failure (phase 9 d)")
+        return real(keys, meta, vals)
+
+    engine.build_image = build
+    return failed
+
+
+def async_halt_phase(work: str, dev, *, geom: SSTGeometry,
+                     sched: SchedulerConfig, value_size: int = ASYNC_VALUE,
+                     memtables: int = HALT_MEMTABLES) -> dict:
+    """Phase 9 (d): an async store (``auto_compact=False``) whose second
+    memtable's ``build_image`` raises ``RuntimeError`` (the engine wrapped
+    here, not in the package).  Memtable 1 installs, then ``memtables - 1``
+    more rotations queue and the build fails; the failure halts the
+    pipeline: ``wait_idle()`` raises ``BackgroundError``,
+    the queued tables stay readable, no younger table installs
+    (``level_sizes()[0]`` stays at the first flush's), and the next
+    rotation raises ``BackgroundError`` too.  After ``resume()``,
+    ``flush()`` and ``wait_idle()`` every write reads back and the L0
+    files equal a sync store's for the same stream."""
+    from repro_torch.lsm.faults import BackgroundError
+    recs = memtable_records(geom, value_size)
+    keys = [key_of(i) for i in range((memtables + 1) * recs)]
+    first, rest = keys[:memtables * recs], keys[memtables * recs:]
+    doomed = formats.pack_key_bytes(min(keys[recs:2 * recs]),
+                                    geom.key_bytes)
+    out: dict = {}
+    files = {}
+    model: dict = {}
+    for mode in ("async", "sync"):
+        path = os.path.join(work, f"halt-{mode}")
+        cfg = async_config(geom, sched, auto_compact=False)
+        if mode == "sync":
+            cfg = dataclasses.replace(cfg, async_compaction=False)
+        db = LsmDB(path, cfg, device=dev)
+        queued_all = threading.Event()
+        if mode == "async":
+            failed = fail_build_of(db.engine, doomed, queued_all)
+        for i, k in enumerate(first):
+            db.put(k, ycsb_value(i, value_size))
+            model[k] = ycsb_value(i, value_size)
+            if i == recs - 1:
+                # memtable 1 installs before the failure: a failure halts
+                # every install after it, an older table's too
+                db.wait_idle()
+        queued_all.set()
+        if mode == "async":
+            try:
+                db.wait_idle()
+            except BackgroundError as e:
+                out["wait_idle"] = repr(e)
+            else:
+                raise AssertionError("(d) wait_idle did not raise the "
+                                     "failed build")
+            l0 = db.level_sizes()[0]
+            queued = len(db.imm)
+            check_model(db, model, first, "(d) while halted")
+        for i, k in enumerate(rest, len(first)):
+            try:
+                db.put(k, ycsb_value(i, value_size))
+            except BackgroundError as e:
+                if mode == "sync" or i != len(keys) - 1:
+                    raise
+                out["rotation"] = repr(e)
+            model[k] = ycsb_value(i, value_size)
+        if mode == "async":
+            if "rotation" not in out:
+                raise AssertionError("(d) the rotation after the failure "
+                                     "did not raise")
+            if db.level_sizes()[0] != l0 or queued != memtables - 1:
+                raise AssertionError(f"(d) while halted: L0 {l0} -> "
+                                     f"{db.level_sizes()[0]}, {queued} "
+                                     "tables queued")
+            out.update(l0_halted=l0, queued=queued, failed_on=failed[0],
+                       resumed=db.resume())
+        db.flush()
+        db.wait_idle()
+        out[f"{mode}_checked"] = check_model(db, model, keys,
+                                             f"(d) {mode}")
+        out[f"{mode}_levels"] = db.level_sizes()
+        db.close()
+        files[mode] = sst_digests(path)
+        shutil.rmtree(path)
+    if files["async"] != files["sync"] or not files["sync"]:
+        raise AssertionError("(d) after resume() the L0 files differ from "
+                             "the sync store's")
+    out["files"] = len(files["sync"])
+    return out
+
+
+def async_sharded_phase(work: str, dev, *, geom: SSTGeometry,
+                        sched: SchedulerConfig,
+                        value_size: int = ASYNC_VALUE, shards: int = SHARDS,
+                        memtables: int = SHARD_MEMTABLES,
+                        mix_ops: int = ASYNC_SHARD_OPS,
+                        sample: int = ASYNC_SHARD_SAMPLE, seed: int = 42
+                        ) -> dict:
+    """Phase 9 (e): ``ShardedDB`` of ``shards`` async shards
+    (``async_compaction=True``, two flush workers a shard, one queue):
+    ``memtables`` full memtables a shard through ``put`` while the queue
+    compacts, then ``mix_ops`` of YCSB-A (zipfian 0.99), every read
+    checked; after ``wait_idle()`` every acknowledged write read back by a
+    scan across the shards and a sample by ``get`` and ``multi_get``
+    (``read_back``), and again after close and reopen."""
+    from repro_torch.lsm.sharded import ShardedDB, boundaries_from_sample
+    per_shard = memtables * memtable_records(geom, value_size)
+    cuts = boundaries_from_sample(
+        [key_of(i) for i in range(shards * per_shard)], shards)
+    ids = shard_keys(cuts, shards, per_shard)
+    cfg = DBConfig(geom=geom, scheduler=sched, async_compaction=True,
+                   flush_workers=2)
+    path = os.path.join(work, "async-sharded")
+    model: dict[bytes, int] = {}
+    updated: dict[bytes, bytes] = {}
+    db = ShardedDB(path, cfg, shards=shards, boundaries=cuts, device=dev)
+    t0 = time.perf_counter()
+    for i in sorted(i for s in ids for i in s):
+        k = key_of(i)
+        db.put(k, ycsb_value(i, value_size))
+        model[k] = i
+    load_s = time.perf_counter() - t0
+    spec = WorkloadSpec.ycsb_a(records=max(model.values()) + 1,
+                               operations=mix_ops, value_size=value_size,
+                               seed=seed)
+    t0 = time.perf_counter()
+    reads = 0
+    for kind, k, v in YCSBWorkload(spec).run_ops():
+        if kind == "read":
+            want = updated.get(k)
+            if want is None and k in model:
+                want = ycsb_value(model[k], value_size)
+            if db.get(k) != want:
+                raise AssertionError(f"(e) a YCSB read of {k!r} disagrees")
+            reads += 1
+        else:
+            db.put(k, v)
+            updated[k] = v
+    mix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    db.wait_idle()
+    drain_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    loaded = list(model)
+    keys = list(updated) + [loaded[i] for i in rng.choice(
+        len(loaded), min(sample, len(loaded)), replace=False)] + \
+        [b"absent%010d" % i for i in range(200)]
+    rows = read_back(db, model, updated, keys, value_size,
+                     "(e) before reopen")
+    counts = store_counts(db)
+    levels = db.level_sizes()
+    db.close()
+    db = ShardedDB(path, cfg, device=dev)
+    if read_back(db, model, updated, keys, value_size,
+                 "(e) after reopen") != rows:
+        raise AssertionError("(e) the reopened store scans other rows")
+    db.close()
+    shutil.rmtree(path)
+    st = counts["stats"]
+    if st.flushes < shards * memtables or st.compactions < 1:
+        raise AssertionError(f"(e) {st.flushes} flushes, {st.compactions} "
+                             "compactions")
+    return dict(per_shard=per_shard, load_s=load_s, mix_s=mix_s,
+                drain_s=drain_s, reads=reads, updates=mix_ops - reads,
+                scan_rows=rows, checked=len(keys), counts=counts,
+                levels=levels)
+
+
+def capture_beside_flush(eng, prompts, work: str, *,
+                         nbytes: int = 4 * 1024 * 1024, seed: int = 7,
+                         batch: int = CAPTURE_BATCH, max_new: int = SERVE_NEW,
+                         db_cfg: DBConfig | None = None) -> dict:
+    """Phase 9 (f): a seeded ``nbytes`` served state (as phase 7's
+    cross-device check pages it) saved into an async store on the
+    engine's device: the save's rotation hands a flush to a worker.
+    Before the store's ``wait_idle()``, ``generate`` serves ``batch``
+    requests, a batch size not yet captured, so its first decode step
+    captures a CUDA graph; on the card the flush's build is held until
+    the capture begins, and the capture is held open until the build has
+    run (both here, not in the package), so the worker's allocations,
+    copies and kernels run inside the capture.  The tokens must equal an
+    uninterrupted eager run's (prefill, then ``model.decode_step``) and
+    the state must load back bit for bit after ``wait_idle()``."""
+    dev = eng.device
+    on_card = dev.type == "cuda"
+    p = prompts[:batch]
+    if batch in eng._graphs:
+        raise AssertionError(f"(f) batch {batch} is captured already")
+    # the uninterrupted run: eager decode, the store not yet open
+    logit, cache, pos = lm.prefill(eng.params, {"tokens": p}, eng.cfg,
+                                   eng.max_len)
+    tok = logit.argmax(-1)[:, None].to(torch.int32)
+    eager = []
+    for i in range(max_new):
+        eager.append(tok[:, 0])
+        if i + 1 == max_new:
+            break
+        logits, cache = lm.decode_step(eng.params, cache, tok, pos, eng.cfg)
+        tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+        pos = pos + 1
+    eager = torch.stack(eager, 1).cpu().numpy()
+    del cache, logit
+
+    host = synthetic_state(np.random.default_rng(seed), nbytes)
+    cfg = dataclasses.replace(db_cfg or session_config(),
+                              async_compaction=True, flush_workers=2)
+    path = os.path.join(work, "capture-async")
+    db = LsmDB(path, cfg, device=dev)
+    started, built = threading.Event(), threading.Event()
+    times: dict[str, float] = {}
+    real = db.engine.build_image
+
+    def build(*a, **kw):
+        if on_card and not started.wait(timeout=CAPTURE_WAIT):
+            raise AssertionError("(f) the capture never began")
+        times["build0"] = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            times["build1"] = time.perf_counter()
+            built.set()
+
+    class Graph(torch.cuda.graph):
+        """The engine's capture, held open until the flush has built."""
+
+        def __enter__(self):
+            super().__enter__()
+            times["capture0"] = time.perf_counter()
+            started.set()
+
+        def __exit__(self, *exc):
+            built.wait(timeout=CAPTURE_WAIT)
+            times["capture1"] = time.perf_counter()
+            return super().__exit__(*exc)
+
+    db.engine.build_image = build
+    try:
+        store = LsmSessionStore(db, host)
+        state = tree_map(lambda a: a.to(dev), host)
+        records = store.save("synthetic", state)
+        queued = len(db.imm)
+        with mock.patch.object(torch.cuda, "graph", Graph):
+            tokens = eng.generate(p, max_new)[0]
+        db.wait_idle()
+        check_state(store.load("synthetic"), state,
+                    "(f) the state saved beside the capture")
+        st = db.stats
+    finally:
+        db.close()
+        shutil.rmtree(path)
+    if not np.array_equal(tokens, eager):
+        raise AssertionError("(f) the tokens of the decode captured beside "
+                             "a flush differ from the eager run's")
+    if queued < 1 or st.flushes < 1:
+        raise AssertionError(f"(f) the save queued {queued} memtables")
+    inside = None
+    if on_card:
+        if batch not in eng._graphs:
+            raise AssertionError(f"(f) no graph captured for batch {batch}")
+        inside = times["capture0"] <= times["build0"] and \
+            times["build1"] <= times["capture1"]
+        if not inside:
+            raise AssertionError(f"(f) the flush's build did not run inside "
+                                 f"the capture: {times}")
+    return dict(records=records, bytes=state_bytes(host), queued=queued,
+                flushes=st.flushes, compactions=st.compactions,
+                tokens=tokens, inside=inside,
+                build_s=times.get("build1", 0.0) - times.get("build0", 0.0),
+                capture_s=(times["capture1"] - times["capture0"]
+                           if "capture1" in times else None))
+
+
+def async_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The phase-9 report of part ``part`` (``"a"``, ``"b"``, ``"d"``,
+    ``"e"``, ``"f"``; (c) reports with (b)), with its seconds."""
+    took = f" ({r['seconds']:.1f} s)"
+    if part == "a":
+        s_, a = r["sync"], r["async"]
+        lines = [
+            f"[9] (a) {r['ops']} seeded puts and deletes, sync against "
+            f"async (flush_workers={ASYNC_FLUSH_WORKERS}, "
+            f"max_pending_memtables={ASYNC_PENDING}, auto_compact=False): "
+            f"{a['flushes']} flushes, {a['l0_files']} L0 files "
+            f"byte-identical; after maybe_compact() + wait_idle() "
+            f"{a['files']} files byte-identical ({a['compactions']} "
+            f"compactions, levels {a['levels']}); writes sync "
+            f"{s_['write_s']:.2f} s / async {a['write_s']:.2f} s (+ drain "
+            f"{a['drain_s']:.2f} s, {a['stalls']} write stalls); launches "
+            f"from the async store's workers {a['workers']}; the engine "
+            f"lock's waits (entries, total ms, longest ms) "
+            f"{a['lock_waits']} [{card}]" + took]
+        drains = []
+        for mode in ("sync", "async"):
+            m = r[mode]
+            ms = m["drain_device_ms"]
+            drains.append(
+                f"{mode} {m['drain_jobs']} jobs, device time "
+                + ("not measured" if ms is None else f"{ms:.4f} ms (CUPTI)")
+                + f", CUDA-event spans {m['drain_span_ms']:.4f} ms")
+        bh = r["behind"]
+        lines += [
+            f"[9] (a) the compaction drain alone on the card: "
+            + "; ".join(drains) + f" [{card}]",
+            f"[9] (a) a flush queued behind a running compaction "
+            f"({bh['l0']} L0 files, {bh['puts']} puts of overwrites): it "
+            f"waited {bh['wait_ms']:.3f} ms at the engine lock; the job "
+            f"ran {bh['job_ms']:.3f} ms inside the lock (host clock) "
+            f"[{card}]",
+            f"[9] (a) on the plain versions on the same inputs: the async "
+            f"store's jobs (inputs, merge launches, live rows) "
+            f"{r['job_checks']} byte-identical, its first flushes "
+            f"(entries) {r['flush_checks']} byte-identical; its read-back's "
+            f"wave calls (wrapper, shape) {r['wave_checks']} bit-identical "
+            f"({r['check_s']:.1f} s)"]
+        if any(n for _, n, _ in r["jobs_seen"]):
+            lines.append(merge_jobs_line(r["jobs_seen"], card, phase=9))
+        return lines
+    if part == "b":
+        lines = []
+        for mode in ("sync", "async"):
+            m = r[mode]
+            p50, p99, p999 = m["latency_us"]["put"]
+            dev_s, span_s = m["compact_device_s"], m["compact_span_s"]
+            lines.append(
+                f"[9] (b) YCSB-A {mode:<5} v={m['value_size']} "
+                f"{m['records']} records + {m['operations']} ops: load "
+                f"{m['load_ops_s']:,.0f} ops/s, run {m['run_ops_s']:,.0f} "
+                f"ops/s; put p50 {p50:.1f} / p99 {p99:.1f} / p99.9 "
+                f"{p999:.1f} / max {m['put_max_us']:.1f} us (host clock); "
+                f"{m['write_stalls']} write stalls; {m['flushes']} "
+                f"flushes, {m['compactions']} compactions, "
+                f"compact_device_s "
+                + ("not measured" if dev_s is None else f"{dev_s:.4f}")
+                + ("" if span_s is None or dev_s is not None else
+                   f" (the jobs' CUDA-event spans {span_s:.4f} s hold the "
+                   f"readers' waves and the worker's waits)")
+                + f"; drain {m['drain_s']:.2f} s; the engine lock's waits "
+                f"{m['lock_waits']} [{card}]")
+        ratio = r["async"]["latency_us"]["put"][1] / \
+            r["sync"]["latency_us"]["put"][1]
+        lines.append(
+            f"[9] (b) async / sync p99 put {ratio:.3f} (a timing, not a "
+            f"gate); in both modes the {r['async']['scan_rows']}-row scan "
+            f"and a get of each key after the drain equal the acknowledged "
+            f"writes" + took)
+        for mode in ("sync", "async"):
+            m = r[mode]
+            lines.append(
+                f"[9] (c) {mode}: {READERS} readers read {m['reads']} keys "
+                f"beside the writer, every value issued and none stale; "
+                f"their launches {m['reader_launches']}, of them inside "
+                f"the {m['jobs_run']} compaction jobs {m['during_jobs']}"
+                + ("" if mode == "sync" else
+                   f"; their first wave calls (wrapper, shape) "
+                   f"{m['wave_checks']} bit-identical to the plain "
+                   f"versions"))
+        return lines
+    if part == "d":
+        return [
+            f"[9] (d) halt: the build of memtable 2 raised on "
+            f"{r['failed_on']}; wait_idle raised {r['wait_idle'][:90]}...; "
+            f"{r['queued']} tables queued and readable, L0 held at "
+            f"{r['l0_halted']}; the next rotation raised too; resume() -> "
+            f"{r['resumed']}; {r['async_checked']} keys read back, "
+            f"{r['files']} L0 files equal the sync store's" + took]
+    if part == "e":
+        return [
+            f"[9] (e) async ShardedDB ({SHARDS} shards, {r['per_shard']} "
+            f"records a shard): load {r['load_s']:.1f} s while the queue "
+            f"compacted, YCSB-A {r['reads']} reads (each checked) and "
+            f"{r['updates']} updates in {r['mix_s']:.1f} s, drain "
+            f"{r['drain_s']:.2f} s; {r['scan_rows']}-row scan and "
+            f"{r['checked']} keys by get and multi_get agree before and "
+            f"after reopen; levels {r['levels']} [{card}]" + took,
+            counts_line("(e) the async shards", r["counts"]).replace(
+                "[8]", "[9]")]
+    capture = ("no capture on the CPU" if r["inside"] is None else
+               f"build {r['build_s'] * 1e3:.1f} ms inside the capture, "
+               f"which was held {r['capture_s']:.2f} s")
+    return [
+        f"[9] (f) a {r['bytes']:,} B state ({r['records']} records) saved "
+        f"into an async store, {r['queued']} memtable queued; decode of "
+        f"{CAPTURE_BATCH} requests captured while its flush built "
+        f"({capture}); tokens equal the eager run's; the state loads back "
+        f"bit for bit ({r['flushes']} flushes, {r['compactions']} "
+        f"compactions)" + took]
+
+
+def async_lines(p9: dict, card: str) -> str:
+    """The phase-9 report."""
+    return "\n".join(ln for part in "abdef"
+                     for ln in async_part_lines(part, p9[part], card))
+
+
+def async_phase(work: str, dev, eng, prompts, *, geom=ASYNC_GEOM,
+                sched=PAPER_SCHED, geometry=PAPER.geometry,
+                memtables=PAPER_MEMTABLES, session_cfg=None, report=None,
+                **sharded_kw) -> dict:
+    """Phase 9: (a)-(f) on ``dev``, the launch counts set to 0 just before
+    and read just after; each part's result (with its ``seconds``) is
+    passed to ``report(part, result)`` as it comes.  (``geom``,
+    ``geometry``, ``memtables``, ``session_cfg`` and ``sharded_kw`` scale
+    it down for a rehearsal.)"""
+    parts = {
+        "a": lambda: async_files_phase(work, dev, geom=geom, sched=sched),
+        "b": lambda: async_ycsb_phase(work, dev, geometry=geometry,
+                                      sched=sched, memtables=memtables),
+        "d": lambda: async_halt_phase(work, dev, geom=geom, sched=sched),
+        "e": lambda: async_sharded_phase(work, dev, geom=geom, sched=sched,
+                                         **sharded_kw),
+        "f": lambda: capture_beside_flush(eng, prompts, work,
+                                          db_cfg=session_cfg)}
+    ops.reset_launch_counts()
+    out = {}
+    for part, run in parts.items():
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["seconds"] = time.perf_counter() - t0
+        if report is not None:
+            report(part, out[part])
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def card_line() -> str:
@@ -2680,12 +3662,17 @@ def main(argv: list[str]) -> int:
 
     log("[2] kernels against their plain versions (65,536-row job shapes, "
         "256- and 1,024-candidate read waves)")
+    t0 = time.perf_counter()
     checks, sort_rows = check_kernels(dev, card)
     if kernels_only:
         return 0
+    log(f"[2] the timed cases {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_edges(dev, sort_rows)
+    log(f"[2] the edge tables {time.perf_counter() - t0:.1f} s")
 
     log("[3] store at the paper geometry")
+    t_phase = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
         ROOT, "build"))
@@ -2730,6 +3717,8 @@ def main(argv: list[str]) -> int:
             raise AssertionError(f"kernels not launched on the store's "
                                  f"paths: {idle}")
 
+        log(f"[3] {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         log("[4] one real L0->L1 job on cuda (merge and device sort) and on "
             "cpu")
         live, job_launches = compare_job(st["kept"], PAPER_GEOM, dev)
@@ -2770,7 +3759,9 @@ def main(argv: list[str]) -> int:
             f"device time [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"[4] {time.perf_counter() - t_phase:.1f} s")
 
+    t_phase = time.perf_counter()
     cfg = get_config(FALCON)
     log(f"[5] serve {FALCON} at full width: d_model {cfg.d_model}, d_inner "
         f"{cfg.d_inner}, ssm_state {cfg.ssm_state}, dt_rank {cfg.dt_rank}, "
@@ -2831,6 +3822,7 @@ def main(argv: list[str]) -> int:
         if not ratio <= LOGIT_TOL:
             raise AssertionError(f"{what}: last logits differ by {ratio:.3g}"
                                  f" of their largest magnitude")
+    log(f"[5] {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[6] the paper's evaluation: YCSB-A at PAPER.geometry(v), "
         f"v = {', '.join(map(str, PAPER.value_sizes))} B, LUDA (cuda) "
@@ -2864,6 +3856,7 @@ def main(argv: list[str]) -> int:
         xd = cross_device_pages(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    served = (sv["engine"], sv["prompts"])   # phase 9 (f) serves again
     del sv
     log(session_lines(ss, xd, card))
     log(f"[7] {time.perf_counter() - t0:.1f} s")
@@ -2885,6 +3878,28 @@ def main(argv: list[str]) -> int:
                              f"paths: {idle}")
     log(f"[8] {time.perf_counter() - t0:.1f} s")
 
+    log(f"[9] the async write path on the card: LsmDB and ShardedDB with "
+        f"async_compaction=True at PAPER.geometry({ASYNC_VALUE}) and "
+        f"PAPER.scheduler(), against sync stores on the same streams")
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        p9 = async_phase(work, dev, *served, report=lambda part, r: log(
+            "\n".join(async_part_lines(part, r, card))))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del served
+    idle = [k for k in STORE_PATH if not p9["launches"][k]]
+    if idle:
+        raise AssertionError(f"kernels not launched on the async store's "
+                             f"paths: {idle}")
+    log(f"[9] launches (a)-(f): " + ", ".join(
+        f"{k} {p9['launches'][k]}" for k in KERNELS))
+    log(f"[9] {time.perf_counter() - t0:.1f} s")
+
+    # the main paths: phase 3's store (with phase 4's device sort and
+    # phase 5's prefill) and phase 9's async stores
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -2893,7 +3908,10 @@ def main(argv: list[str]) -> int:
         r = checks[case]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_launches[entry], max_abs_err=r["max_abs_err"],
+            launches=path_launches[entry] + p9["launches"][entry],
+            launches_by_path={"store": path_launches[entry],
+                              "async": p9["launches"][entry]},
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             call_ms=r["call_ms"], plain_call_ms=r["plain_call_ms"]))

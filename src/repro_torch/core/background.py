@@ -1,7 +1,12 @@
 """Background execution (the port of ``repro.core.background``, in part).
 
 * ``BackgroundExecutor`` -- a named worker pool with a ``wait_idle()``
-  barrier and first-error capture.
+  barrier and first-error capture.  The async store's flush workers and
+  its compaction worker run here, so ``put()`` never waits for the card.
+* ``InstallSequencer`` -- a ticket lock that serializes SST installs in
+  memtable-rotation order.  Flush workers may build L0 images at the
+  same time (``flush_workers=N``), but L0 reads resolve key versions by
+  file number, so installs must land newest-memtable-last.
 * ``GlobalCompactionQueue`` -- the cross-shard compaction coordinator
   behind ``ShardedDB``: shards publish that they have work, one worker
   drains them in rounds through the shared engine's ``compact_many``.
@@ -10,15 +15,24 @@
   (the paper's "judicious data movement" applied across the files of a
   job).
 
-The install sequencer comes with the async write path.  The primitives
-are stdlib threading; their threads are daemons, and
-``shutdown``/``close`` joins or stops them.
+The primitives are stdlib threading; their threads are daemons, and
+``shutdown``/``close`` joins or stops them.  A worker thread launches on
+the current device's default stream, which every thread of the process
+shares, so work that one thread queues on the card is ordered with the
+work another queues after it.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
+
+
+def remaining(deadline: float | None) -> float | None:
+    """Seconds left until a ``time.monotonic()`` deadline (None: no
+    deadline), never below 0."""
+    return None if deadline is None else max(0.0, deadline - time.monotonic())
 
 
 class BackgroundExecutor:
@@ -107,6 +121,36 @@ class BackgroundExecutor:
             self._q.put(None)
         for t in self._threads:
             t.join()
+
+
+class InstallSequencer:
+    """Hands out increasing tickets; ``wait_turn(t)`` blocks until every
+    ticket below ``t`` has called ``done(t')``.  Serializes L0 installs in
+    rotation order while letting the image builds overlap.  A holder must
+    call ``done`` for its ticket, also when its work failed, or every
+    later ticket waits for ever (``wait_turn`` has no timeout)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._next_ticket = 0                         # guarded-by: _lock
+        self._next_install = 0                        # guarded-by: _lock
+
+    def issue(self) -> int:
+        with self._lock:
+            t = self._next_ticket
+            self._next_ticket += 1
+            return t
+
+    def wait_turn(self, ticket: int):
+        with self._cv:
+            self._cv.wait_for(lambda: self._next_install == ticket)
+
+    def done(self, ticket: int):
+        with self._cv:
+            assert self._next_install == ticket
+            self._next_install += 1
+            self._cv.notify_all()
 
 
 class GlobalCompactionQueue:
@@ -212,11 +256,15 @@ class GlobalCompactionQueue:
         if err is not None:
             raise err
 
-    def wait_idle(self):
+    def wait_idle(self, timeout: float | None = None):
         """Barrier: returns once no shard has pending compaction work.
-        Re-raises the first background error."""
+        Re-raises the first background error; raises ``TimeoutError``
+        when ``timeout`` seconds pass first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
         while True:
-            self._exec.wait_idle()
+            if not self._exec.wait_idle(timeout=remaining(deadline)):
+                raise TimeoutError("compaction queue still busy after "
+                                   f"{timeout} s")
             resubmit = False
             with self._lock:
                 if not self._pending and not self._scheduled:

@@ -175,12 +175,19 @@ class PinnedStaging:
 
     ``to_device`` packs several host arrays into one buffer and moves them
     with one non-blocking copy on the current stream, which orders the
-    work that reads them after it.  ``to_host`` copies tensors back on a
-    side stream that first waits for the current stream's work, then
-    hands back owned numpy arrays, never views of a buffer that the next
-    call overwrites.  Each buffer keeps the event of the last copy that
-    read it, and the host waits on that event before writing the buffer
-    again.  ``close`` releases the buffers; the next call allocates anew.
+    work that reads them after it.  ``to_host`` copies tensors back on the
+    current stream too, after the work that made them, waits for the
+    copies, then hands back owned numpy arrays, never views of a buffer
+    that the next call overwrites.  Each buffer keeps the event of the
+    last copy that read it, and the host waits on that event before
+    writing the buffer again.  ``close`` releases the buffers; the next
+    call allocates anew.
+
+    No copy goes through a stream of PyTorch's pool (``torch.cuda.Stream``
+    hands the same few CUDA streams out round-robin): an async store's
+    worker calls here while the serving engine may be capturing a CUDA
+    graph on a pool stream in another thread, and a wait put into the
+    capturing stream from here would break that capture.
     """
 
     MIN_BYTES = 1 << 16
@@ -189,7 +196,6 @@ class PinnedStaging:
         self.device = torch.device(device)
         self._bufs: dict[int, torch.Tensor] = {}
         self._pending: dict[int, torch.cuda.Event] = {}
-        self._side = torch.cuda.Stream(self.device)
 
     def _take(self, words: int) -> tuple[int, torch.Tensor]:
         nbytes = max(self.MIN_BYTES, 1 << max(0, 4 * words - 1).bit_length())
@@ -223,16 +229,11 @@ class PinnedStaging:
     def to_host(self, tensors: list[torch.Tensor]) -> list[np.ndarray]:
         """int32 tensors on the card as owned int32 numpy arrays."""
         nbytes, buf = self._take(sum(t.numel() for t in tensors))
-        self._side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._side):
-            off = 0
-            for t in tensors:
-                buf[off:off + t.numel()].view(t.shape).copy_(
-                    t, non_blocking=True)
-                t.record_stream(self._side)
-                off += t.numel()
-            done = self._side.record_event()
-        done.synchronize()
+        off = 0
+        for t in tensors:
+            buf[off:off + t.numel()].view(t.shape).copy_(t, non_blocking=True)
+            off += t.numel()
+        torch.cuda.current_stream(self.device).record_event().synchronize()
         host = buf.numpy()
         out, off = [], 0
         for t in tensors:

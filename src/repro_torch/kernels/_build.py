@@ -10,7 +10,9 @@ and the flags, so an edited source builds anew.  Nothing is built when the
 module is imported: the CPU tests import every module.
 
 Every launch goes through :func:`launch`, which checks the launch's error
-code and counts the launch under the kernel's name.
+code and counts the launch under the kernel's name.  The async store
+launches from its flush and compaction workers and from reader threads at
+once, so the build and the counts are taken under a lock.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -56,6 +59,8 @@ SIGNATURES = {
 LAUNCHES = {name: 0 for name in SIGNATURES}
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()     # one build, whichever thread comes first
+_count_lock = threading.Lock()   # launches counted from several threads
 build_seconds: float | None = None   # wall time of the build (None: cached)
 
 
@@ -124,23 +129,31 @@ def _compile(out_dir: Path) -> None:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
-    global _lib, build_seconds
+    global _lib
     if _lib is None:
-        out_dir = build_dir() / _digest()
-        path = out_dir / LIB_NAME
-        if not path.exists():
-            t0 = time.perf_counter()
-            _compile(out_dir)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                _lib = _load()
     return _lib
+
+
+def _load() -> ctypes.CDLL:
+    """Build the library if this digest has none yet, then bind it."""
+    global build_seconds
+    out_dir = build_dir() / _digest()
+    path = out_dir / LIB_NAME
+    if not path.exists():
+        t0 = time.perf_counter()
+        _compile(out_dir)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def build_log() -> str:
@@ -162,16 +175,19 @@ def launch(name: str, *args, launched: ctypes.c_int | None = None) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(error {err})")
-    LAUNCHES[name] += 1 if launched is None else launched.value
+    with _count_lock:
+        LAUNCHES[name] += 1 if launched is None else launched.value
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,

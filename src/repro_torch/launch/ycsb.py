@@ -4,7 +4,7 @@ card or the CPU compaction baseline (the JAX package's
 
     PYTHONPATH=src python -m repro_torch.launch.ycsb [--engine device|cpu]
         [--threads 1] [--value-size 256] [--records N] [--operations N]
-        [--workload A] [--paper] [--device cpu]
+        [--workload A] [--paper] [--async] [--device cpu]
 
 ``--paper`` runs at the paper's geometry and scheduler
 (``configs.luda_paper.PAPER``: 4 KB blocks, 4 MB SSTs and memtables);
@@ -14,6 +14,14 @@ compaction jobs stay proportional to a scaled-down record count.  With no
 store on the CPU engine keeps its device for the batched read path
 (``multi_get``, which YCSB does not call); ``--device cpu`` keeps a
 baseline run off the card entirely.
+
+``--async`` runs the same op streams twice, on a synchronous store and on
+an async one (``DBConfig.async_compaction``: two flush workers and a
+compaction worker; the JAX package's ``benchmarks/ycsb_bench.py
+--async``), and
+prints a row a mode -- put p50 / p99 / p99.9, ops/s, flushes,
+compactions, write stalls; each run also reads back every acknowledged
+key by ``get`` after the drain.
 """
 
 from __future__ import annotations
@@ -33,18 +41,28 @@ from repro_torch.device import resolve_device
 from repro_torch.lsm.db import DBConfig, LsmDB
 
 
+# an async store's flush workers, as the JAX bench's ``measure_latency``
+# runs them
+FLUSH_WORKERS = 2
+
+
 def store_config(value_size: int, *, engine: str = "device",
-                 threads: int = 1, paper: bool = False) -> DBConfig:
+                 threads: int = 1, paper: bool = False,
+                 async_mode: bool = False) -> DBConfig:
     """The store for ``value_size``-byte values: the paper's geometry and
-    scheduler, or the scaled bench geometry (as the JAX demo's)."""
+    scheduler, or the scaled bench geometry (as the JAX demo's).
+    ``async_mode``: background flushes (``FLUSH_WORKERS`` of them) and
+    compaction."""
+    mode = dict(async_compaction=async_mode, flush_workers=FLUSH_WORKERS)
     if paper:
         return DBConfig(geom=PAPER.geometry(value_size),
                         scheduler=PAPER.scheduler(), engine=engine,
-                        threads=threads)
+                        threads=threads, **mode)
     return DBConfig(geom=bench_geometry(value_size), engine=engine,
                     threads=threads, memtable_bytes=64 * 1024,
                     scheduler=SchedulerConfig(l0_trigger=4,
-                                              base_bytes=512 * 1024))
+                                              base_bytes=512 * 1024),
+                    **mode)
 
 
 def percentiles_us(lat_ns: list[int]) -> list[float] | None:
@@ -55,21 +73,31 @@ def percentiles_us(lat_ns: list[int]) -> list[float] | None:
 
 
 def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
-        path: str | None = None) -> dict:
+        path: str | None = None, check_gets: bool = False) -> dict:
     """Load ``spec.records`` through ``put``, then run ``spec.operations``
     of the YCSB mix, on a new store at ``path`` (default: a temporary
     directory, removed after).  The op streams are built before the clock
     starts.  Every read is checked against a dict of the acknowledged
-    writes, and after the run a full ``scan`` must equal it; a
-    disagreement raises ``AssertionError``.
+    writes; after the run (and, on an async store, ``wait_idle()``, the
+    drain) a full ``scan`` must equal it, and with ``check_gets`` so must
+    a ``get`` of every acknowledged key; a disagreement raises
+    ``AssertionError``.
 
-    Returns load and run wall seconds and ops/s; read, update and insert
-    latencies (p50, p99, p99.9 in us, host clock; None for a kind the mix
-    lacks); flushes, compactions (and the L0->L1 jobs among them, with
-    the fewest input files of one) and compaction bytes; each job's
+    Returns the mode (sync or async); load and run wall seconds and
+    ops/s; the drain's seconds; read, update and insert latencies, and
+    those of every put of the load and the run (p50, p99, p99.9 in us,
+    host clock; None for a kind the mix lacks), and the longest put;
+    write stalls; with ``check_gets``, the keys read back by ``get``
+    after the drain (else 0); flushes, compactions
+    (and the L0->L1 jobs among them, with the fewest input files of one)
+    and compaction bytes; each job's
     ``(level, input files, bytes in, host s, device s)``; the wall seconds
     around the engine's compaction calls; and, for the device engine on
-    the card, ``compact_device_s`` (CUDA events; None otherwise)."""
+    the card, ``compact_span_s``, the sum of the jobs' CUDA-event spans,
+    and, on a sync store, the same sum as ``compact_device_s`` (None
+    otherwise): on an async store the events also bracket the readers'
+    and flushes' work queued on the card between them, and the worker's
+    waits for the interpreter, so the span is not the jobs' device time."""
     dev = resolve_device(device)
     wl = YCSBWorkload(spec)
     load_ops = list(wl.load_ops())
@@ -78,13 +106,16 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
     if tmp:
         path = tempfile.mkdtemp(prefix=f"ycsb-{cfg.engine}-")
     model: dict[bytes, bytes] = {}
-    lat: dict[str, list[int]] = {"read": [], "update": [], "insert": []}
+    lat: dict[str, list[int]] = {"read": [], "update": [], "insert": [],
+                                 "put": []}
     clock = time.perf_counter_ns
     db = LsmDB(path, cfg, device=dev)
     try:
         t0 = time.perf_counter()
         for _, key, val in load_ops:
+            c0 = clock()
             db.put(key, val)
+            lat["put"].append(clock() - c0)
             model[key] = val
         load_s = time.perf_counter() - t0
 
@@ -99,14 +130,24 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
                                          "the acknowledged writes")
             else:
                 db.put(key, val)
-                lat[op].append(clock() - c0)
+                dt = clock() - c0
+                lat[op].append(dt)
+                lat["put"].append(dt)
                 model[key] = val
         run_s = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
+        db.wait_idle()   # the background flushes and compactions
+        drain_s = time.perf_counter() - t0
         rows = db.scan(b"", b"\xff" * (cfg.geom.key_bytes + 1))
         if rows != sorted(model.items()):
             raise AssertionError("a full scan disagrees with the "
                                  "acknowledged writes")
+        for key in sorted(model) if check_gets else ():
+            if db.get(key) != model[key]:
+                raise AssertionError(f"get of {key!r} after the drain "
+                                     "disagrees with the acknowledged "
+                                     "writes")
         st = db.stats
         levels = db.level_sizes()
         jobs = [(r.level, r.inputs, r.stats.bytes_in, r.stats.host_seconds,
@@ -118,13 +159,17 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
     on_card = cfg.engine == "device" and dev.type == "cuda"
     return dict(
         engine=cfg.engine, threads=cfg.threads, device=str(dev),
+        mode="async" if cfg.async_compaction else "sync",
         workload=spec.name, distribution=spec.distribution,
         value_size=spec.value_size, records=spec.records,
         operations=spec.operations,
         load_s=load_s, load_ops_s=spec.records / load_s,
-        run_s=run_s, run_ops_s=spec.operations / run_s,
+        run_s=run_s, run_ops_s=spec.operations / run_s, drain_s=drain_s,
         latency_us={op: percentiles_us(v) for op, v in lat.items()},
         reads_checked=len(lat["read"]), scan_rows=len(rows),
+        put_max_us=max(lat["put"], default=0) / 1e3,
+        gets_after_drain=len(model) if check_gets else 0,
+        write_stalls=st.write_stalls,
         flushes=st.flushes, compactions=st.compactions,
         trivial_moves=st.trivial_moves, levels=levels,
         l0_jobs=sum(j[0] == 0 for j in jobs),
@@ -133,7 +178,24 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
         compact_bytes_in=st.compact_bytes_in,
         compact_bytes_out=st.compact_bytes_out,
         compact_wall_s=st.compact_wall_seconds,
-        compact_device_s=st.compact_device_seconds if on_card else None)
+        compact_span_s=st.compact_device_seconds if on_card else None,
+        compact_device_s=(st.compact_device_seconds
+                          if on_card and not cfg.async_compaction
+                          else None))
+
+
+def mode_line(r: dict) -> str:
+    """One row of the sync / async comparison: put p50 / p99 / p99.9 (us,
+    host clock), ops/s of the load and the run, flushes, compactions and
+    write stalls."""
+    p50, p99, p999 = r["latency_us"]["put"]
+    return (f"[{r['engine']} {r['mode']:<5}] put p50 {p50:.1f} us, p99 "
+            f"{p99:.1f} us, p99.9 {p999:.1f} us, max {r['put_max_us']:.1f} "
+            f"us | load "
+            f"{r['load_ops_s']:,.0f} ops/s, run {r['run_ops_s']:,.0f} "
+            f"ops/s | {r['flushes']} flushes, {r['compactions']} "
+            f"compactions, {r['write_stalls']} write stalls, drain "
+            f"{r['drain_s']:.2f} s")
 
 
 def main(argv=None) -> None:
@@ -148,6 +210,9 @@ def main(argv=None) -> None:
     ap.add_argument("--workload", default="A", help="YCSB A, B, C or D")
     ap.add_argument("--paper", action="store_true",
                     help="the paper's geometry and scheduler")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="run the same op streams on a sync and an async "
+                         "store and compare them")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
@@ -157,19 +222,35 @@ def main(argv=None) -> None:
         args.workload, records=args.records,
         operations=args.operations or args.records,
         value_size=args.value_size, seed=args.seed)
-    cfg = store_config(args.value_size, engine=args.engine,
-                       threads=args.threads, paper=args.paper)
-    r = run(spec, cfg, device=args.device)
-    print(f"[{r['engine']} on {r['device']}] load {r['records']} ops in "
-          f"{r['load_s']:.2f} s ({r['load_ops_s']:,.0f} ops/s) | run "
-          f"{r['operations']} ops in {r['run_s']:.2f} s "
-          f"({r['run_ops_s']:,.0f} ops/s), host clock")
-    print(f"[{r['engine']}] {r['flushes']} flushes, {r['compactions']} "
-          f"compactions, {r['compact_bytes_in']:,} B in, compaction wall "
-          f"{r['compact_wall_s']:.3f} s, device "
-          + ("not measured" if r["compact_device_s"] is None
-             else f"{r['compact_device_s']:.4f} s (CUDA events)"))
-    print(json.dumps(r))
+    modes = (False, True) if args.async_mode else (False,)
+    results = []
+    for async_mode in modes:
+        cfg = store_config(args.value_size, engine=args.engine,
+                           threads=args.threads, paper=args.paper,
+                           async_mode=async_mode)
+        results.append(run(spec, cfg, device=args.device,
+                           check_gets=args.async_mode))
+    if not args.async_mode:
+        r = results[0]
+        print(f"[{r['engine']} on {r['device']}] load {r['records']} ops in "
+              f"{r['load_s']:.2f} s ({r['load_ops_s']:,.0f} ops/s) | run "
+              f"{r['operations']} ops in {r['run_s']:.2f} s "
+              f"({r['run_ops_s']:,.0f} ops/s), host clock")
+        print(f"[{r['engine']}] {r['flushes']} flushes, {r['compactions']} "
+              f"compactions, {r['compact_bytes_in']:,} B in, compaction "
+              f"wall {r['compact_wall_s']:.3f} s, device "
+              + ("not measured" if r["compact_device_s"] is None
+                 else f"{r['compact_device_s']:.4f} s (CUDA events)"))
+        print(json.dumps(r))
+        return
+    sync, asyn = results
+    for r in results:
+        print(mode_line(r))
+    print(f"async / sync p99 put "
+          f"{asyn['latency_us']['put'][1] / sync['latency_us']['put'][1]:.3f}"
+          f"; both runs read back every acknowledged write "
+          f"({sync['gets_after_drain']} keys by get after the drain)")
+    print(json.dumps({"sync": sync, "async": asyn}))
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ BACKENDS = ("device", "host")
 @dataclasses.dataclass(frozen=True)
 class ReadOptions:
     """* ``snapshot`` -- a read view from ``LsmDB.snapshot()``: pins the
-      SST version and the memtable as of capture.  The memtable captured
-      stays live until it is flushed; files compacted away while the
+      SST version and the memtables (the active one and, in async mode,
+      the immutable queue) as of capture.  The active memtable captured
+      stays live until it rotates; files compacted away while the
       snapshot is held raise ``FileNotFoundError``.  ``None`` reads the
       latest state.
     * ``fill_cache`` -- insert blocks decoded for this read into the

@@ -1,11 +1,16 @@
 """The LSM key-value store over the port's compaction engine (the port of
-``repro.lsm.db``, synchronous mode).
+``repro.lsm.db``).
 
-    put() -> WAL append -> memtable
+    put() -> WAL append -> active memtable
                 |  (memtable full)
                 v
-        flush: the engine builds the L0 image on the device, then the
-        compaction cascade runs inline (``maybe_compact``)
+        sync mode:  the engine builds the L0 image on the device, then
+                    the compaction cascade runs inline (``maybe_compact``)
+        async mode: rotate the active table onto the immutable queue and
+                    return; ``flush_workers`` threads build the L0 images
+                    and install them in rotation order, and one
+                    compaction worker drains the scheduler through the
+                    engine (``DBConfig.async_compaction``)
 
 Every flush and compaction goes through the engine that ``DBConfig.engine``
 names (``make_engine``): ``"device"``, the default, is
@@ -22,11 +27,32 @@ A store can also take a shared engine and hand its compactions to a
 ``compaction_sink=``): ``lsm.sharded.ShardedDB`` gives every shard one
 engine and one ``core.background.GlobalCompactionQueue``, whose worker
 thread drives ``pick_compaction`` / ``apply_trivial_move`` /
-``apply_compaction`` while the caller writes.  One ``RLock`` guards the
-memtable, the version set and manifest, the scheduler's pointers, the
-file numbers and the installs; reads take the memtable and
-``versions.current`` once under it and search outside it.  Not here yet:
-async mode, failpoints, repair, metrics and tracing.
+``apply_compaction`` while the caller writes.
+
+**Async mode.**  A full memtable is rotated in O(1): its WAL segment is
+closed and renamed (``wal-NNNNNN.log``) and the table joins the immutable
+queue, still readable, while a flush worker builds its L0 image on the
+device outside the store's lock.  Installs take tickets in rotation order
+(``core.background.InstallSequencer``), so a newer memtable never lands
+below an older one and the file numbers are the ones a synchronous store
+allocates; WAL segments are unlinked inside the sequenced region.  A
+writer stalls only while ``max_pending_memtables`` tables are queued
+(``DBStats.write_stalls``).  A failed build, install or compaction halts
+the pipeline: it is parked on the store as a classified
+``faults.BackgroundError``, raised at the next rotation, ``flush``,
+``wait_idle`` or ``close``; no younger memtable installs below the failed
+one, and ``resume()`` re-queues the parked tables.  Nothing is re-run on
+another engine.  ``wait_idle()`` is the barrier.
+
+One ``RLock`` guards the memtables, the version set and manifest, the
+scheduler's pointers, the file numbers and the installs; SST files are
+written outside it.  Reads take the memtables and ``versions.current``
+once under it and search outside it.  Every thread launches on the
+device's default stream, which they share: a reader's kernels and a
+worker's are ordered on it, so a tensor one thread frees is never handed
+out again while another thread's queued kernel still reads it.  Not here
+yet: write options, failpoints and repair (ROADMAP A9), metrics and
+tracing (A10).
 """
 
 from __future__ import annotations
@@ -41,6 +67,8 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.core import formats
+from repro_torch.core.background import (BackgroundExecutor,
+                                         InstallSequencer, remaining)
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.core.scheduler import (CompactionJob, CompactionScheduler,
                                         SchedulerConfig)
@@ -50,6 +78,9 @@ from repro_torch.lsm import read as lsm_read
 from repro_torch.device import resolve_device
 from repro_torch.lsm.cpu_engine import CpuCompactionEngine
 from repro_torch.lsm.engine import EngineStats, TorchCompactionEngine
+from repro_torch.lsm.faults import BackgroundError
+from repro_torch.lsm.fs import fsync_dir
+from repro_torch.lsm.memtable import ImmutableMemTable
 from repro_torch.lsm.sstable import BlockCache, FileMeta, TableCache
 from repro_torch.lsm.version import VersionEdit, VersionSet
 
@@ -70,6 +101,10 @@ class DBConfig:
     block_cache_blocks: int = 4096  # host LRU of decoded blocks (0 = off)
     sync_wal: bool = False          # fsync every WAL append
     auto_compact: bool = True
+    async_compaction: bool = False  # non-blocking writes: background
+    #   flushes and one compaction worker
+    flush_workers: int = 1          # image builds overlap; installs ordered
+    max_pending_memtables: int = 4  # immutable-queue depth before stalling
 
 
 @dataclasses.dataclass
@@ -95,10 +130,12 @@ class DBStats:
     compact_host_seconds: float = 0.0
     compact_wall_seconds: float = 0.0     # around the store's own engine
     #   calls (a compaction queue's jobs are not timed here)
-    compact_device_seconds: float = 0.0   # CUDA events (0.0 on the CPU)
+    compact_device_seconds: float = 0.0   # CUDA-event spans (0.0 on the
+    #   CPU); on an async store they hold other threads' work too
     compact_sort_seconds: float = 0.0     # phase-2 share of the above
     flush_host_seconds: float = 0.0
     bloom_negative_skips: int = 0
+    write_stalls: int = 0          # rotations that waited for a full queue
     orphans_removed: int = 0
 
     def add(self, other: "DBStats") -> "DBStats":
@@ -111,11 +148,12 @@ class DBStats:
 @dataclasses.dataclass(frozen=True)
 class Snapshot:
     """Pinned read view from ``LsmDB.snapshot()``: the SST version and the
-    memtable as of capture.  The memtable is held by reference, so it
-    stays live until it is flushed; files compacted away while the
-    snapshot is held raise ``FileNotFoundError`` on access."""
+    memtable set as of capture.  The memtables are held by reference: the
+    active one stays live (it takes later writes until it rotates), the
+    immutable ones are frozen.  Files compacted away while the snapshot is
+    held raise ``FileNotFoundError`` on access."""
 
-    mems: tuple          # newest first (this store has one memtable)
+    mems: tuple          # newest first: (active, imm newest, ..., oldest)
     version: object      # pinned lsm.version.Version
 
 
@@ -154,6 +192,8 @@ class LsmDB:
         has compaction work, and the sink's owner drives
         ``pick_compaction`` / ``apply_trivial_move`` /
         ``apply_compaction`` (``core.background.GlobalCompactionQueue``).
+        In async mode such a store starts flush workers and no compaction
+        worker.
         """
         self.path = path
         self.cfg = cfg or DBConfig()
@@ -165,6 +205,7 @@ class LsmDB:
                        else make_engine(self.cfg, self._device))
         os.makedirs(path, exist_ok=True)
         self._lock = threading.RLock()
+        self._imm_cv = threading.Condition(self._lock)
         self._stats = DBStats()
         self.compactions: list[CompactionRecord] = []  # guarded-by: _lock
         self.versions = VersionSet(path)                # guarded-by: _lock
@@ -177,14 +218,29 @@ class LsmDB:
                                 block_cache=self.block_cache,
                                 device=self._device)
         self.mem = memtable.MemTable()                  # guarded-by: _lock
+        # rotated tables waiting for their flush, oldest first
+        self.imm: list[ImmutableMemTable] = []          # guarded-by: _lock
         self._memtable_limit = self.cfg.memtable_bytes or self.geom.sst_bytes
         self._wal_path = os.path.join(path, "wal.log")
+        self._wal_seg_no = 0                            # guarded-by: _lock
         self._extra_wals: list[str] = []                # guarded-by: _lock
         self._replay_wal_locked()
         self._gc_orphans_locked()
         self._wal = wal.WALWriter(                      # guarded-by: _lock
             self._wal_path, sync=self.cfg.sync_wal)
         self._closed = False                            # guarded-by: _lock
+        self._async = bool(self.cfg.async_compaction)
+        self._install_seq = InstallSequencer()
+        self._compact_scheduled = False                 # guarded-by: _lock
+        self._bg_error: BackgroundError | None = None   # guarded-by: _lock
+        if self._async:
+            self._flush_exec = BackgroundExecutor(
+                workers=max(1, self.cfg.flush_workers), name="flush")
+            # with a compaction sink its owner runs the compactions
+            self._compact_exec = None if compaction_sink is not None else \
+                BackgroundExecutor(workers=1, name="compact")
+        else:
+            self._flush_exec = self._compact_exec = None
 
     @property
     def device(self):
@@ -202,6 +258,9 @@ class LsmDB:
         oldest first, then the active WAL.  They stay on disk until the
         recovered memtable flushes."""
         segs = sorted(glob.glob(os.path.join(self.path, "wal-*.log")))
+        if segs:
+            self._wal_seg_no = max(int(os.path.basename(p)[4:-4])
+                                   for p in segs)
         self._extra_wals = list(segs)
         for p in segs + [self._wal_path]:
             for kind, seq, key, value in wal.replay(p):
@@ -313,32 +372,176 @@ class LsmDB:
     def _maybe_flush_locked(self):
         if self.mem.approx_bytes < self._memtable_limit:
             return
+        if self._async:
+            self._rotate_locked()
+            return
         self.flush()
         if self.cfg.auto_compact:
             self.maybe_compact()
+
+    def _raise_if_halted_locked(self):
+        """Raise the parked background error, if any: the pipeline is
+        halted until ``resume()``."""
+        err = self._bg_error
+        if err is not None:
+            raise BackgroundError(err.op, err.cause) from err
+
+    def _rotate_locked(self):
+        """Move the active memtable onto the immutable queue (O(1): close
+        and rename its WAL segment) and hand it to a flush worker.  The
+        writer stalls while ``max_pending_memtables`` tables are queued."""
+        # surface an earlier background failure BEFORE touching rotation
+        # state: a raise after issuing the ticket would orphan it and
+        # wedge every later install
+        self._flush_exec.check()
+        self._raise_if_halted_locked()
+        while len(self.imm) >= self.cfg.max_pending_memtables:
+            self._stats.write_stalls += 1
+            if not self._imm_cv.wait(timeout=60.0):
+                raise IOError("write stalled > 60 s: the immutable queue "
+                              "is not draining")
+            self._raise_if_halted_locked()
+        self._wal.close()
+        self._wal_seg_no += 1
+        seg = os.path.join(self.path, f"wal-{self._wal_seg_no:06d}.log")
+        os.rename(self._wal_path, seg)
+        if self.cfg.sync_wal:
+            fsync_dir(self.path)   # the rename survives a crash
+        entry = ImmutableMemTable(table=self.mem,
+                                  wal_paths=self._extra_wals + [seg],
+                                  ticket=self._install_seq.issue())
+        self._extra_wals = []
+        # publish order: the table joins the queue before the active one
+        # is replaced, and both happen under the lock readers take
+        self.imm.append(entry)
+        self.mem = memtable.MemTable()
+        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+        self._flush_exec.submit(self._background_flush, entry)
+
+    def _set_bg_error(self, err: BaseException,
+                      op: str = "flush") -> BackgroundError:
+        """Park the first background error (classified) and wake stalled
+        writers, whose queue will not drain now.  Returns the error the
+        worker raises."""
+        if not isinstance(err, BackgroundError):
+            err = BackgroundError(op, err)
+        with self._lock:
+            if self._bg_error is None:
+                self._bg_error = err
+            self._imm_cv.notify_all()
+        return err
+
+    def resume(self) -> bool:
+        """Clear a background error and restart the halted pipeline: issue
+        new install tickets to every memtable still on the immutable
+        queue (in rotation order), resubmit their flushes, and reschedule
+        compaction.  Returns True when an error was cleared.  After a
+        hard error (corruption) the damage is still on disk."""
+        if self._async:
+            # let in-flight work end first: it is failing or skipping
+            # against the standing error, which is what this clears
+            try:
+                self._flush_exec.wait_idle()
+            except BackgroundError:
+                pass
+        with self._lock:
+            if self._bg_error is None:
+                return False
+            self._bg_error = None
+            resub = [dataclasses.replace(e, ticket=self._install_seq.issue())
+                     for e in self.imm]
+            self.imm = resub
+            self._imm_cv.notify_all()
+        for e in resub:
+            self._flush_exec.submit(self._background_flush, e)
+        if self.cfg.auto_compact and \
+                (self._async or self._compaction_sink is not None):
+            self._schedule_compaction()
+        return True
+
+    def _background_flush(self, entry: ImmutableMemTable):
+        """A flush worker's task: build ``entry``'s L0 image on the
+        device (outside the store's lock, beside other builds), then
+        install it in ticket order and unlink its WAL segments."""
+        t0 = time.perf_counter()
+        try:
+            img = None
+            entries = entry.table.sorted_entries()
+            if entries:
+                keys, meta, vals = self._pack_entries(entries)
+                img = self.engine.build_image(keys, meta, vals)
+        except BaseException as e:
+            # halt the pipeline: a younger memtable must not install below
+            # this still-queued older one, or this table's data would
+            # shadow newer L0 data.  Consume the ticket so the younger
+            # workers are not wedged; the table stays queued and readable.
+            err = self._set_bg_error(e)
+            self._install_seq.wait_turn(entry.ticket)
+            self._install_seq.done(entry.ticket)
+            raise err
+        # installs land in rotation order: L0 reads resolve overwrites by
+        # file number, so a newer memtable must not install below an older
+        self._install_seq.wait_turn(entry.ticket)
+        try:
+            with self._lock:
+                # an older memtable failed before our turn came: skip the
+                # install (the data stays readable on the queue and its
+                # WAL segments stay on disk, replayed in rotation order)
+                self._raise_if_halted_locked()
+            edit = VersionEdit()
+            if img is not None:
+                self._install_ssts(img, level=0, edit=edit)  # files on disk
+            with self._lock:
+                if img is not None:
+                    self._log_edit_locked(edit)
+                self.imm.remove(entry)
+                self._imm_cv.notify_all()
+                self._stats.flushes += 1
+                self._stats.flush_host_seconds += time.perf_counter() - t0
+            # WAL segments die inside the sequenced region: an older
+            # memtable's segments are unlinked before a newer one's, so a
+            # crash never leaves old WAL data to replay over newer L0 data
+            for p in entry.wal_paths:
+                try:
+                    os.remove(p)
+                except FileNotFoundError:
+                    pass
+        except BaseException as e:
+            raise self._set_bg_error(e)
+        finally:
+            self._install_seq.done(entry.ticket)
+        if self.cfg.auto_compact:
+            self._schedule_compaction()
 
     # ------------------------------------------------------------------
     # reads
     # ------------------------------------------------------------------
 
+    def _mems_locked(self) -> tuple:
+        """The memtables newest first: the active one, then the immutable
+        queue from newest to oldest."""
+        return (self.mem,) + tuple(e.table for e in reversed(self.imm))
+
     def snapshot(self) -> Snapshot:
         """Capture a pinned read view (pass as ``ReadOptions.snapshot``)."""
         with self._lock:
-            return Snapshot(mems=(self.mem,), version=self.versions.current)
+            return Snapshot(mems=self._mems_locked(),
+                            version=self.versions.current)
 
     def _read(self, opts: ReadOptions, read):
         """``read(mems, version)`` on the snapshot's view or the latest one
         (taken once, under the lock; the search runs outside it).  A file
-        compacted away under the latest view (a compaction queue's worker
-        installs while the caller reads) is retried on a fresh one; under
-        a pinned snapshot it is gone for good and re-raises."""
+        compacted away under the latest view (a background worker installs
+        while the caller reads) is retried on a fresh one; under a pinned
+        snapshot it is gone for good and re-raises."""
         err = None
         for _ in range(8):
             if opts.snapshot is not None:
                 mems, version = opts.snapshot.mems, opts.snapshot.version
             else:
                 with self._lock:
-                    mems, version = (self.mem,), self.versions.current
+                    mems, version = self._mems_locked(), \
+                        self.versions.current
             try:
                 return read(mems, version)
             except FileNotFoundError as e:
@@ -346,6 +549,7 @@ class LsmDB:
                     raise
                 err = e
         raise err
+
     def get(self, key: bytes, opts: ReadOptions | None = None
             ) -> bytes | None:
         """The value, or None if absent or deleted."""
@@ -363,7 +567,7 @@ class LsmDB:
 
     def multi_get(self, keys, opts: ReadOptions | None = None
                   ) -> list[bytes | None]:
-        """Batched ``get``: the keys not in the memtable resolve in
+        """Batched ``get``: the keys not in a memtable resolve in
         rank-ordered waves of one stacked bloom prune and one stacked
         search and gather each (``lsm.read``).  Returns the values in
         order, equal to ``[self.get(k, opts) for k in keys]``."""
@@ -423,9 +627,15 @@ class LsmDB:
         opts = opts or DEFAULT_READ_OPTIONS
 
         def read(mems, version):
+            with self._lock:
+                # the active table takes puts meanwhile: copy it under
+                # the lock (the immutable ones are frozen)
+                active = mems[0].sorted_entries()
             best: dict[bytes, tuple[int, bytes | None]] = {}
-            for m in reversed(mems):   # oldest first: newer seqs win
-                for k, seq, v in m.sorted_entries():
+            # oldest first: newer seqs win
+            for entries in [m.sorted_entries() for m in reversed(mems[1:])
+                            ] + [active]:
+                for k, seq, v in entries:
                     if start <= k < end and (k not in best or
                                              best[k][0] < seq):
                         best[k] = (seq, v)
@@ -456,7 +666,15 @@ class LsmDB:
         return keys, meta, vals
 
     def flush(self):
-        """Persist the memtable as L0 SST(s) and start a fresh WAL."""
+        """Persist the memtable as L0 SST(s) and start a fresh WAL.  In
+        async mode: rotate it and wait until the flush queue drains."""
+        if self._async:
+            with self._lock:
+                self._check_open_locked()
+                if len(self.mem):
+                    self._rotate_locked()
+            self._flush_exec.wait_idle()
+            return
         with self._lock:
             self._check_open_locked()
             if len(self.mem) == 0:
@@ -464,7 +682,7 @@ class LsmDB:
             t0 = time.perf_counter()
             keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
             img = self.engine.build_image(keys, meta, vals)
-            self._install_ssts_locked(img, level=0)
+            self._install_ssts(img, level=0)
             self.mem = memtable.MemTable()
             self._wal.close()
             for p in self._extra_wals + [self._wal_path]:
@@ -477,12 +695,13 @@ class LsmDB:
             self._stats.flushes += 1
             self._stats.flush_host_seconds += time.perf_counter() - t0
 
-    def _install_ssts_locked(self, img: SSTImage, level: int,
-                             edit: VersionEdit | None = None
-                             ) -> list[FileMeta]:
+    def _install_ssts(self, img: SSTImage, level: int,
+                      edit: VersionEdit | None = None) -> list[FileMeta]:
         """Split a (possibly multi-SST) image into files of at most
         ``blocks_per_sst`` live blocks and install them; when ``edit`` is
-        given the caller logs it."""
+        given the caller logs it.  The file writes run outside the
+        store's lock (only the file numbers and the edit's log take it),
+        so a background install does not hold up puts and gets."""
         img = sstable.trim_image(img)
         live_blocks = max(1, int((img.nvalid > 0).sum()))
         bps = self.geom.blocks_per_sst
@@ -498,13 +717,15 @@ class LsmDB:
                 nvalid=img.nvalid[start:stop], crc=img.crc[start:stop],
                 bloom=img.bloom[start:stop] if per_block_bloom
                 else img.bloom)
-            no = self.versions.new_file_no()
+            with self._lock:
+                no = self.versions.new_file_no()
             fm = sstable.write_sst(os.path.join(self.path, f"{no:06d}.sst"),
                                    sub, no)
             edit.added.append((level, fm))
             metas.append(fm)
         if own_edit:
-            self._log_edit_locked(edit)
+            with self._lock:
+                self._log_edit_locked(edit)
         return metas
 
     def _log_edit_locked(self, edit: VersionEdit):
@@ -514,12 +735,55 @@ class LsmDB:
         edit.next_file_no = self.versions.next_file_no
         self.versions.log_and_apply(edit)
 
+    def _schedule_compaction(self):
+        """Hand compaction work to the sink, or start the background drain
+        (at most one in flight)."""
+        if self._compaction_sink is not None:
+            self._compaction_sink(self)
+            return
+        with self._lock:
+            if self._compact_scheduled or self._closed:
+                return
+            self._compact_scheduled = True
+        try:
+            self._compact_exec.submit(self._background_compact)
+        except BaseException:
+            with self._lock:
+                self._compact_scheduled = False
+            raise
+
+    def _background_compact(self):
+        """The compaction worker's drain: run jobs until none is due (one
+        a wake-up in ``paper_faithful`` mode).  A failure halts the
+        pipeline, as a flush's does."""
+        try:
+            while True:
+                with self._lock:
+                    job = self.scheduler.pick(self.versions.current)
+                    if job is None:
+                        self._compact_scheduled = False
+                        return
+                self.compact_job(job)
+                if self.cfg.scheduler.paper_faithful:
+                    # the paper's artifact (§IV-C): at most one job a
+                    # flush -- do not drain the scheduler
+                    with self._lock:
+                        self._compact_scheduled = False
+                    return
+        except BaseException as e:
+            with self._lock:
+                self._compact_scheduled = False
+            raise self._set_bg_error(e, op="compact")
+
     def maybe_compact(self):
         """Run compactions until no level is over its trigger (at most 16
         jobs; one in ``paper_faithful`` mode).  With a compaction sink,
-        hand the store to the sink instead (its owner runs them)."""
-        if self._compaction_sink is not None:
-            self._compaction_sink(self)
+        hand the store to the sink instead (its owner runs them); in async
+        mode, wake the compaction worker (``wait_idle`` waits for it)."""
+        if self._compaction_sink is not None or self._async:
+            # a foreground compaction would race the sink's owner or the
+            # worker on the same job: go through the one drain
+            self._schedule_compaction()
             return
         if self.cfg.scheduler.paper_faithful:
             self.compact_once()
@@ -530,19 +794,21 @@ class LsmDB:
 
     def compact_once(self) -> bool:
         """Run the next compaction job, if one is due.  With a compaction
-        sink, tell the sink when one is due (without picking it: a pick
-        moves the round-robin pointer) and return whether one is."""
+        sink or in async mode, hand the work on when one is due (without
+        picking it: a pick moves the round-robin pointer) and return
+        whether one is."""
+        hand_on = self._compaction_sink is not None or self._async
         with self._lock:
             self._check_open_locked()
             v = self.versions.current
-            if self._compaction_sink is not None:
+            if hand_on:
                 pending = any(self.scheduler.score(v, lvl) >= 1.0
                               for lvl in range(len(v.levels) - 1))
             else:
                 job = self.scheduler.pick(v)
-        if self._compaction_sink is not None:
+        if hand_on:
             if pending:
-                self._compaction_sink(self)
+                self._schedule_compaction()
             return pending
         if job is None:
             return False
@@ -582,24 +848,26 @@ class LsmDB:
         t0 = time.perf_counter()
         out, es = self.engine.compact_paths(
             [f.path for f in job.all_inputs], bottom_level=job.bottom_level)
-        self._stats.compact_wall_seconds += time.perf_counter() - t0
+        with self._lock:
+            self._stats.compact_wall_seconds += time.perf_counter() - t0
         self.apply_compaction(job, out, es)
 
     def apply_compaction(self, job: CompactionJob, out: SSTImage,
                          es: EngineStats):
-        """Install a compaction result: verify the CRC verdict, install the
-        outputs at ``level+1``, log one edit bundling them with the input
-        deletions, then drop the inputs."""
+        """Install a compaction result: verify the CRC verdict, write the
+        outputs at ``level+1`` (outside the lock), log one edit bundling
+        them with the input deletions, then drop the inputs."""
         if not es.crc_ok:
             # a corrupt input must leave the store exactly as it was
             raise IOError("compaction input failed CRC verification; "
                           "inputs retained")
+        edit = VersionEdit(
+            deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
+                    [(job.level + 1, f.file_no) for f in job.inputs_hi])
+        self._install_ssts(out, level=job.level + 1, edit=edit)
         with self._lock:
-            edit = VersionEdit(
-                deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
-                        [(job.level + 1, f.file_no) for f in job.inputs_hi],
-                compact_pointer=self._pointer_edit_locked(job.level))
-            self._install_ssts_locked(out, level=job.level + 1, edit=edit)
+            # the job's picker is the only thread that moves this pointer
+            edit.compact_pointer = self._pointer_edit_locked(job.level)
             self._log_edit_locked(edit)
             for f in job.all_inputs:
                 self.cache.drop(f.file_no)
@@ -623,19 +891,59 @@ class LsmDB:
 
     # ------------------------------------------------------------------
 
+    def wait_idle(self, timeout: float | None = None):
+        """Barrier (async mode): block until every queued flush and
+        compaction has completed.  Re-raises a background error; raises
+        ``TimeoutError`` when ``timeout`` seconds pass first.  A sync
+        store has nothing in the background and returns at once."""
+        if not self._async:
+            return
+        deadline = None if timeout is None else time.monotonic() + timeout
+        execs = [e for e in (self._flush_exec, self._compact_exec)
+                 if e is not None]
+        while True:
+            for ex in execs:
+                if not ex.wait_idle(timeout=remaining(deadline)):
+                    raise TimeoutError(f"background work still running "
+                                       f"after {timeout} s")
+            with self._lock:
+                if not self.imm and not self._compact_scheduled:
+                    return
+                if self.imm and self._flush_exec.pending == 0:
+                    # a flush failed earlier (its error was raised once):
+                    # the queued tables will not drain until resume()
+                    self._raise_if_halted_locked()
+                    raise IOError(
+                        "immutable memtables not draining; an earlier "
+                        "background flush failed (the data stays readable "
+                        "from the queued memtables; call resume() to "
+                        "retry the flush)")
+
     def close(self):
-        """Close the WAL and manifest (the memtable stays in the WAL and
-        is replayed on reopen), and the engine unless it was given to the
-        store.  A second close is a no-op."""
+        """Wait for the background work (async mode), then close the WAL
+        and manifest (the memtables stay in the WAL and are replayed on
+        reopen), and the engine unless it was given to the store.
+        Re-raises a background error after closing.  A second close is a
+        no-op."""
+        # claim the close under the lock: a concurrent or second close is
+        # a no-op, and every later put fails cleanly
         with self._lock:
             if self._closed:
                 return
             self._closed = True
+        try:
+            self.wait_idle()
+        finally:
+            if self._async:
+                self._flush_exec.shutdown(wait=False)
+                if self._compact_exec is not None:
+                    self._compact_exec.shutdown(wait=False)
             if self._owns_engine:
                 self.engine.close()
-            self._wal.flush()
-            self._wal.close()
-            self.versions.close()
+            with self._lock:
+                self._wal.flush()
+                self._wal.close()
+                self.versions.close()
 
     def level_sizes(self) -> list[int]:
         with self._lock:

@@ -13,8 +13,16 @@ and no CPU engine behind it: a failed launch raises.  (The numpy CPU
 baseline, ``cpu_engine.CpuCompactionEngine``, runs only where a store's
 config names it.)
 
-On the card, ``device_seconds`` and ``sort_seconds`` are CUDA-event times
-around the pipeline and around phase 2; on the CPU they stay 0.0.
+On the card, ``device_seconds`` and ``sort_seconds`` are CUDA-event spans
+around the pipeline and around phase 2; on the CPU they stay 0.0.  The
+events are recorded on the calling thread's current stream, the default
+stream that every thread of the process launches on (a store's flush and
+compaction workers, its readers).  A span holds whatever reaches that
+stream between its two events, and the card's idle time while the host
+has not yet launched: a job called alone, it is the job's time on the
+card; under an async store it also holds the readers' waves and the
+worker's waits for the interpreter, so it is a span, not the job's
+device time (a profiler's trace gives that).
 """
 
 from __future__ import annotations
@@ -160,11 +168,14 @@ class TorchCompactionEngine:
     ``scheduler.batch_signature`` into one batched pipeline
     (``batch_launches``, ``batch_jobs``, ``max_batch_jobs`` count them).
 
-    One engine may serve several stores on two threads (a shard's flush
-    on the caller's thread, the queue's compactions on its worker).  The
-    staging buffers, the reader and the device timers are not built for
-    two callers, so every public call runs under the engine's lock, one
-    at a time (the card runs one job at a time anyway)."""
+    One engine may be called from several threads: a store's flush
+    workers and compaction worker in async mode, a shard's flush and the
+    queue's compactions under ``ShardedDB``.  The staging buffers, the
+    reader and the device timers are not built for two callers, so every
+    public call runs under the engine's lock, one at a time: two flush
+    workers' builds take turns there, and a build waits behind a running
+    compaction (the card runs one job at a time anyway).  A flush's
+    packing into host arrays happens before it takes the lock."""
 
     name = "torch"
 

@@ -1,9 +1,16 @@
 """In-memory write buffer.  Newest write per key wins; tombstones are
 explicit entries so they shadow older SST data until compacted away.
-(A copy of ``repro.lsm.memtable``; the immutable-table queue of the
-async write path is not ported yet.)"""
+(A copy of ``repro.lsm.memtable``.)
+
+The async write path splits the buffer into one *active* table (taking
+writes) and a queue of *immutable* tables waiting for their background
+flush; ``ImmutableMemTable`` ties a frozen table to the WAL segments that
+made it durable (deleted only after its SST lands) and to its install
+ticket (L0 installs happen in rotation order)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 
 class MemTable:
@@ -44,3 +51,11 @@ class MemTable:
         """[(key, seq, value|None)] in key order (unique keys)."""
         return [(k, s, v) for k, (s, v) in sorted(self._d.items())]
 
+
+
+@dataclasses.dataclass
+class ImmutableMemTable:
+    """A rotated-out memtable queued for its background flush."""
+    table: MemTable
+    wal_paths: list[str]
+    ticket: int

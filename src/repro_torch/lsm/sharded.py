@@ -17,10 +17,18 @@ merge level for all of them).  Per-job CRC verdicts and per-shard installs
 keep each shard's version history what sequential compaction would have
 produced.
 
+In async mode (``DBConfig.async_compaction``) every shard rotates its own
+memtables onto its own flush workers, and a shard's flush worker hands
+the compaction work it leaves to the shared queue through the sink, so
+the queue compacts on its worker while the caller writes;
+``maybe_compact`` then only publishes work, ``wait_idle`` waits for every
+shard's flushes and then the queue, and ``resume`` restarts each halted
+shard.
+
 Boundary tables are uniform over the first key byte, or learned from a key
 sample (``boundaries_from_sample``: YCSB's ``user%012d`` keys occupy a thin
 slice of byte space).  Not here yet: write options, failpoints,
-``open(repair=True)`` (ROADMAP A9), metrics (A10), async shards (A8).
+``open(repair=True)`` (ROADMAP A9), metrics (A10).
 """
 
 from __future__ import annotations
@@ -30,8 +38,9 @@ import dataclasses
 import heapq
 import json
 import os
+import time
 
-from repro_torch.core.background import GlobalCompactionQueue
+from repro_torch.core.background import GlobalCompactionQueue, remaining
 from repro_torch.device import resolve_device
 from repro_torch.lsm import ReadOptions
 from repro_torch.lsm.db import DBConfig, DBStats, LsmDB, make_engine
@@ -253,17 +262,30 @@ class ShardedDB:
             s.flush()
 
     def maybe_compact(self):
-        """Publish every shard with pending work to the shared queue, and
-        wait until the queue has drained (returns with the compactions
-        installed)."""
+        """Publish every shard with pending work to the shared queue; in
+        sync mode also wait until the queue has drained (returns with the
+        compactions installed), as ``LsmDB.maybe_compact`` does."""
         for s in self.shards:
             s.compact_once()
-        self.queue.wait_idle()
+        if not self.cfg.async_compaction:
+            self.queue.wait_idle()
 
-    def wait_idle(self):
-        """Barrier: every published compaction has completed.  Re-raises
-        a background error."""
-        self.queue.wait_idle()
+    def wait_idle(self, timeout: float | None = None):
+        """Barrier: every queued flush (async shards), then every
+        published compaction, has completed.  Re-raises a background
+        error; raises ``TimeoutError`` when ``timeout`` seconds pass
+        first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for s in self.shards:
+            s.wait_idle(timeout=remaining(deadline))
+        self.queue.wait_idle(timeout=remaining(deadline))
+
+    def resume(self) -> bool:
+        """Clear the background errors of every shard and re-queue their
+        parked work (``LsmDB.resume`` a shard).  One shard's failure does
+        not halt its siblings; it stays halted until this is called.
+        Returns True if any shard had an error to clear."""
+        return any([s.resume() for s in self.shards])
 
     def close(self):
         if self._closed:

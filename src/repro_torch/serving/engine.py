@@ -13,7 +13,11 @@ Decode is one captured step, the counterpart of JAX's jitted
 ``_decode``: on ``cuda`` each batch size captures
 ``model.decode_step`` once in a CUDA graph over static cache, token and
 position buffers, and every later step replays it.  On the CPU the step
-runs eagerly.  The prefill stays eager.  Metrics and tracing wait for
+runs eagerly.  The prefill stays eager.  A capture may run while a
+session store's background workers launch on the card (an async
+``LsmDB``): it is captured in ``thread_local`` mode, so their allocations,
+copies and synchronizations on other threads neither fail nor end up in
+the graph; a capture that fails raises.  Metrics and tracing wait for
 ROADMAP A10: passing ``metrics`` or ``tracer`` raises
 ``NotImplementedError``.
 """
@@ -43,7 +47,15 @@ class _CapturedDecode:
     """``model.decode_step`` captured in a CUDA graph over static
     buffers: a call copies its inputs into them, replays the graph and
     returns copies of the outputs, so no result is ever a view of a
-    buffer that the next replay overwrites."""
+    buffer that the next replay overwrites.
+
+    The capture stream is a side stream that does not synchronize with
+    the default stream other threads launch on, and the capture is in
+    ``thread_local`` mode: only this thread is barred from the calls a
+    capture forbids (a ``cudaMalloc``, a synchronizing copy), so a store's
+    flush or compaction worker that runs meanwhile neither breaks the
+    capture nor is broken by it.  (The default, ``global``, bars every
+    thread of the process.)"""
 
     def __init__(self, params: dict, cfg: ModelConfig, cache, tokens, pos):
         self.cache = tree_map(torch.clone, cache)
@@ -59,7 +71,7 @@ class _CapturedDecode:
                                   cfg)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.logits, self.new_cache = model.decode_step(
                 params, self.cache, self.tokens, self.pos, cfg)
 

@@ -7,6 +7,7 @@ imports none):
 """
 
 import importlib.util
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -256,7 +257,7 @@ def flushed_images(dev, n_images, geom, seed=0):
 
 def test_pinned_staging_round_trips_over_reuses(dev):
     """One pinned bucket reused 40 times in a row, each time with other
-    words and the copy back on the side stream: every image comes back
+    words and the copy back on the current stream: every image comes back
     bit for bit, as owned arrays that the next call does not overwrite."""
     from repro_torch.core import formats
     geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096)
@@ -818,7 +819,6 @@ def test_flush_while_the_queue_compacts_on_the_card(dev, tmp_path):
     the queue's worker compacts through the shared engine (its pinned
     staging, its reader, its timers); every acknowledged write reads back
     by get, multi_get and scan, and the engine's calls never overlapped."""
-    import threading
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.lsm.db import DBConfig
     from repro_torch.lsm.sharded import ShardedDB
@@ -868,3 +868,82 @@ def test_flush_while_the_queue_compacts_on_the_card(dev, tmp_path):
     assert db.multi_get(keys) == [model[k] for k in keys]
     assert db.scan(b"\x00", b"\xff\xff") == sorted(model.items())
     db.close()
+
+
+# ---------------------------------------------------------------------------
+# the async write path on the card (ROADMAP A8)
+# ---------------------------------------------------------------------------
+
+
+def test_async_store_on_the_card_as_the_sync_store(dev, tmp_path):
+    """``chip_smoke.py`` phase 9 (a) and (d), small: an async store on the
+    card (three flush workers, one compaction worker) writes the sync
+    store's SST files before and after the compaction drain, with every
+    write-path kernel launched from its workers and the merge one launch
+    a level; a build made to raise halts it with a ``BackgroundError``,
+    and ``resume()`` brings back the sync store's L0 files."""
+    from repro_torch.core.scheduler import SchedulerConfig
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=64 * 1024)
+    sched = SchedulerConfig(l0_trigger=4, base_bytes=512 * 1024)
+    a = chip_smoke.async_files_phase(str(tmp_path), dev, geom=geom,
+                                     sched=sched, value_size=256)
+    assert a["sync"]["flushes"] == a["async"]["flushes"] >= 8
+    assert all(a["async"]["workers"].get(k) for k in chip_smoke.WRITE_PATH)
+    assert any(n for _, n, _ in a["jobs_seen"])
+    d = chip_smoke.async_halt_phase(str(tmp_path), dev, geom=geom,
+                                    sched=sched, value_size=256)
+    assert d["resumed"] is True
+    assert d["queued"] == chip_smoke.HALT_MEMTABLES - 1
+    assert d["files"] > d["l0_halted"] >= 1
+
+
+def test_capture_beside_a_background_flush(falcon4, tmp_path):
+    """``chip_smoke.py`` phase 9 (f), small: a 1 MiB state saved into an
+    async store whose flush builds inside the capture of a new decode
+    batch size (the capture held open until the build has run): the
+    tokens equal an eager run's and the state loads back bit for bit."""
+    eng, toks = falcon4
+    f = chip_smoke.capture_beside_flush(eng, toks, str(tmp_path),
+                                        nbytes=1 << 20, batch=1, max_new=4)
+    assert f["inside"] is True and 1 in eng._graphs
+    assert f["queued"] == 1 and f["flushes"] >= 1
+
+
+def test_async_store_takes_no_stream_from_the_pool(dev, tmp_path,
+                                                  monkeypatch):
+    """An async store on the card -- flush workers, the compaction worker,
+    ``multi_get`` -- takes no stream from PyTorch's pool, which hands the
+    same CUDA streams out round-robin: one of them may be the stream a
+    graph capture runs on in another thread (``chip_smoke.py`` phase 9
+    (f) met that at full size, when the engine's copies back went through
+    a pool stream of their own)."""
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.lsm.db import DBConfig, LsmDB
+    real = torch.cuda.Stream
+    taken = []
+
+    class Guarded(real):
+        def __new__(cls, *args, **kwargs):
+            if "stream_id" not in kwargs:   # not a wrap of a known stream
+                taken.append(threading.current_thread().name)
+            return super().__new__(cls, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "Stream", Guarded)
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=64 * 1024)
+    db = LsmDB(str(tmp_path / "db"), DBConfig(
+        geom=geom, scheduler=SchedulerConfig(l0_trigger=4,
+                                             base_bytes=512 * 1024),
+        async_compaction=True, flush_workers=2), device=dev)
+    model = {}
+    for i in range(2000):
+        k, v = b"k%06d" % i, bytes([i % 251]) * 200
+        db.put(k, v)
+        model[k] = v
+    db.wait_idle(timeout=120)
+    keys = sorted(model)
+    assert db.multi_get(keys) == [model[k] for k in keys]
+    assert db.stats.flushes >= 6 and db.stats.compactions >= 1
+    db.close()
+    assert taken == []
