@@ -97,10 +97,34 @@ Phases, any fault exits non-zero:
    by scan, ``get`` and ``multi_get`` before and after a reopen; (f) a 4
    MiB served state saved into an async store whose flush builds inside
    the CUDA graph capture of a new decode batch size: tokens equal an
-   eager run's, the state loads back bit for bit.
+   eager run's, the state loads back bit for bit;
+10. the store's durability contract on the card, on the LUDA store
+   (``DBConfig(engine="device")``) at the default ``SSTGeometry`` (the
+   paper's 16 B keys, 256 B values, 4 KB blocks), cut in scale to the
+   crash matrix's 640 B memtables and 600 operations a cell: (a) every
+   cell of ``repro_torch.testing.crashmatrix`` (failpoint x {sync, async,
+   sharded}) crashes at its point and passes, each recovered store's
+   ``multi_get`` of every acknowledged key equal to its ``get`` loop and
+   its first wave calls bit-identical to the plain versions, every store
+   kernel launched, no launch retry; (b) sabotage fails in every mode;
+   (c) one injected launch fault is absorbed by one ``launch_retries`` (a
+   sync store, and a stacked round of 2 shards, whose jobs run again one
+   by one, its batched calls bit-identical to the plain batched versions)
+   with the clean store's files; (d) a
+   persistent one raises (sync) or halts the async store after its
+   retries, no CPU engine built, and ``resume()`` recovers the clean
+   files; (e) two failed flush builds are retried, the files a sync
+   store's; (f) ``WriteOptions(wait_stall=False)`` sheds at a full queue;
+   (c)-(f) read back by ``multi_get``, its first wave calls held against
+   the plain versions, and no store without an engine failpoint retries a
+   launch; (g) (a)'s jobs and first flushes rebuilt byte-identical on the
+   plain versions.
+
+Phases 3-9 fail if a compaction engine built in them retried a launch:
+no engine failpoint is armed before phase 10.
 
 The line before the last is a JSON ``kernels`` record (each kernel's
-``launches`` sums phase 3's paths and phase 9's, split in
+``launches`` sums phase 3's paths, phase 9's and phase 10's, split in
 ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
@@ -2843,13 +2867,21 @@ def apply_stream(db, stream, model: dict) -> None:
             model[k] = v
 
 
-def check_model(db, model: dict, keys, when: str) -> int:
+def check_model(db, model: dict, keys, when: str,
+                waves: list | None = None) -> int:
     """``keys`` by ``multi_get`` (first, so its waves reach the bloom
     prune) and by ``get`` against ``model``; raises on a difference.
-    Returns the keys read."""
+    With ``waves``, the ``multi_get``'s first ``KEPT_WAVES`` wave calls
+    are held against their plain versions (``check_waves``) and their
+    (wrapper, shape) appended to it.  Returns the keys read."""
     keys = list(keys)
     want = [model.get(k) for k in keys]
-    if db.multi_get(keys) != want:
+    with contextlib.nullcontext([]) if waves is None else \
+            keep_waves(limit=KEPT_WAVES) as calls:
+        got = db.multi_get(keys)
+    if waves is not None:
+        waves.extend(check_waves(calls))
+    if got != want:
         raise AssertionError(f"{when}: multi_get disagrees with the "
                              "acknowledged writes")
     if [db.get(k) for k in keys] != want:
@@ -3630,6 +3662,543 @@ def async_phase(work: str, dev, eng, prompts, *, geom=ASYNC_GEOM,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the crash-consistency matrix and the fault paths on the card
+
+FAULT_N = 600              # (a), (b): operations a matrix cell (its own n)
+FAULT_OPS = 600            # (c)-(f): puts of the fault workload
+SABOTAGE = (("sync", "compact.install"), ("async", "compact.install"),
+            ("sharded", "compact.round"))
+KEPT_FAULT_FLUSHES = 2     # (g): flushes a store rebuilt on the plain versions
+FAULT_WAIT = 120.0         # seconds a barrier or a parked build may take
+
+
+def fault_config(**kw) -> DBConfig:
+    """The crash matrix's store (``crashmatrix._open_store``): the LUDA
+    engine at the default geometry (the paper's 16 B keys, 256 B values and
+    4 KB blocks), 640 B memtables, every write synced."""
+    return DBConfig(engine="device", sync_writes=True, memtable_bytes=640,
+                    **kw)
+
+
+def fault_writes(db, n: int, model: dict, *, shards: bool = False) -> None:
+    """``n`` puts of ``n`` keys in the matrix's coprime stride (so that
+    successive memtables overlap and compactions merge); with ``shards``,
+    the keys alternate between ``k0..`` and ``k{n/2}..``, so the two shards
+    of a ``[k{n/2}]`` boundary get the same shapes (values are of one
+    width)."""
+    for i in range(n):
+        j = (i * 7919) % n
+        if shards:
+            j = (i // 2 * 7919) % (n // 2) + (i % 2) * (n // 2)
+        k, v = b"k%05d" % j, b"v%05d.%05d" % (j, i)
+        db.put(k, v)
+        model[k] = v
+
+
+def tree_digests(path: str) -> dict[str, str]:
+    """``sst_digests`` of ``path`` and of each directory below it."""
+    out = {}
+    for root, _, _ in sorted(os.walk(path)):
+        rel = os.path.relpath(root, path)
+        out.update({f"{rel}/{n}": d for n, d in sst_digests(root).items()})
+    return out
+
+
+@contextlib.contextmanager
+def no_cpu_engine():
+    """Fail if anything builds the numpy ``CpuCompactionEngine`` inside
+    (the port has no fallback to it)."""
+    def refuse(self, *a, **kw):
+        raise AssertionError("a CpuCompactionEngine was built")
+    with mock.patch.object(CpuCompactionEngine, "__init__", refuse):
+        yield
+
+
+def waves_of_both(waves: list, what: str) -> list:
+    """Fail unless ``waves`` (``check_waves``' record) holds a call of each
+    read-wave wrapper; returns it."""
+    if {name for name, _ in waves} != set(WAVE_WRAPPERS):
+        raise AssertionError(f"{what}: the read-back's wave calls held "
+                             f"against the plain versions: {waves}")
+    return waves
+
+
+def fault_matrix(work: str, dev, *, n: int = FAULT_N) -> dict:
+    """Phase 10 (a) and (b): every cell of the crash matrix
+    (``repro_torch.testing.crashmatrix.run_matrix``) on the LUDA store on
+    ``dev``, each recovered store's ``multi_get`` of every acknowledged
+    key held against its ``get`` loop; then sabotage, one cell a mode,
+    which must fail.  Each recovered store's first ``KEPT_WAVES`` wave
+    calls, and every batched kernel call of the matrix, are held against
+    their plain versions on the same inputs.  Every engine the matrix
+    builds keeps its compaction jobs and first flushes for (g), and must
+    end with no launch retry."""
+    from repro_torch.testing import crashmatrix
+    engines, jobs, rounds, flushes = [], [], [], []
+    real_init = TorchCompactionEngine.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        engines.append(self)
+        keep = os.path.join(work, f"keep-{len(engines)}")
+        os.makedirs(keep)
+        jobs.append(keep_jobs(self, keep))
+        rounds.append(keep_batches(self, keep))
+        flushes.append(keep_flushes(self, KEPT_FAULT_FLUSHES))
+
+    checked, waves = [], []
+
+    def verify(db, acked):
+        keys = sorted(acked)
+        with keep_waves(limit=KEPT_WAVES) as calls:
+            got = db.multi_get(keys)
+        if got != [db.get(k) for k in keys]:
+            raise AssertionError("multi_get disagrees with the get loop")
+        waves.extend(check_waves(calls))
+        checked.append(len(keys))
+
+    out: dict = {}
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(TorchCompactionEngine, "__init__", init), \
+            keep_batch_calls() as batched:
+        cells = crashmatrix.run_matrix(device=dev, n=n, verbose=False,
+                                       verify=verify,
+                                       workdir=os.path.join(work, "matrix"))
+        os.rmdir(os.path.join(work, "matrix"))   # every cell cleaned up
+        out["matrix_s"] = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        bad = [r.line() for r in cells if not (r.crashed and r.ok)]
+        if bad:
+            raise AssertionError("(a) crash matrix cells failed:\n" +
+                                 "\n".join(bad))
+        if len(checked) != len(cells):
+            raise AssertionError(f"(a) {len(checked)} of {len(cells)} "
+                                 "recovered stores checked by multi_get")
+        retries = [e.launch_retries for e in engines]
+        if any(retries):
+            raise AssertionError(f"(a) launch retries {retries} with no "
+                                 "engine failpoint armed")
+        out.update(
+            cells=len(cells), engines=len(engines), checked=sum(checked),
+            launched=launched, batched=check_batch_calls(batched),
+            waves=waves_of_both(waves, "(a)"),
+            by_mode={m: [(r.point, r.acked, r.seconds) for r in cells
+                         if r.mode == m] for m in crashmatrix.MODES})
+        t0 = time.perf_counter()
+        sabotage = []
+        for mode, point in SABOTAGE:
+            cell = os.path.join(work, f"sabotage-{mode}")
+            r = crashmatrix.run_cell(point, mode, n=n, sabotage=True,
+                                     workdir=cell, device=dev)
+            shutil.rmtree(cell)
+            if not r.crashed or r.ok:
+                raise AssertionError(f"(b) sabotaged {mode} {point} "
+                                     "passed: the checks check nothing")
+            sabotage.append((mode, point, len(r.errors)))
+        out.update(sabotage=sabotage, sabotage_s=time.perf_counter() - t0)
+    out["jobs"] = [j for kept in jobs for j in kept] + \
+        [j for kept in rounds for rnd in kept for j in rnd["jobs"]]
+    out["flushes"] = [f for kept in flushes for f in kept]
+    return out
+
+
+def engine_retry(work: str, dev, *, n: int = FAULT_OPS) -> dict:
+    """Phase 10 (c): ``engine.launch=raise:x1`` on a sync store: exactly
+    one ``launch_retries`` and the clean store's SST files; then
+    ``engine.crc=raise:x1`` on a stacked round of a 2-shard store (the
+    batched kernels launch, the verdict's failpoint fires): the round's
+    jobs run again one by one, one ``launch_retries``, the clean sharded
+    store's files.  Each round's batched kernel calls, and each store's
+    first read-back wave calls, are held against their plain versions on
+    the same inputs."""
+    from repro_torch.lsm import faults
+    from repro_torch.lsm.sharded import ShardedDB
+    out: dict = {}
+    files: dict = {}
+    waves: list = []
+    for name, spec in (("clean", None), ("fault", "engine.launch=raise:x1")):
+        path = os.path.join(work, f"retry-{name}")
+        db = LsmDB(path, fault_config(failpoints=spec), device=dev)
+        model: dict = {}
+        try:
+            with no_cpu_engine():
+                fault_writes(db, n, model)
+                db.flush()
+            out[f"{name}_retries"] = db.engine.launch_retries
+            out[f"{name}_compactions"] = db.stats.compactions
+            check_model(db, model, sorted(model), f"(c) {name}", waves)
+        finally:
+            faults.FAILPOINTS.clear()
+        db.close()
+        files[name] = sst_digests(path)
+        shutil.rmtree(path)
+    if out["fault_retries"] != 1 or out["clean_retries"] != 0 or \
+            files["fault"] != files["clean"] or not out["clean_compactions"]:
+        raise AssertionError(f"(c) the transient launch fault: {out}, "
+                             "files equal: "
+                             f"{files['fault'] == files['clean']}")
+    out["files"] = len(files["clean"])
+    for name, spec in (("clean", None), ("fault", "engine.crc=raise:x1")):
+        path = os.path.join(work, f"round-{name}")
+        db = ShardedDB(path, fault_config(auto_compact=False,
+                                          failpoints=spec),
+                       boundaries=[b"k%05d" % (n // 2)], device=dev)
+        model = {}
+        try:
+            fault_writes(db, n, model, shards=True)
+            db.flush()
+            with no_cpu_engine(), keep_batch_calls() as calls, \
+                    one_round_per_notify():
+                db.maybe_compact()
+            if not calls:
+                raise AssertionError(f"(c) the {name} round made no "
+                                     "batched kernel call")
+            out[f"round_{name}"] = dict(
+                retries=db.engine.launch_retries,
+                stacked=db.engine.batch_launches,
+                batched_calls=check_batch_calls(calls),
+                batched_compactions=db.stats.batched_compactions,
+                compactions=db.stats.compactions)
+            check_model(db, model, sorted(model), f"(c) round {name}",
+                        waves)
+        finally:
+            faults.FAILPOINTS.clear()
+        db.close()
+        files[name] = tree_digests(path)
+        shutil.rmtree(path)
+    rc, rf = out["round_clean"], out["round_fault"]
+    if rc["stacked"] < 1 or rc["retries"] or rf["retries"] != 1 or \
+            not rf["batched_calls"] or rf["batched_compactions"] or \
+            files["fault"] != files["clean"]:
+        raise AssertionError(f"(c) the stacked round's fault: {rc}, {rf}, "
+                             "files equal: "
+                             f"{files['fault'] == files['clean']}")
+    out["round_files"] = len(files["clean"])
+    out["waves"] = waves_of_both(waves, "(c)")
+    return out
+
+
+def engine_raises(work: str, dev, *, n: int = FAULT_OPS) -> dict:
+    """Phase 10 (d): ``engine.launch=raise`` (every launch fails).  On a
+    sync store ``compact_once()`` raises ``FaultInjected`` after the job
+    and its one retry, with the level files unchanged and no
+    ``CpuCompactionEngine`` built.  On an async store the compaction
+    worker retries the job ``bg_max_retries`` times, each with the
+    engine's retry, then halts with a transient ``BackgroundError``; after
+    ``clear()`` and ``resume()`` its files are the clean store's (the
+    clean store retries no launch).  The read-backs' first wave calls are
+    held against their plain versions."""
+    from repro_torch.lsm import faults
+    out: dict = {}
+    waves: list = []
+    point = "engine.launch"
+    db = LsmDB(os.path.join(work, "raise-sync"),
+               fault_config(auto_compact=False), device=dev)
+    model: dict = {}
+    fault_writes(db, n, model)
+    levels, files = db.level_sizes(), sst_digests(db.path)
+    fired = faults.FAILPOINTS.fired(point)
+    try:
+        with no_cpu_engine(), faults.FAILPOINTS.active(f"{point}=raise"):
+            db.compact_once()
+    except faults.FaultInjected as e:
+        out["sync_raised"] = repr(e)
+    else:
+        raise AssertionError("(d) compact_once() did not raise")
+    out["sync_fired"] = faults.FAILPOINTS.fired(point) - fired
+    if out["sync_fired"] != 2 or db.engine.launch_retries != 1 or \
+            db.level_sizes() != levels or sst_digests(db.path) != files:
+        raise AssertionError(f"(d) sync: {out}, retries "
+                             f"{db.engine.launch_retries}, levels "
+                             f"{levels} -> {db.level_sizes()}")
+    out["sync_levels"] = levels
+    if not db.compact_once():
+        raise AssertionError("(d) no job after the fault was cleared")
+    check_model(db, model, sorted(model), "(d) sync", waves)
+    db.close()
+    shutil.rmtree(db.path)
+    files = {}
+    for name in ("clean", "fault"):
+        path = os.path.join(work, f"raise-async-{name}")
+        db = LsmDB(path, fault_config(async_compaction=True,
+                                      auto_compact=False), device=dev)
+        model = {}
+        fault_writes(db, n, model)
+        db.flush()
+        db.wait_idle(timeout=FAULT_WAIT)
+        if name == "fault":
+            fired = faults.FAILPOINTS.fired(point)
+            faults.FAILPOINTS.install(f"{point}=raise")
+            try:
+                with no_cpu_engine():
+                    db.maybe_compact()
+                    db.wait_idle(timeout=FAULT_WAIT)
+            except faults.BackgroundError as e:
+                out["async_error"] = (e.severity, repr(e.cause))
+            else:
+                raise AssertionError("(d) the async store did not halt")
+            finally:
+                faults.FAILPOINTS.clear()
+            out["async_fired"] = faults.FAILPOINTS.fired(point) - fired
+            out["async_bg_retries"] = db.stats.bg_retries
+            out["async_launch_retries"] = db.engine.launch_retries
+            out["resumed"] = db.resume()
+            want = (db.cfg.bg_max_retries + 1) * 2
+            if out["async_error"][0] != "transient" or \
+                    out["async_fired"] != want or \
+                    out["async_bg_retries"] != db.cfg.bg_max_retries:
+                raise AssertionError(f"(d) async: {out}, want {want} fires")
+        db.maybe_compact()
+        db.wait_idle(timeout=FAULT_WAIT)
+        check_model(db, model, sorted(model), f"(d) async {name}", waves)
+        out[f"async_{name}_compactions"] = db.stats.compactions
+        out[f"async_{name}_launch_retries"] = db.engine.launch_retries
+        db.close()
+        files[name] = sst_digests(path)
+        shutil.rmtree(path)
+    if files["fault"] != files["clean"] or not files["clean"]:
+        raise AssertionError("(d) after resume() the files differ from the "
+                             "clean store's")
+    if out["async_clean_launch_retries"]:
+        raise AssertionError(f"(d) the clean async store: {out}")
+    out["async_files"] = len(files["clean"])
+    out["waves"] = waves_of_both(waves, "(d)")
+    return out
+
+
+def flush_retry(work: str, dev, *, n: int = FAULT_OPS) -> dict:
+    """Phase 10 (e): ``flush.build=raise:x2`` on an async store: the flush
+    worker retries, ``bg_retries == 2``, and the SST files are a sync
+    store's for the same writes; neither store retries a launch.  The
+    read-backs' first wave calls are held against their plain
+    versions."""
+    from repro_torch.lsm import faults
+    out: dict = {}
+    files = {}
+    waves: list = []
+    for mode in ("sync", "async"):
+        path = os.path.join(work, f"flush-{mode}")
+        cfg = fault_config(auto_compact=False,
+                           async_compaction=mode == "async",
+                           failpoints="flush.build=raise:x2"
+                           if mode == "async" else None)
+        db = LsmDB(path, cfg, device=dev)
+        model: dict = {}
+        try:
+            fault_writes(db, n, model)
+            db.flush()
+            db.wait_idle(timeout=FAULT_WAIT)
+        finally:
+            faults.FAILPOINTS.clear()
+        out[f"{mode}_retries"] = db.stats.bg_retries
+        out[f"{mode}_flushes"] = db.stats.flushes
+        out[f"{mode}_launch_retries"] = db.engine.launch_retries
+        check_model(db, model, sorted(model), f"(e) {mode}", waves)
+        db.close()
+        files[mode] = sst_digests(path)
+        shutil.rmtree(path)
+    if out["async_retries"] != 2 or files["async"] != files["sync"] or \
+            not files["sync"] or out["sync_launch_retries"] or \
+            out["async_launch_retries"]:
+        raise AssertionError(f"(e) {out}, files equal "
+                             f"{files['async'] == files['sync']}")
+    out["files"] = len(files["sync"])
+    out["waves"] = waves_of_both(waves, "(e)")
+    return out
+
+
+def shed_writes(work: str, dev, *, n: int = FAULT_OPS) -> dict:
+    """Phase 10 (f): an async store (``max_pending_memtables=1``) whose one
+    flush is parked: ``WriteOptions(wait_stall=False)`` raises ``IOError``
+    at the next rotation instead of stalling, and after the drain every
+    acknowledged write (the one that met the full queue too) reads back by
+    ``multi_get`` and ``get``, whose first wave calls are held against
+    their plain versions; no launch is retried."""
+    from repro_torch.lsm import WriteOptions
+    path = os.path.join(work, "shed")
+    db = LsmDB(path, fault_config(async_compaction=True, auto_compact=False,
+                                  max_pending_memtables=1), device=dev)
+    gate = threading.Event()
+    real = db.engine.build_image
+
+    def parked(*a):
+        gate.wait(FAULT_WAIT)
+        return real(*a)
+
+    db.engine.build_image = parked
+    model: dict = {}
+    shed = None
+    try:
+        for i in range(n):
+            k, v = b"k%05d" % ((i * 7919) % n), b"v%05d" % i
+            try:
+                db.put(k, v, WriteOptions(wait_stall=False))
+            except IOError as e:
+                shed = (i, str(e))
+                model[k] = v   # in the WAL and the memtable before the raise
+                break
+            model[k] = v
+    finally:
+        gate.set()
+    if shed is None or "wait_stall" not in shed[1]:
+        raise AssertionError(f"(f) no write was shed: {shed}")
+    db.wait_idle(timeout=FAULT_WAIT)
+    db.flush()
+    db.wait_idle(timeout=FAULT_WAIT)
+    waves: list = []
+    out = dict(shed_at=shed[0], stalls=db.stats.write_stalls,
+               checked=check_model(db, model, sorted(model), "(f)", waves),
+               launch_retries=db.engine.launch_retries)
+    db.close()
+    shutil.rmtree(path)
+    if out["stalls"] or out["launch_retries"]:
+        raise AssertionError(f"(f) {out}")
+    out["waves"] = waves_of_both(waves, "(f)")
+    return out
+
+
+def fault_phase(work: str, dev, *, n: int = FAULT_N, ops_n: int = FAULT_OPS,
+                report=None) -> dict:
+    """Phase 10: (a)-(f) on ``dev``, the launch counts set to 0 just before
+    and read just after; then (g), the kept jobs and flushes of (a) rebuilt
+    on the plain versions.  Each part's result (with its ``seconds``) is
+    passed to ``report(part, result)`` as it comes.  (``n`` and ``ops_n``
+    scale it down for a rehearsal.)"""
+    parts = {
+        "a": lambda: fault_matrix(work, dev, n=n),
+        "c": lambda: engine_retry(work, dev, n=ops_n),
+        "d": lambda: engine_raises(work, dev, n=ops_n),
+        "e": lambda: flush_retry(work, dev, n=ops_n),
+        "f": lambda: shed_writes(work, dev, n=ops_n)}
+    ops.reset_launch_counts()
+    out: dict = {}
+    for part, run in parts.items():
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["seconds"] = time.perf_counter() - t0
+        if report is not None:
+            report(part, out[part])
+    out["launches"] = ops.launch_counts()
+    t0 = time.perf_counter()
+    geom = SSTGeometry()
+    out["g"] = dict(jobs=check_jobs(out["a"].pop("jobs"), geom, dev),
+                    flushes=check_flushes(out["a"].pop("flushes"), geom,
+                                          dev))
+    out["g"]["seconds"] = time.perf_counter() - t0
+    if report is not None:
+        report("g", out["g"])
+    return out
+
+
+def fault_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The phase-10 report of part ``part`` (``"a"``, ``"c"``-``"g"``; (b)
+    reports with (a)), with its seconds."""
+    took = f" ({r['seconds']:.1f} s)"
+    held = ""
+    if "waves" in r:
+        held = (f"; {len(r['waves'])} read-back wave calls (wrapper, shape) "
+                f"{sorted(set(r['waves']))} bit-identical to the plain "
+                f"versions")
+    if part == "a":
+        lines = [
+            f"[10] (a) the crash matrix on the LUDA store: {r['cells']} "
+            f"cells crashed at their failpoint and passed (durability, "
+            f"batch atomicity, integrity, liveness) in "
+            f"{r['matrix_s']:.1f} s; {r['engines']} engines, no launch "
+            f"retry; multi_get of {r['checked']} acknowledged keys equal "
+            f"to the get loop in every recovered store{held}; launches "
+            f"{r['launched']}; {len(r['batched'])} batched calls, each "
+            f"bit-identical to its plain batched version [{card}]"]
+        for mode, cells in r["by_mode"].items():
+            secs = [s for _, _, s in cells]
+            lines.append(
+                f"[10] (a) {mode}: {len(cells)} cells, "
+                f"{sum(secs) / len(secs):.2f} s a cell (min {min(secs):.2f}, "
+                f"max {max(secs):.2f}); acked "
+                + ", ".join(f"{p} {a}" for p, a, _ in cells))
+        lines.append(
+            f"[10] (b) sabotage failed as it must in every mode: "
+            + ", ".join(f"{m} {p} ({e} errors)" for m, p, e in r["sabotage"])
+            + f" ({r['sabotage_s']:.1f} s)" + took)
+        return lines
+    if part == "c":
+        rf = r["round_fault"]
+        return [
+            f"[10] (c) engine.launch=raise:x1 on a sync store: "
+            f"launch_retries {r['fault_retries']}, {r['fault_compactions']} "
+            f"compactions, {r['files']} SST files byte-identical to the "
+            f"clean store's",
+            f"[10] (c) engine.crc=raise:x1 on a stacked round of 2 shards: "
+            f"the batched calls (wrapper, shape, launches) "
+            f"{rf['batched_calls']} ran, bit-identical to the plain batched "
+            f"versions (the clean round's {r['round_clean']['batched_calls']}"
+            f" too), the round's jobs ran again one by one (launch_retries "
+            f"{rf['retries']}, batched_compactions "
+            f"{rf['batched_compactions']} of {rf['compactions']}); "
+            f"{r['round_files']} SST files byte-identical to the clean "
+            f"stacked round's{held}" + took]
+    if part == "d":
+        return [
+            f"[10] (d) engine.launch=raise: sync compact_once() raised "
+            f"{r['sync_raised']} after {r['sync_fired']} launches, levels "
+            f"{r['sync_levels']} unchanged, no CpuCompactionEngine; async: "
+            f"{r['async_error'][0]} BackgroundError after "
+            f"{r['async_bg_retries']} store retries ({r['async_fired']} "
+            f"fires, launch_retries {r['async_launch_retries']}); resume() "
+            f"-> {r['resumed']}, {r['async_files']} SST files equal the "
+            f"clean store's{held}" + took]
+    if part == "e":
+        return [
+            f"[10] (e) flush.build=raise:x2 on an async store: bg_retries "
+            f"{r['async_retries']}, {r['async_flushes']} flushes; "
+            f"{r['files']} SST files byte-identical to the sync store's, no "
+            f"launch retry{held}" + took]
+    if part == "f":
+        return [
+            f"[10] (f) WriteOptions(wait_stall=False) shed put "
+            f"{r['shed_at']} with IOError at the full queue, "
+            f"{r['stalls']} stalls, no launch retry; {r['checked']} "
+            f"acknowledged keys read back after the drain{held}" + took]
+    jobs, flushes = r["jobs"], r["flushes"]
+    return [
+        f"[10] (g) on the plain versions on the same inputs: (a)'s "
+        f"{len(jobs)} compaction jobs ({min(j[0] for j in jobs)}-"
+        f"{max(j[0] for j in jobs)} inputs, merge launches "
+        f"{sorted({j[1] for j in jobs})}, {sum(j[2] for j in jobs)} live "
+        f"rows) and {len(flushes)} first flushes ({sum(flushes)} entries) "
+        f"rebuilt byte-identical" + took]
+
+
+# ---------------------------------------------------------------------------
+
+
+def watch_engines():
+    """Record every ``TorchCompactionEngine`` built from now on: returns
+    the list they are appended to and the patch (``stop()`` ends it)."""
+    built: list = []
+    real = TorchCompactionEngine.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        built.append(self)
+
+    patch = mock.patch.object(TorchCompactionEngine, "__init__", init)
+    patch.start()
+    return built, patch
+
+
+def no_launch_retries(built: list, phase: int) -> str:
+    """Fail if an engine of ``built`` retried a launch (no engine
+    failpoint is armed before phase 10), then empty ``built``.  Returns the
+    phase's report line."""
+    retried = [e.launch_retries for e in built if e.launch_retries]
+    n = len(built)
+    built.clear()
+    if retried:
+        raise AssertionError(f"[{phase}] launch retries {retried} with no "
+                             "engine failpoint armed")
+    return f"[{phase}] {n} compaction engines, no launch retry"
 
 
 def card_line() -> str:
@@ -3672,6 +4241,7 @@ def main(argv: list[str]) -> int:
     log(f"[2] the edge tables {time.perf_counter() - t0:.1f} s")
 
     log("[3] store at the paper geometry")
+    built, watching = watch_engines()
     t_phase = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
@@ -3716,6 +4286,7 @@ def main(argv: list[str]) -> int:
         if idle:
             raise AssertionError(f"kernels not launched on the store's "
                                  f"paths: {idle}")
+        log(no_launch_retries(built, 3))
 
         log(f"[3] {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
@@ -3757,6 +4328,7 @@ def main(argv: list[str]) -> int:
             f"{jb['split'].get(PYTORCH, 0.0):.4f} ms in PyTorch kernels "
             f"(the wire route's {ms_wire:.4f}); {jb['total_ms']:.4f} ms of "
             f"device time [{card}]")
+        log(no_launch_retries(built, 4))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"[4] {time.perf_counter() - t_phase:.1f} s")
@@ -3842,6 +4414,7 @@ def main(argv: list[str]) -> int:
     log(f"[6] every read and a full scan of each store agree with the "
         f"acknowledged writes; both stores wrote the same SST files; the "
         f"baseline launched no kernel; {time.perf_counter() - t0:.1f} s")
+    log(no_launch_retries(built, 6))
 
     log(f"[7] the served session through the store on the card: "
         f"{FALCON}'s (cache, pos) of phase 5's batch into an LsmDB at the "
@@ -3859,6 +4432,7 @@ def main(argv: list[str]) -> int:
     served = (sv["engine"], sv["prompts"])   # phase 9 (f) serves again
     del sv
     log(session_lines(ss, xd, card))
+    log(no_launch_retries(built, 7))
     log(f"[7] {time.perf_counter() - t0:.1f} s")
 
     log(f"[8] the sharded store on the card: a ShardedDB of {SHARDS} shards "
@@ -3876,6 +4450,7 @@ def main(argv: list[str]) -> int:
     if idle:
         raise AssertionError(f"kernels not launched on the sharded store's "
                              f"paths: {idle}")
+    log(no_launch_retries(built, 8))
     log(f"[8] {time.perf_counter() - t0:.1f} s")
 
     log(f"[9] the async write path on the card: LsmDB and ShardedDB with "
@@ -3896,10 +4471,32 @@ def main(argv: list[str]) -> int:
                              f"paths: {idle}")
     log(f"[9] launches (a)-(f): " + ", ".join(
         f"{k} {p9['launches'][k]}" for k in KERNELS))
+    log(no_launch_retries(built, 9))
+    watching.stop()   # phase 10 checks its engines part by part
     log(f"[9] {time.perf_counter() - t0:.1f} s")
 
+    log(f"[10] the store's fault paths on the card: the crash-consistency "
+        f"matrix and the injected faults on the LUDA store at the default "
+        f"SSTGeometry (16 B keys, 256 B values, 4 KB blocks), 640 B "
+        f"memtables, {FAULT_N} operations a matrix cell")
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        p10 = fault_phase(work, dev, report=lambda part, r: log(
+            "\n".join(fault_part_lines(part, r, card))))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    idle = [k for k in STORE_PATH if not p10["a"]["launched"][k]]
+    if idle:
+        raise AssertionError(f"kernels not launched in the crash matrix: "
+                             f"{idle}")
+    log(f"[10] launches (a)-(f): " + ", ".join(
+        f"{k} {p10['launches'][k]}" for k in KERNELS))
+    log(f"[10] {time.perf_counter() - t0:.1f} s")
+
     # the main paths: phase 3's store (with phase 4's device sort and
-    # phase 5's prefill) and phase 9's async stores
+    # phase 5's prefill), phase 9's async stores and phase 10's faults
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -3908,9 +4505,11 @@ def main(argv: list[str]) -> int:
         r = checks[case]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path_launches[entry] + p9["launches"][entry],
+            launches=(path_launches[entry] + p9["launches"][entry] +
+                      p10["launches"][entry]),
             launches_by_path={"store": path_launches[entry],
-                              "async": p9["launches"][entry]},
+                              "async": p9["launches"][entry],
+                              "faults": p10["launches"][entry]},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -28,6 +28,8 @@ import queue
 import threading
 import time
 
+from repro_torch.lsm import faults
+
 
 def remaining(deadline: float | None) -> float | None:
     """Seconds left until a ``time.monotonic()`` deadline (None: no
@@ -220,7 +222,8 @@ class GlobalCompactionQueue:
     def _drain_round(self, dbs):
         """Pick <= 1 real job a shard, compact them together, install per
         shard.  Shards that yielded a job are queued again (they may have
-        more)."""
+        more).  The failpoint ``compact.round`` fires first."""
+        faults.fire("compact.round")
         owners, jobs = [], []
         for db in dbs:
             job = db.pick_compaction()

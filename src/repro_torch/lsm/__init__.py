@@ -7,8 +7,11 @@ store's config names it.
 The read surface mirrors ``repro.lsm``: ``LsmDB``, ``ShardedDB`` and
 ``TableReader`` expose ``get(key, opts=None)``, ``multi_get(keys,
 opts=None)`` and ``scan(start, end, opts=None)`` taking the same frozen
-``ReadOptions``.  The stores and caches are importable from here, as in
-``repro.lsm``.
+``ReadOptions``.  The write surface mirrors it: ``put(key, value,
+opts=None)``, ``delete(key, opts=None)`` and the atomic ``write_batch(ops,
+opts=None)`` take the same frozen ``WriteOptions`` on both stores.  The
+stores, caches, fault types and repair report are importable from here, as
+in ``repro.lsm``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,29 @@ class ReadOptions:
 DEFAULT_READ_OPTIONS = ReadOptions()
 
 
+@dataclasses.dataclass(frozen=True)
+class WriteOptions:
+    """Options of every write entry point (``put`` / ``delete`` /
+    ``write_batch`` on ``LsmDB`` and ``ShardedDB``).
+
+    * ``sync`` -- a per-call durability override: ``True`` fsyncs this
+      record before the write returns even on a store opened with
+      ``sync_writes=False``; ``False`` skips the fsync on a synced store;
+      ``None`` (the default) follows the store's config.
+    * ``wait_stall`` -- when the immutable-memtable queue is full, an
+      async-mode write blocks until the flushes drain it.
+      ``wait_stall=False`` raises ``IOError`` at once instead (the write
+      itself is already in the WAL and the active memtable; only the
+      rotation is refused), so a caller can shed load."""
+
+    sync: bool | None = None
+    wait_stall: bool = True
+
+
+#: Default options singleton (avoids per-put allocation on the hot path).
+DEFAULT_WRITE_OPTIONS = WriteOptions()
+
+
 def __getattr__(name):  # lazy: avoids core.scheduler <-> lsm.db cycle
     if name in ("LsmDB", "DBConfig", "DBStats", "Snapshot"):
         from repro_torch.lsm import db
@@ -62,4 +88,13 @@ def __getattr__(name):  # lazy: avoids core.scheduler <-> lsm.db cycle
     if name in ("TableReader", "TableCache", "BlockCache"):
         from repro_torch.lsm import sstable
         return getattr(sstable, name)
+    if name in ("FaultInjected", "SimulatedCrash", "BackgroundError",
+                "FailpointRegistry", "FAILPOINTS"):
+        from repro_torch.lsm import faults
+        return getattr(faults, name)
+    if name in ("repair_sharded", "RepairReport"):
+        # the function ``repair`` is not re-exported: the bare name would
+        # shadow the submodule
+        from repro_torch.lsm import repair as repair_mod
+        return getattr(repair_mod, name)
     raise AttributeError(name)

@@ -37,12 +37,24 @@ device outside the store's lock.  Installs take tickets in rotation order
 below an older one and the file numbers are the ones a synchronous store
 allocates; WAL segments are unlinked inside the sequenced region.  A
 writer stalls only while ``max_pending_memtables`` tables are queued
-(``DBStats.write_stalls``).  A failed build, install or compaction halts
-the pipeline: it is parked on the store as a classified
-``faults.BackgroundError``, raised at the next rotation, ``flush``,
-``wait_idle`` or ``close``; no younger memtable installs below the failed
-one, and ``resume()`` re-queues the parked tables.  Nothing is re-run on
-another engine.  ``wait_idle()`` is the barrier.
+(``DBStats.write_stalls``), and a write with ``WriteOptions(wait_stall=
+False)`` raises ``IOError`` there instead.  A transient failure of a
+background build or compaction job is retried ``bg_max_retries`` times
+with backoff (``faults.with_retries``, ``DBStats.bg_retries``); a failure
+that outlasts them, or a hard one, halts the pipeline: it is parked on the
+store as a classified ``faults.BackgroundError``, raised at the next
+rotation, ``flush``, ``wait_idle`` or ``close``; no younger memtable
+installs below the failed one, and ``resume()`` re-queues the parked
+tables (``DBStats.bg_resumes``).  Nothing is re-run on another engine.
+``wait_idle()`` is the barrier.
+
+**Durability and repair.**  ``DBConfig.sync_writes`` fsyncs every WAL
+append and the directory entries of created and renamed files, so an
+acknowledged write survives a kill; ``WriteOptions.sync`` overrides it a
+call.  ``LsmDB.open(path, cfg, repair=True)`` runs ``lsm.repair`` first.
+The failpoints of ``lsm.faults`` fire at ``db.write_batch`` (between the
+WAL record and the memtable apply), ``flush.build`` and
+``compact.install``; ``DBConfig.failpoints`` arms them at open.
 
 One ``RLock`` guards the memtables, the version set and manifest, the
 scheduler's pointers, the file numbers and the installs; SST files are
@@ -51,8 +63,7 @@ once under it and search outside it.  Every thread launches on the
 device's default stream, which they share: a reader's kernels and a
 worker's are ordered on it, so a tensor one thread frees is never handed
 out again while another thread's queued kernel still reads it.  Not here
-yet: write options, failpoints and repair (ROADMAP A9), metrics and
-tracing (A10).
+yet: metrics and tracing (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -72,8 +83,9 @@ from repro_torch.core.background import (BackgroundExecutor,
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.core.scheduler import (CompactionJob, CompactionScheduler,
                                         SchedulerConfig)
-from repro_torch.lsm import DEFAULT_READ_OPTIONS, ReadOptions, memtable, \
-    sstable, wal
+from repro_torch.lsm import (DEFAULT_READ_OPTIONS, DEFAULT_WRITE_OPTIONS,
+                             ReadOptions, WriteOptions, faults, memtable,
+                             sstable, wal)
 from repro_torch.lsm import read as lsm_read
 from repro_torch.device import resolve_device
 from repro_torch.lsm.cpu_engine import CpuCompactionEngine
@@ -100,11 +112,18 @@ class DBConfig:
     table_cache: int = 64
     block_cache_blocks: int = 4096  # host LRU of decoded blocks (0 = off)
     sync_wal: bool = False          # fsync every WAL append
+    sync_writes: bool = False       # full durability for acknowledged
+    #   writes: fsync every WAL append AND the directory entries of created
+    #   and renamed files (the crash matrix runs with it)
     auto_compact: bool = True
     async_compaction: bool = False  # non-blocking writes: background
     #   flushes and one compaction worker
     flush_workers: int = 1          # image builds overlap; installs ordered
     max_pending_memtables: int = 4  # immutable-queue depth before stalling
+    failpoints: object | None = None    # a fault-injection spec (str or
+    #   dict), installed into ``faults.FAILPOINTS`` at open
+    bg_max_retries: int = 3         # retries of a transient background failure
+    bg_retry_base_s: float = 0.005  # their backoff base (doubles, with jitter)
 
 
 @dataclasses.dataclass
@@ -136,6 +155,8 @@ class DBStats:
     flush_host_seconds: float = 0.0
     bloom_negative_skips: int = 0
     write_stalls: int = 0          # rotations that waited for a full queue
+    bg_retries: int = 0            # retries of transient background failures
+    bg_resumes: int = 0            # resume() calls that cleared a bg_error
     orphans_removed: int = 0
 
     def add(self, other: "DBStats") -> "DBStats":
@@ -199,6 +220,8 @@ class LsmDB:
         self.cfg = cfg or DBConfig()
         self.geom = self.cfg.geom
         self._device = resolve_device(device)
+        if self.cfg.failpoints is not None:
+            faults.FAILPOINTS.install(self.cfg.failpoints)
         self._owns_engine = engine is None
         self._compaction_sink = compaction_sink
         self.engine = (engine if engine is not None
@@ -224,15 +247,17 @@ class LsmDB:
         self._wal_path = os.path.join(path, "wal.log")
         self._wal_seg_no = 0                            # guarded-by: _lock
         self._extra_wals: list[str] = []                # guarded-by: _lock
+        self._wal_sync = self.cfg.sync_wal or self.cfg.sync_writes
         self._replay_wal_locked()
         self._gc_orphans_locked()
         self._wal = wal.WALWriter(                      # guarded-by: _lock
-            self._wal_path, sync=self.cfg.sync_wal)
+            self._wal_path, sync=self._wal_sync)
         self._closed = False                            # guarded-by: _lock
         self._async = bool(self.cfg.async_compaction)
         self._install_seq = InstallSequencer()
         self._compact_scheduled = False                 # guarded-by: _lock
-        self._bg_error: BackgroundError | None = None   # guarded-by: _lock
+        # a BackgroundError, or the SimulatedCrash of a dead worker
+        self._bg_error: BaseException | None = None     # guarded-by: _lock
         if self._async:
             self._flush_exec = BackgroundExecutor(
                 workers=max(1, self.cfg.flush_workers), name="flush")
@@ -241,6 +266,20 @@ class LsmDB:
                 BackgroundExecutor(workers=1, name="compact")
         else:
             self._flush_exec = self._compact_exec = None
+
+    @classmethod
+    def open(cls, path: str, cfg: DBConfig | None = None, *,
+             repair: bool = False, **kw) -> "LsmDB":
+        """Open a store, with crash repair first when ``repair`` is set:
+        ``lsm.repair.repair`` quarantines corrupt SSTs to ``lost/``,
+        truncates torn WAL tails and rebuilds the MANIFEST from the
+        surviving files (offline: ``python -m repro_torch.lsm.repair
+        <dir>``).  ``kw`` goes to the constructor (``device``, ...)."""
+        resolve_device(kw.get("device"))   # no card: raise before repair
+        if repair and os.path.isdir(path):
+            from repro_torch.lsm import repair as repair_mod
+            repair_mod.repair(path)
+        return cls(path, cfg, **kw)
 
     @property
     def device(self):
@@ -314,31 +353,35 @@ class LsmDB:
         self.versions.last_seq += 1
         return self.versions.last_seq
 
-    def put(self, key: bytes, value: bytes):
+    def put(self, key: bytes, value: bytes,
+            opts: WriteOptions | None = None):
+        opts = opts or DEFAULT_WRITE_OPTIONS
         self._check_key(key)
         self._check_value(value)
         with self._lock:
             self._check_open_locked()
             seq = self._next_seq_locked()
-            self._wal.append(wal.PUT, seq, key, value)
+            self._wal.append(wal.PUT, seq, key, value, sync=opts.sync)
             self.mem.put(key, seq, value)
             self._stats.puts += 1
-            self._maybe_flush_locked()
+            self._maybe_flush_locked(wait_stall=opts.wait_stall)
 
-    def delete(self, key: bytes):
+    def delete(self, key: bytes, opts: WriteOptions | None = None):
+        opts = opts or DEFAULT_WRITE_OPTIONS
         self._check_key(key)
         with self._lock:
             self._check_open_locked()
             seq = self._next_seq_locked()
-            self._wal.append(wal.DELETE, seq, key)
+            self._wal.append(wal.DELETE, seq, key, sync=opts.sync)
             self.mem.delete(key, seq)
             self._stats.deletes += 1
-            self._maybe_flush_locked()
+            self._maybe_flush_locked(wait_stall=opts.wait_stall)
 
-    def write_batch(self, ops) -> int:
+    def write_batch(self, ops, opts: WriteOptions | None = None) -> int:
         """Apply ``("put", key, value)`` / ``("delete", key)`` ops in order
         as ONE CRC-framed WAL record: replay after a crash recovers every
         op or none.  Returns the number of ops applied."""
+        opts = opts or DEFAULT_WRITE_OPTIONS
         rows = []
         for op in ops:
             if op[0] == "put":
@@ -358,7 +401,10 @@ class LsmDB:
             self._check_open_locked()
             first_seq = self.versions.last_seq + 1
             self.versions.last_seq += len(rows)
-            self._wal.append_batch(rows, first_seq)
+            self._wal.append_batch(rows, first_seq, sync=opts.sync)
+            # the crash window: the WAL record is written, the memtable
+            # not yet; replay applies the whole batch (or, torn, none)
+            faults.fire("db.write_batch")
             for i, (kind, key, value) in enumerate(rows):
                 if kind == wal.PUT:
                     self.mem.put(key, first_seq + i, value)
@@ -366,14 +412,14 @@ class LsmDB:
                     self.mem.delete(key, first_seq + i)
             self._stats.write_batches += 1
             self._stats.batch_ops += len(rows)
-            self._maybe_flush_locked()
+            self._maybe_flush_locked(wait_stall=opts.wait_stall)
         return len(rows)
 
-    def _maybe_flush_locked(self):
+    def _maybe_flush_locked(self, wait_stall: bool = True):
         if self.mem.approx_bytes < self._memtable_limit:
             return
         if self._async:
-            self._rotate_locked()
+            self._rotate_locked(wait_stall=wait_stall)
             return
         self.flush()
         if self.cfg.auto_compact:
@@ -381,21 +427,31 @@ class LsmDB:
 
     def _raise_if_halted_locked(self):
         """Raise the parked background error, if any: the pipeline is
-        halted until ``resume()``."""
+        halted until ``resume()``.  A parked ``SimulatedCrash`` is raised
+        as it is: the store is dead."""
         err = self._bg_error
+        if isinstance(err, faults.SimulatedCrash):
+            raise err
         if err is not None:
             raise BackgroundError(err.op, err.cause) from err
 
-    def _rotate_locked(self):
+    def _rotate_locked(self, wait_stall: bool = True):
         """Move the active memtable onto the immutable queue (O(1): close
         and rename its WAL segment) and hand it to a flush worker.  The
-        writer stalls while ``max_pending_memtables`` tables are queued."""
+        writer stalls while ``max_pending_memtables`` tables are queued,
+        or, without ``wait_stall``, raises ``IOError`` (the write that
+        triggered the rotation is already in the WAL and the active
+        memtable: only the rotation is refused)."""
         # surface an earlier background failure BEFORE touching rotation
         # state: a raise after issuing the ticket would orphan it and
         # wedge every later install
         self._flush_exec.check()
         self._raise_if_halted_locked()
         while len(self.imm) >= self.cfg.max_pending_memtables:
+            if not wait_stall:
+                raise IOError(
+                    "write stall: immutable-memtable queue is full and "
+                    "WriteOptions.wait_stall is False")
             self._stats.write_stalls += 1
             if not self._imm_cv.wait(timeout=60.0):
                 raise IOError("write stalled > 60 s: the immutable queue "
@@ -405,7 +461,7 @@ class LsmDB:
         self._wal_seg_no += 1
         seg = os.path.join(self.path, f"wal-{self._wal_seg_no:06d}.log")
         os.rename(self._wal_path, seg)
-        if self.cfg.sync_wal:
+        if self._wal_sync:
             fsync_dir(self.path)   # the rename survives a crash
         entry = ImmutableMemTable(table=self.mem,
                                   wal_paths=self._extra_wals + [seg],
@@ -415,15 +471,21 @@ class LsmDB:
         # is replaced, and both happen under the lock readers take
         self.imm.append(entry)
         self.mem = memtable.MemTable()
-        self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+        self._wal = wal.WALWriter(self._wal_path, sync=self._wal_sync)
         self._flush_exec.submit(self._background_flush, entry)
 
     def _set_bg_error(self, err: BaseException,
-                      op: str = "flush") -> BackgroundError:
+                      op: str = "flush") -> BaseException:
         """Park the first background error (classified) and wake stalled
         writers, whose queue will not drain now.  Returns the error the
-        worker raises."""
-        if not isinstance(err, BackgroundError):
+        worker raises: the classified wrapper, except a ``SimulatedCrash``,
+        which stays what it is (a simulated death is not a failure the
+        store may handle).  A parked crash halts the store as a process
+        death would: no younger memtable installs over the dead worker's
+        table, whose WAL segment replays over it on reopen.  (JAX parks
+        none: its crash matrix loses acknowledged writes once a build
+        outlasts a memtable's filling.)"""
+        if not isinstance(err, (BackgroundError, faults.SimulatedCrash)):
             err = BackgroundError(op, err)
         with self._lock:
             if self._bg_error is None:
@@ -436,7 +498,8 @@ class LsmDB:
         new install tickets to every memtable still on the immutable
         queue (in rotation order), resubmit their flushes, and reschedule
         compaction.  Returns True when an error was cleared.  After a
-        hard error (corruption) the damage is still on disk."""
+        hard error (corruption) the damage is still on disk.  A parked
+        ``SimulatedCrash`` is raised again: a dead store stays dead."""
         if self._async:
             # let in-flight work end first: it is failing or skipping
             # against the standing error, which is what this clears
@@ -447,11 +510,14 @@ class LsmDB:
         with self._lock:
             if self._bg_error is None:
                 return False
+            if isinstance(self._bg_error, faults.SimulatedCrash):
+                raise self._bg_error
             self._bg_error = None
             resub = [dataclasses.replace(e, ticket=self._install_seq.issue())
                      for e in self.imm]
             self.imm = resub
             self._imm_cv.notify_all()
+            self._stats.bg_resumes += 1
         for e in resub:
             self._flush_exec.submit(self._background_flush, e)
         if self.cfg.auto_compact and \
@@ -459,17 +525,29 @@ class LsmDB:
             self._schedule_compaction()
         return True
 
+    def _count_retry(self):
+        with self._lock:
+            self._stats.bg_retries += 1
+
     def _background_flush(self, entry: ImmutableMemTable):
         """A flush worker's task: build ``entry``'s L0 image on the
         device (outside the store's lock, beside other builds), then
         install it in ticket order and unlink its WAL segments."""
         t0 = time.perf_counter()
-        try:
-            img = None
+
+        def build():
             entries = entry.table.sorted_entries()
-            if entries:
-                keys, meta, vals = self._pack_entries(entries)
-                img = self.engine.build_image(keys, meta, vals)
+            faults.fire("flush.build")
+            if not entries:
+                return None
+            return self.engine.build_image(*self._pack_entries(entries))
+
+        try:
+            # a transient failure (an I/O hiccup, an injected soft fault)
+            # is retried with backoff before it halts the pipeline
+            img = faults.with_retries(
+                build, retries=self.cfg.bg_max_retries,
+                base_s=self.cfg.bg_retry_base_s, on_retry=self._count_retry)
         except BaseException as e:
             # halt the pipeline: a younger memtable must not install below
             # this still-queued older one, or this table's data would
@@ -680,6 +758,7 @@ class LsmDB:
             if len(self.mem) == 0:
                 return
             t0 = time.perf_counter()
+            faults.fire("flush.build")
             keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
             img = self.engine.build_image(keys, meta, vals)
             self._install_ssts(img, level=0)
@@ -691,7 +770,7 @@ class LsmDB:
                 except FileNotFoundError:
                     pass
             self._extra_wals = []
-            self._wal = wal.WALWriter(self._wal_path, sync=self.cfg.sync_wal)
+            self._wal = wal.WALWriter(self._wal_path, sync=self._wal_sync)
             self._stats.flushes += 1
             self._stats.flush_host_seconds += time.perf_counter() - t0
 
@@ -754,8 +833,9 @@ class LsmDB:
 
     def _background_compact(self):
         """The compaction worker's drain: run jobs until none is due (one
-        a wake-up in ``paper_faithful`` mode).  A failure halts the
-        pipeline, as a flush's does."""
+        a wake-up in ``paper_faithful`` mode).  A transient failure of a
+        job is retried with backoff; one that outlasts the retries, or a
+        hard one, halts the pipeline, as a flush's does."""
         try:
             while True:
                 with self._lock:
@@ -763,7 +843,11 @@ class LsmDB:
                     if job is None:
                         self._compact_scheduled = False
                         return
-                self.compact_job(job)
+                faults.with_retries(
+                    lambda: self.compact_job(job),
+                    retries=self.cfg.bg_max_retries,
+                    base_s=self.cfg.bg_retry_base_s,
+                    on_retry=self._count_retry)
                 if self.cfg.scheduler.paper_faithful:
                     # the paper's artifact (§IV-C): at most one job a
                     # flush -- do not drain the scheduler
@@ -861,6 +945,7 @@ class LsmDB:
             # a corrupt input must leave the store exactly as it was
             raise IOError("compaction input failed CRC verification; "
                           "inputs retained")
+        faults.fire("compact.install")
         edit = VersionEdit(
             deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
                     [(job.level + 1, f.file_no) for f in job.inputs_hi])

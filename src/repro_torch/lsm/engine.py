@@ -8,10 +8,19 @@ power-of-two block count, the total to a power-of-two bucket, a flush to
 a power-of-two block count), runs the pipeline through
 ``CompactionExecutor`` and brings the output image back to the host.  The
 padding decides the output image's size, so the same padding is what
-makes the SST files byte-identical to the JAX store's.  There is no retry
-and no CPU engine behind it: a failed launch raises.  (The numpy CPU
-baseline, ``cpu_engine.CpuCompactionEngine``, runs only where a store's
-config names it.)
+makes the SST files byte-identical to the JAX store's.
+
+A compaction job whose launch raises, or whose CRC verdict is negative,
+runs once more on the same card (``launch_retries`` counts each such
+retry); a stacked launch that raises reruns its jobs one by one, which
+counts one retry.  That is the device half of the JAX engine's launch
+resilience, and all of it: there is no CPU engine behind this one, so the
+second attempt's error propagates and its negative verdict is returned
+(the store then aborts the job with its inputs kept).  The failpoints
+``engine.launch`` and ``engine.crc`` fire before the pipeline call and
+after it, before its verdict is read.  (The numpy CPU baseline,
+``cpu_engine.CpuCompactionEngine``, runs only where a store's config
+names it.)
 
 On the card, ``device_seconds`` and ``sort_seconds`` are CUDA-event spans
 around the pipeline and around phase 2; on the CPU they stay 0.0.  The
@@ -37,6 +46,7 @@ import numpy as np
 from repro_torch.core import formats, offload
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.device import DeviceTimer, resolve_device
+from repro_torch.lsm import faults
 
 U32 = np.uint32
 
@@ -195,6 +205,8 @@ class TorchCompactionEngine:
         self.batch_launches = 0       # guarded-by: _lock
         self.batch_jobs = 0           # guarded-by: _lock
         self.max_batch_jobs = 0       # guarded-by: _lock
+        # jobs (or stacked launches) run a second time on the card
+        self.launch_retries = 0       # guarded-by: _lock
 
     def close(self):
         """Stop the file reader's thread and release the pinned buffers."""
@@ -218,29 +230,60 @@ class TorchCompactionEngine:
         return [formats.image_from_numpy(im, self.device, self.staging)
                 for im in images]
 
+    def _run_locked(self, staged, host, real_blocks: int, bottom_level: bool,
+                    t0: float) -> tuple[SSTImage, EngineStats]:
+        """One job on the card from its ``staged`` images, run once more
+        (staged again from the ``host`` images) when it raises or its
+        verdict is negative.  The second attempt's error propagates and
+        its verdict is returned as it is.  Every staging goes through
+        ``PinnedStaging``, which waits for a buffer's last copy before it
+        writes the buffer again, so a retry never overwrites a buffer that
+        a failed attempt's copy still reads.  An error of the second
+        attempt carries the first attempt's as its cause.
+        ``SimulatedCrash`` is not an ``Exception`` and passes through."""
+        first = None
+        try:
+            out, es = self._compact_staged_locked(
+                staged, real_blocks, bottom_level=bottom_level, t0=t0)
+            if es.crc_ok:
+                return out, es
+        except Exception as e:   # noqa: BLE001 - the one retry on the card
+            first = e
+        self.launch_retries += 1
+        t0 = time.perf_counter()
+        try:
+            return self._compact_staged_locked(
+                self._stage(host), real_blocks, bottom_level=bottom_level,
+                t0=t0)
+        except Exception as e:
+            if first is None:
+                raise
+            raise e from first
+
     def compact(self, images: list[SSTImage], *, bottom_level: bool = False
                 ) -> tuple[SSTImage, EngineStats]:
         """Compact host images (numpy); returns a host image."""
         with self._lock:
             t0 = time.perf_counter()
-            imgs = self._stage(images)
             real = sum(np.asarray(im.keys).shape[0] for im in images)
-            return self._compact_staged_locked(
-                imgs, real, bottom_level=bottom_level, t0=t0)
+            return self._run_locked(self._stage(images), images, real,
+                                    bottom_level, t0)
 
     def compact_paths(self, paths: list[str], *, bottom_level: bool = False
                       ) -> tuple[SSTImage, EngineStats]:
         """Compact straight from SST files, double-buffering the reads:
-        while image *i* is staged, the reader thread reads file *i + 1*."""
+        while image *i* is staged, the reader thread reads file *i + 1*.
+        A retry stages the images read once more."""
         with self._lock:
             t0 = time.perf_counter()
-            imgs, real = [], 0
+            host, imgs = [], []
             for im in self._read_all_locked(paths):
-                real += im.keys.shape[0]
+                host.append(im)
                 imgs.append(formats.image_from_numpy(im, self.device,
                                                      self.staging))
-            return self._compact_staged_locked(
-                imgs, real, bottom_level=bottom_level, t0=t0)
+            return self._run_locked(imgs, host,
+                                    sum(im.keys.shape[0] for im in host),
+                                    bottom_level, t0)
 
     def compact_many(self, jobs: list[tuple[list[str], bool]]
                      ) -> list[tuple[SSTImage, EngineStats]]:
@@ -252,8 +295,11 @@ class TorchCompactionEngine:
         a job alone in its signature takes the single-job path.  Results
         come back in input order, each bit-identical to ``compact_paths``
         of that job.  A job of a batch whose inputs fail the CRC is run
-        again alone for its verdict.  A failed launch raises: there is no
-        CPU engine behind this one."""
+        again alone for its verdict; a stacked launch that raises runs
+        its jobs again one by one (one ``launch_retries``), each with the
+        single-job path's retry.  A launch that still fails raises, noting
+        the stacked launch's error: there is no CPU engine behind this
+        one."""
         from repro_torch.core.scheduler import batch_signature
         with self._lock:
             t_read0 = time.perf_counter()
@@ -277,9 +323,23 @@ class TorchCompactionEngine:
                     results[j] = self._single_locked(
                         job_imgs[j], jobs[j][1], read_share)
                     continue
-                batch = self._compact_batched_locked(
-                    [job_imgs[j] for j in idxs], bucket=sig[1],
-                    bottom_level=jobs[idxs[0]][1], read_share=read_share)
+                try:
+                    batch = self._compact_batched_locked(
+                        [job_imgs[j] for j in idxs], bucket=sig[1],
+                        bottom_level=jobs[idxs[0]][1],
+                        read_share=read_share)
+                except Exception as stacked:   # noqa: BLE001 - one by one
+                    self.launch_retries += 1
+                    try:
+                        for j in idxs:
+                            results[j] = self._single_locked(
+                                job_imgs[j], jobs[j][1], read_share)
+                    except Exception as e:
+                        # a single job's own first error may be its cause
+                        e.add_note(f"the stacked launch of {len(idxs)} "
+                                   f"jobs raised first: {stacked!r}")
+                        raise
+                    continue
                 for j, res in zip(idxs, batch):
                     if not res[1].crc_ok:
                         # the single-job path gives its own verdict
@@ -289,11 +349,12 @@ class TorchCompactionEngine:
             return results
 
     def _single_locked(self, images, bottom_level: bool, read_share: float):
-        """One read job of ``compact_many`` through the single-job path."""
+        """One read job of ``compact_many`` through the single-job path
+        (with its retry)."""
         t0 = time.perf_counter()
-        out, es = self._compact_staged_locked(
-            self._stage(images), sum(im.keys.shape[0] for im in images),
-            bottom_level=bottom_level, t0=t0)
+        out, es = self._run_locked(self._stage(images), images,
+                                   sum(im.keys.shape[0] for im in images),
+                                   bottom_level, t0)
         es.host_seconds += read_share
         return out, es
 
@@ -319,9 +380,11 @@ class TorchCompactionEngine:
         timer = DeviceTimer(self.device)
         t_exec = time.perf_counter()
         with timer.span("pipeline"):
+            faults.fire("engine.launch")
             outs = self.executor.compact_many(
                 staged, bottom_level=bottom_level, pad_blocks=bucket,
                 timer=timer)
+            faults.fire("engine.crc")
         host = formats.images_to_numpy([out for out, _ in outs],
                                        self.staging)
         exec_wall = time.perf_counter() - t_exec
@@ -354,8 +417,10 @@ class TorchCompactionEngine:
         timer = DeviceTimer(self.device)
         t_exec = time.perf_counter()
         with timer.span("pipeline"):
+            faults.fire("engine.launch")
             out, s = self.executor.compact(imgs, bottom_level=bottom_level,
                                            pad_blocks=bucket, timer=timer)
+            faults.fire("engine.crc")
         out = formats.image_to_numpy(out, self.staging)
         exec_wall = time.perf_counter() - t_exec
         wire = self.geom.wire_words_per_block * 4

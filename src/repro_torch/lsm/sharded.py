@@ -27,8 +27,11 @@ shard.
 
 Boundary tables are uniform over the first key byte, or learned from a key
 sample (``boundaries_from_sample``: YCSB's ``user%012d`` keys occupy a thin
-slice of byte space).  Not here yet: write options, failpoints,
-``open(repair=True)`` (ROADMAP A9), metrics (A10).
+slice of byte space).  ``put``, ``delete`` and ``write_batch`` take
+``WriteOptions``; ``DBConfig.failpoints`` is armed before the boundary
+table is written (its failpoint is ``shards.write``, a torn
+``SHARDS.json.tmp``), and ``ShardedDB.open(path, cfg, repair=True)`` runs
+``lsm.repair.repair_sharded`` first.  Not here yet: metrics (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import time
 
 from repro_torch.core.background import GlobalCompactionQueue, remaining
 from repro_torch.device import resolve_device
-from repro_torch.lsm import ReadOptions
+from repro_torch.lsm import ReadOptions, WriteOptions, faults
 from repro_torch.lsm.db import DBConfig, DBStats, LsmDB, make_engine
 from repro_torch.lsm.fs import fsync_dir
 
@@ -109,6 +112,10 @@ class ShardedDB:
         self.path = path
         self.cfg = cfg or DBConfig()
         self.device = resolve_device(device)
+        # armed before the boundary table is written, so that
+        # shards.write can fire at creation (the shards install it again)
+        if self.cfg.failpoints is not None:
+            faults.FAILPOINTS.install(self.cfg.failpoints)
         os.makedirs(path, exist_ok=True)
         self.boundaries = self._load_or_init_boundaries(
             shards, boundaries, sample_keys)
@@ -133,6 +140,18 @@ class ShardedDB:
             self.engine.close()
             raise
         self._closed = False
+
+    @classmethod
+    def open(cls, path: str, cfg: DBConfig | None = None, *,
+             repair: bool = False, **kw) -> "ShardedDB":
+        """Open a sharded store, with offline repair of every shard's
+        directory first when ``repair`` is set (``lsm.repair``).  ``kw``
+        goes to the constructor (``boundaries``, ``device``, ...)."""
+        resolve_device(kw.get("device"))   # no card: raise before repair
+        if repair and os.path.isdir(path):
+            from repro_torch.lsm import repair as repair_mod
+            repair_mod.repair_sharded(path)
+        return cls(path, cfg, **kw)
 
     def _load_or_init_boundaries(self, shards, boundaries, sample_keys):
         meta_path = os.path.join(self.path, SHARDS_FILE)
@@ -172,8 +191,14 @@ class ShardedDB:
         else:
             cuts = uniform_boundaries(shards)
         tmp = meta_path + ".tmp"
+        payload = json.dumps({"boundaries": [b.hex() for b in cuts]})
         with open(tmp, "w") as f:
-            f.write(json.dumps({"boundaries": [b.hex() for b in cuts]}))
+            if faults.fire("shards.write") is faults.TORN:
+                # only the .tmp is torn: a reopen derives the table anew
+                f.write(payload[: max(1, len(payload) // 2)])
+                f.flush()
+                raise faults.SimulatedCrash("shards.write")
+            f.write(payload)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, meta_path)   # atomic: a crash leaves old or new
@@ -202,13 +227,14 @@ class ShardedDB:
         return ShardedSnapshot(shards=tuple(s.snapshot()
                                             for s in self.shards))
 
-    def put(self, key: bytes, value: bytes):
-        self.shards[self.shard_of(key)].put(key, value)
+    def put(self, key: bytes, value: bytes,
+            opts: WriteOptions | None = None):
+        self.shards[self.shard_of(key)].put(key, value, opts)
 
-    def delete(self, key: bytes):
-        self.shards[self.shard_of(key)].delete(key)
+    def delete(self, key: bytes, opts: WriteOptions | None = None):
+        self.shards[self.shard_of(key)].delete(key, opts)
 
-    def write_batch(self, ops) -> int:
+    def write_batch(self, ops, opts: WriteOptions | None = None) -> int:
         """Apply a group of writes, routed by key: one sub-batch a shard
         (in order within it), each committed atomically by that shard's
         ``LsmDB.write_batch``.  Atomicity is per shard: a crash between two
@@ -219,7 +245,7 @@ class ShardedDB:
                 raise ValueError(f"unknown batch op {op[0]!r} "
                                  "(want 'put' or 'delete')")
             by_shard.setdefault(self.shard_of(op[1]), []).append(op)
-        return sum(self.shards[i].write_batch(sub)
+        return sum(self.shards[i].write_batch(sub, opts)
                    for i, sub in sorted(by_shard.items()))
 
     def get(self, key: bytes, opts: ReadOptions | None = None):

@@ -15,6 +15,8 @@ The on-disk format is the raw dump of the wire image:
   u32 file_crc  -- crc32 of everything before this field
 
 Trailing all-zero blocks (``nvalid == 0``) are trimmed on write.
+Failpoints: ``sst.write`` (a torn ``.tmp``), ``sst.rename`` (death
+between the ``.tmp``'s fsync and its rename), ``cache.insert``.
 
 ``TableReader`` is the one decode entry point for point reads and scans:
 the file loads on first touch (whole-file CRC verified), and blocks decode
@@ -37,7 +39,7 @@ import numpy as np
 from repro_torch.core import formats
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.device import resolve_device
-from repro_torch.lsm import DEFAULT_READ_OPTIONS, engine
+from repro_torch.lsm import DEFAULT_READ_OPTIONS, engine, faults
 from repro_torch.lsm import read as lsm_read
 from repro_torch.lsm.fs import fsync_dir
 
@@ -100,9 +102,14 @@ def write_sst(path: str, img: SSTImage, file_no: int) -> FileMeta:
     payload += struct.pack("<I", binascii.crc32(payload) & 0xFFFFFFFF)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
+        if faults.fire("sst.write") is faults.TORN:
+            f.write(payload[: max(1, len(payload) // 2)])
+            f.flush()
+            raise faults.SimulatedCrash("sst.write")
         f.write(payload)
         f.flush()
         os.fsync(f.fileno())
+    faults.fire("sst.rename")   # a crash here leaves a complete orphan .tmp
     os.replace(tmp, path)  # atomic install
     fsync_dir(os.path.dirname(path) or ".")
 
@@ -197,6 +204,7 @@ class BlockCache:
     def put(self, file_no: int, block: int, blk: DecodedBlock):
         if self.capacity <= 0:
             return
+        faults.fire("cache.insert")
         with self._lock:
             self._c[(file_no, block)] = blk
             while len(self._c) > self.capacity:

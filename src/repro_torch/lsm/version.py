@@ -4,8 +4,9 @@ The manifest is a JSON-lines log of version edits; recovery replays it.
 Mirrors LevelDB's VersionSet at the fidelity this system needs: immutable
 per-level file lists, atomic apply of {add, delete} edits, persistent
 ``last_seq`` / ``next_file_no`` counters, and compaction pointers for
-round-robin file picking.  (A copy of ``repro.lsm.version`` without
-its failpoints and repair helper; same manifest format.)
+round-robin file picking.  Failpoint: ``manifest.append`` (a torn
+record).  ``write_manifest_snapshot`` is repair's atomic rewrite.  (The
+port of ``repro.lsm.version``; same manifest format.)
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import json
 import os
 
+from repro_torch.lsm import faults
 from repro_torch.lsm.fs import fsync_dir
 from repro_torch.lsm.sstable import FileMeta
 
@@ -130,6 +132,11 @@ class VersionSet:
             recs.append(dict(op="ptr", level=edit.compact_pointer[0],
                              key=edit.compact_pointer[1]))
         payload = "".join(json.dumps(rec) + "\n" for rec in recs)
+        if faults.fire("manifest.append") is faults.TORN:
+            # torn mid-record: recovery discards the tail
+            self._manifest.write(payload[: max(1, len(payload) - 7)])
+            self._manifest.flush()
+            raise faults.SimulatedCrash("manifest.append")
         self._manifest.write(payload)
         self._manifest.flush()
         os.fsync(self._manifest.fileno())
@@ -149,3 +156,28 @@ class VersionSet:
     def close(self):
         if self._manifest:
             self._manifest.close()
+
+
+# -- repair (lsm.repair) ----------------------------------------------------
+
+def write_manifest_snapshot(db_dir: str, version: Version, *,
+                            last_seq: int, next_file_no: int,
+                            compact_pointer: dict[int, bytes] | None = None):
+    """Atomically replace MANIFEST with a snapshot of ``version``: one
+    "add" a surviving file, then the counters and pointers, written to a
+    ``.tmp``, renamed and the directory fsynced, so a crash during repair
+    leaves the old manifest or the new one, never a mix."""
+    path = os.path.join(db_dir, "MANIFEST")
+    recs = []
+    for level, fm in version.all_files():
+        recs.append(dict(op="add", level=level, file=fm.to_json()))
+    recs.append(dict(op="meta", last_seq=last_seq, next_file_no=next_file_no))
+    for level, key in (compact_pointer or {}).items():
+        recs.append(dict(op="ptr", level=level, key=key.hex()))
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in recs))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(db_dir)

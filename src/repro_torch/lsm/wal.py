@@ -26,9 +26,10 @@ must not "recover" garbage from a newer store's log).
 With ``sync=True`` every append is flushed + fsynced before the put is
 acknowledged, and the log's *name* is made durable by fsyncing the
 parent directory at creation -- the discipline the crash-consistency
-matrix of the JAX package relies on.  A per-append ``sync=`` argument
-overrides the writer default in either direction.  (A copy of
-``repro.lsm.wal`` without its failpoints; same bytes on disk.)
+matrix relies on.  A per-append ``sync=`` argument overrides the writer
+default in either direction (``WriteOptions.sync`` comes through here).
+Failpoints: ``wal.append`` (a torn record), ``wal.fsync`` (death before
+the fsync).  (The port of ``repro.lsm.wal``; same bytes on disk.)
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import os
 import struct
 from typing import Iterator
 
+from repro_torch.lsm import faults
 from repro_torch.lsm.fs import fsync_dir
 
 PUT, DELETE, BATCH = 1, 0, 2
@@ -88,9 +90,14 @@ class WALWriter:
     def _emit(self, body: bytes, sync: bool | None):
         rec = struct.pack("<I", binascii.crc32(body) & 0xFFFFFFFF) + body
         framed = struct.pack("<I", len(rec)) + rec
+        if faults.fire("wal.append") is faults.TORN:
+            self._f.write(framed[: max(1, len(framed) // 2)])
+            self._f.flush()
+            raise faults.SimulatedCrash("wal.append")
         self._f.write(framed)
         if self._sync if sync is None else sync:
             self._f.flush()
+            faults.fire("wal.fsync")
             os.fsync(self._f.fileno())
 
     def flush(self):

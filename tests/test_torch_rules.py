@@ -29,6 +29,7 @@ from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.session_store import MemorySessionStore
+from repro_torch.testing import crashmatrix
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -89,10 +90,16 @@ def no_cuda(monkeypatch):
     lambda tmp: ShardedDB(str(tmp / "db")),
     lambda tmp: ShardedDB(str(tmp / "db"), DBConfig(engine="cpu"),
                           shards=2),
+    lambda tmp: LsmDB.open(str(tmp / "db"), repair=True),
+    lambda tmp: ShardedDB.open(str(tmp / "db"), repair=True),
+    lambda tmp: crashmatrix.run_cell("wal.append", "sync",
+                                     workdir=str(tmp / "db")),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
         "ycsb.run", "launch.ycsb", "MemorySessionStore",
-        "ServeEngine-page_store", "ShardedDB", "ShardedDB-cpu-engine"])
+        "ServeEngine-page_store", "ShardedDB", "ShardedDB-cpu-engine",
+        "LsmDB.open-repair", "ShardedDB.open-repair",
+        "crashmatrix.run_cell"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
