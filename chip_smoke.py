@@ -120,12 +120,31 @@ Phases, any fault exits non-zero:
    launch; (g) (a)'s jobs and first flushes rebuilt byte-identical on the
    plain versions.
 
-Phases 3-9 fail if a compaction engine built in them retried a launch:
-no engine failpoint is armed before phase 10.
+11. metrics and tracing on the card (``repro_torch.obs``) at the paper's
+   geometry at 256 B values: (a) YCSB-A through ``launch.ycsb.run`` as
+   phase 6 sizes it, on a sync store with a ``MetricsRegistry`` and a
+   ``Tracer``: the ``lsm.*`` counters equal ``DBStats``, the put
+   histogram counts every put and the launcher's p99 estimate is within
+   2**0.5 of the exact p99, spans nest, each launch span holds its three
+   child phases timed by the pipeline's CUDA events, whose sum over the
+   jobs equals ``compact_device_seconds`` within 1 %; (b) an async store
+   (``flush_workers=3``) with two reader threads whose ``get`` and
+   ``multi_get`` counts come out exact, its exported trace read by
+   ``python -m repro_torch.obs.report``; (c) a 2-shard ``ShardedDB``
+   whose round is one stacked launch of 2 jobs, its per-shard histograms
+   merged; (d) a ``ServeEngine`` over a page store, taking the store's
+   registry and tracer, with nothing recorded inside a decode capture;
+   the kernels each part launched held against their plain versions;
+   (e) the cost of tracing: put p50 / p99 and one L0->L1 job, traced
+   against untraced, and the CUDA events a job records either way (the
+   same).
+
+Phases 3-9 and 11 fail if a compaction engine built in them retried a
+launch: no engine failpoint is armed outside phase 10.
 
 The line before the last is a JSON ``kernels`` record (each kernel's
-``launches`` sums phase 3's paths, phase 9's and phase 10's, split in
-``launches_by_path``); the last line is
+``launches`` sums phase 3's paths, phase 9's, phase 10's and phase 11's,
+split in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
     python3 chip_smoke.py --kernels
@@ -143,6 +162,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -173,7 +193,8 @@ from repro_torch.launch import ycsb  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.cpu_engine import CpuCompactionEngine  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
-from repro_torch.lsm.engine import TorchCompactionEngine  # noqa: E402
+from repro_torch.lsm.engine import (  # noqa: E402
+    PHASE_SPANS, TorchCompactionEngine)
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.convert import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -1323,7 +1344,13 @@ TRACE_PRELUDE = 64
 
 def trace_once(fn) -> list[tuple[str, float]]:
     """``(name, ms)`` of each device event (kernel or copy) of one call of
-    ``fn``, from the profiler's CUPTI trace, after a prelude of
+    ``fn``, from the profiler's CUPTI trace (``trace_timeline``)."""
+    return [(name, ms) for _, name, ms in trace_timeline(fn)]
+
+
+def trace_timeline(fn) -> list[tuple[float, str, float]]:
+    """``(start us, name, ms)`` of each device event (kernel or copy) of
+    one call of ``fn``, from the profiler's CUPTI trace, after a prelude of
     ``TRACE_PRELUDE`` one-element fills and a ``torch.cuda._sleep``
     marker (``spin_kernel``) whose events are left out; empty when the
     trace came back without the marker or without device events after
@@ -1343,7 +1370,7 @@ def trace_once(fn) -> list[tuple[str, float]]:
     marks = [start for start, name, _ in events if "spin_kernel" in name]
     if not marks:
         return []
-    return [(name, ms) for start, name, ms in events if start > marks[-1]]
+    return [e for e in events if e[0] > marks[-1]]
 
 
 def device_trace(fn, attempts: int = 3) -> list[tuple[str, float]]:
@@ -2040,10 +2067,13 @@ WAVE_WRAPPERS = ("bloom_multi_probe", "lookup_blocks_packed")
 
 
 @contextlib.contextmanager
-def keep_waves(limit: int | None = None, threads: tuple[str, ...] = ("",)):
-    """Record each read-wave kernel call made inside (the first ``limit``,
-    from threads whose names start with one of ``threads``): the
-    wrapper's name, its inputs and keyword arguments, and its output."""
+def keep_waves(limit: int | None = None, threads: tuple[str, ...] = ("",),
+               names: tuple[str, ...] = WAVE_WRAPPERS, clone: bool = False):
+    """Record each call of the ``ops`` wrappers ``names`` (the read-wave
+    kernels by default) made inside (the first ``limit``, from threads
+    whose names start with one of ``threads``): the wrapper's name, its
+    inputs and keyword arguments, and its output (a copy with ``clone``,
+    for an output that its caller may write to later)."""
     calls: list[tuple] = []
 
     def watch(name, fn):
@@ -2051,12 +2081,15 @@ def keep_waves(limit: int | None = None, threads: tuple[str, ...] = ("",)):
             got = fn(*args, **kw)
             if (limit is None or len(calls) < limit) and \
                     threading.current_thread().name.startswith(threads):
-                calls.append((name, args, kw, got))
+                kept = got if not clone else (
+                    tuple(t.clone() for t in got) if isinstance(got, tuple)
+                    else got.clone())
+                calls.append((name, args, kw, kept))
             return got
         return call
 
     with contextlib.ExitStack() as stack:
-        for name in WAVE_WRAPPERS:
+        for name in names:
             stack.enter_context(mock.patch.object(
                 ops, name, watch(name, getattr(ops, name))))
         yield calls
@@ -2072,6 +2105,27 @@ def check_waves(calls: list[tuple]) -> list[tuple[str, tuple]]:
                                  f"{tuple(got.shape)} differs from its "
                                  "plain version")
     return [(name, tuple(got.shape)) for name, _, _, got in calls]
+
+
+def check_scan_calls(calls: list[tuple]) -> list[tuple]:
+    """Hold each recorded ``selective_scan`` call (``keep_waves(names=
+    ("selective_scan",), clone=True)``) against the plain scan on the same
+    inputs and device, within ``SCAN_TOL`` of the plain output's largest
+    magnitude as ``check_scan`` holds it.  Returns (u's shape, max abs
+    err y, max abs err h_last) a call."""
+    out = []
+    for _, args, kw, (y, h) in calls:
+        want_y, want_h = ref.selective_scan(*args, **kw)
+        err_y = float((y - want_y).abs().max())
+        err_h = float((h - want_h).abs().max())
+        if not (err_y <= SCAN_TOL * float(want_y.abs().max()) and
+                err_h <= SCAN_TOL * float(want_h.abs().max())):
+            raise AssertionError(
+                f"selective_scan at {tuple(args[0].shape)} differs from its "
+                f"plain version: max abs err y {err_y:.3g}, h_last "
+                f"{err_h:.3g} (limit {SCAN_TOL} of the largest magnitude)")
+        out.append((tuple(args[0].shape), err_y, err_h))
+    return out
 
 
 def session_phase(eng, prompts, work: str, *, max_new: int = SERVE_NEW,
@@ -3102,8 +3156,8 @@ class WatchedDB(LsmDB):
 
     OPTS = ReadOptions(fill_cache=False)
 
-    def __init__(self, path, cfg, *, device, sample, readers: int):
-        super().__init__(path, cfg, device=device)
+    def __init__(self, path, cfg, *, device, sample, readers: int, **kw):
+        super().__init__(path, cfg, device=device, **kw)
         self.sample = list(sample)
         self.issued = {k: [] for k in self.sample}   # values, put order
         self.acked = {k: 0 for k in self.sample}     # puts that returned
@@ -3159,10 +3213,11 @@ class WatchedDB(LsmDB):
 
 
 def watched_db(made: list, path, cfg, device=None, *, sample,
-               readers: int) -> WatchedDB:
-    """``ycsb.run``'s store as a ``WatchedDB``, kept in ``made``."""
+               readers: int, **kw) -> WatchedDB:
+    """``ycsb.run``'s store as a ``WatchedDB``, kept in ``made`` (``kw``:
+    the registry and tracer ``ycsb.run`` passes on)."""
     made.append(WatchedDB(path, cfg, device=device, sample=sample,
-                          readers=readers))
+                          readers=readers, **kw))
     return made[-1]
 
 
@@ -4171,6 +4226,749 @@ def fault_part_lines(part: str, r: dict, card: str) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: metrics and tracing on the card
+
+OBS_VALUE = 256
+OBS_GEOM = PAPER.geometry(OBS_VALUE)
+OBS_COST_MEMTABLES = 1   # the cost of tracing: puts of (a)'s first
+#   memtable into a traced and an untraced store, twice each way
+OBS_ASYNC_MEMTABLES = 4  # (b): memtables of puts into the async store
+OBS_SHARDS = 2           # (c)
+OBS_SHARD_MEMTABLES = 4  # (c): full memtables a shard before the round
+OBS_NEW = 4              # (d): new tokens of the one request served
+OBS_JOB_RUNS = 3         # the L0->L1 job traced and untraced, each this often
+LAUNCH_SPANS = ("compact.execute", "compact.batch_launch")
+# a child phase against the CUPTI trace of its job: CUDA events and CUPTI
+# timestamps are two clocks, so each comparison allows 1 % and this much
+CUPTI_SLACK_MS = 0.005
+
+
+def check_nesting(events) -> int:
+    """Spans on one thread nest (the check of JAX's
+    ``tests/test_obs.py::_check_nesting``): raise at the first span that
+    straddles another.  Returns the spans checked."""
+    per_tid: dict = {}
+    for e in events:
+        if e.get("ph") == "X":
+            per_tid.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0.0), e["name"]))
+    if not per_tid:
+        raise AssertionError("the trace has no spans")
+    for tid, spans in per_tid.items():
+        spans.sort(key=lambda s: (s[0], -s[1]))
+        stack: list = []
+        for t0, t1, name in spans:
+            # 1 ns of slack: timestamps are ns over 1,000 as floats
+            while stack and t0 >= stack[-1][1] - 1e-3:
+                stack.pop()
+            if stack and t1 > stack[-1][1] + 1e-3:
+                raise AssertionError(
+                    f"thread {tid}: {name} [{t0}, {t1}) straddles "
+                    f"{stack[-1][2]} [{stack[-1][0]}, {stack[-1][1]})")
+            stack.append((t0, t1, name))
+    return sum(len(s) for s in per_tid.values())
+
+
+def check_launches(events, clock: str, what: str) -> dict:
+    """Each launch span (``LAUNCH_SPANS``) must be followed, on its
+    thread, by its three child phases (``PHASE_SPANS``, in order) with
+    ``"clock": clock``, starting at its start and summing to at most its
+    wall.  Returns the launches, the most jobs one took, the children's
+    measured seconds (each duration over its ``scale``), the walls'
+    seconds, and how many were scaled or on a shared stream."""
+    xs = [e for e in events if e.get("ph") == "X"]
+    out = dict(launches=0, max_jobs=0, children_s=0.0, wall_s=0.0,
+               scaled=0, shared=0, clock=clock)
+    for i, e in enumerate(xs):
+        if e["name"] not in LAUNCH_SPANS:
+            continue
+        kids = list(itertools.islice(
+            (k for k in itertools.islice(xs, i + 1, None)
+             if k["tid"] == e["tid"]), 3))
+        if [k["name"] for k in kids] != list(PHASE_SPANS):
+            raise AssertionError(f"{what}: {e['name']} is followed by "
+                                 f"{[k['name'] for k in kids]}")
+        args = [k.get("args") or {} for k in kids]
+        if any(a.get("clock") != clock for a in args):
+            raise AssertionError(f"{what}: child clocks {args}, not {clock}")
+        if abs(kids[0]["ts"] - e["ts"]) > 1e-3 or \
+                sum(k["dur"] for k in kids) > e["dur"] + 1e-3:
+            raise AssertionError(f"{what}: the children of {e['name']} "
+                                 f"({[(k['ts'], k['dur']) for k in kids]}) "
+                                 f"leave it ({e['ts']}, {e['dur']})")
+        out["launches"] += 1
+        out["max_jobs"] = max(out["max_jobs"], e["args"]["jobs"])
+        out["children_s"] += sum(k["dur"] / a.get("scale", 1.0)
+                                 for k, a in zip(kids, args)) / 1e6
+        out["wall_s"] += e["dur"] / 1e6
+        out["scaled"] += "scale" in args[0]
+        out["shared"] += args[0].get("stream") == "shared"
+    return out
+
+
+def check_counters(reg, stats: dict, what: str, **labels) -> int:
+    """Every ``lsm.<field>`` counter of ``reg`` (with ``labels``) equals
+    the field of ``stats`` (a ``DBStats`` as a dict).  Returns the
+    fields checked."""
+    for name, want in stats.items():
+        got = reg.counter(f"lsm.{name}", **labels).value
+        if got != want:
+            raise AssertionError(f"{what}: counter lsm.{name}{labels} "
+                                 f"{got} != DBStats {want}")
+    return len(stats)
+
+
+def check_hist_counts(reg, stats: dict, what: str, **labels) -> dict:
+    """``lsm.op.latency_us{op}`` counts against their ``DBStats`` fields."""
+    counts = {op: reg.find("lsm.op.latency_us", op=op, **labels).count
+              for op in ("put", "get", "multi_get", "write_batch")}
+    want = {"put": stats["puts"], "get": stats["gets"],
+            "multi_get": stats["multi_gets"],
+            "write_batch": stats["write_batches"]}
+    if counts != want:
+        raise AssertionError(f"{what}: histogram counts {counts}, DBStats "
+                             f"{want}")
+    return counts
+
+
+def stall_culprits(rows: list, stalls: int, what: str) -> list:
+    """The report's stall rows: every ``write_stall`` counted, each with
+    a culprit (a background span, or ``none-active``)."""
+    if sum(r["count"] for r in rows) != stalls or \
+            not all(r["culprit"] for r in rows):
+        raise AssertionError(f"{what}: {stalls} stalls, report rows {rows}")
+    return [(r["cause"], r["culprit"], r["count"]) for r in rows]
+
+
+def report_cli(path: str) -> dict:
+    """``python -m repro_torch.obs.report <path> --json`` in a child
+    process: it must exit 0; returns its report."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                        path, "--json"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"obs.report exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout)
+
+
+def obs_sync(work: str, dev, *, geom: SSTGeometry, sched: SchedulerConfig,
+             value_size: int, memtables: int) -> dict:
+    """(a): YCSB-A through ``ycsb.run`` as phase 6 sizes it at
+    ``value_size`` (``memtables`` memtables of records and as many
+    operations) on a synchronous LUDA store with a ``MetricsRegistry``
+    and a ``Tracer``; its compaction jobs and first flushes kept
+    (``keep_jobs``, ``keep_flushes``) for the plain versions.  Checks: the
+    counters equal ``DBStats``, the put histogram's count the puts, the
+    launcher's ``ycsb.op.latency_us{op=put}`` p99 the exact p99 within
+    2**0.5, the spans nest, each launch span holds its three child
+    phases, whose measured sum equals ``compact_device_seconds`` within
+    1 % on the card.  The store runs on one thread, so on the card no
+    child may be scaled down to fit its launch span's host wall (CUDA
+    events that overran it would be) or say its stream was shared."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    on_card = torch.device(dev).type == "cuda"
+    n = paper_records(geom, value_size, memtables)
+    spec = PAPER.workload(value_size, records=n, operations=n)
+    cfg = dataclasses.replace(ycsb.store_config(value_size, paper=True),
+                              geom=geom, scheduler=sched)
+    reg, tr = MetricsRegistry(), Tracer()
+    made: list = []
+    keep_dir = os.path.join(work, "obs-jobs")
+
+    def make(path, cfg, device=None, **kw):
+        db = LsmDB(path, cfg, device=device, **kw)
+        made.append(dict(jobs=keep_jobs(db.engine, keep_dir),
+                         flushes=keep_flushes(db.engine, KEPT_FLUSHES)))
+        return db
+
+    path = os.path.join(work, "obs-sync")
+    with mock.patch.object(ycsb, "LsmDB", make):
+        r = ycsb.run(spec, cfg, device=dev, path=path, metrics=reg,
+                     tracer=tr)
+    shutil.rmtree(path)
+    st = r["db_stats"]
+    out = dict(row=r, kept=made[0], spec=spec, cfg=cfg)
+    out["counters"] = check_counters(reg, st, "(a)")
+    out["hists"] = check_hist_counts(reg, st, "(a)")
+    est, exact, ok = ycsb.check_histogram_p99(reg, r["latency_us"]["put"][1],
+                                              "put")
+    if not ok:
+        raise AssertionError(f"(a) the put histogram's p99 {est} us is not "
+                             f"within 2**0.5 of the exact {exact} us")
+    out["p99_check"] = (est, exact)
+    events = tr.to_chrome()["traceEvents"]
+    out["spans"] = check_nesting(events)
+    out["launch"] = check_launches(events, "cuda_event" if on_card
+                                   else "host", "(a)")
+    if out["launch"]["launches"] != st["compactions"]:
+        raise AssertionError(f"(a) {out['launch']['launches']} launch spans "
+                             f"for {st['compactions']} compactions")
+    if out["launch"]["scaled"] or out["launch"]["shared"]:
+        raise AssertionError(f"(a) a sync store's launch children were "
+                             f"scaled or shared: {out['launch']}")
+    if on_card and abs(out["launch"]["children_s"] -
+                       st["compact_device_seconds"]) > \
+            0.01 * st["compact_device_seconds"]:
+        raise AssertionError(
+            f"(a) the child phases sum to {out['launch']['children_s']} s, "
+            f"compact_device_seconds is {st['compact_device_seconds']} s")
+    out["device_s"] = st["compact_device_seconds"]
+    out["names"] = collections.Counter(e["name"] for e in events
+                                       if e["ph"] == "X")
+    out["events"] = len(events)
+    return out
+
+
+def obs_async(work: str, dev, *, geom: SSTGeometry, sched: SchedulerConfig,
+              value_size: int, memtables: int = OBS_ASYNC_MEMTABLES,
+              readers: int = READERS) -> dict:
+    """(b): ``memtables`` memtables of YCSB records into an async store
+    (``flush_workers=3``, the background compaction worker) with a
+    registry and a tracer, while ``readers`` reader threads ``multi_get``
+    and ``get`` acknowledged keys (``fill_cache=False``, so that waves
+    reach the bloom prune).  Checks: every value read is the one written;
+    the readers' ``get`` / ``multi_get`` counts (bumped outside the
+    store's lock) are exact; the counters equal ``DBStats`` and the
+    histograms' counts their fields; spans nest on every thread; each
+    launch span holds its child phases; the exported trace goes through
+    ``python -m repro_torch.obs.report``, which gives every
+    ``write_stall`` a culprit; the readers' first wave calls are held
+    against the plain versions.  How many launches say ``"stream":
+    "shared"`` depends on whether a reader's wave fell inside them; it is
+    reported."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    on_card = torch.device(dev).type == "cuda"
+    reg, tr = MetricsRegistry(), Tracer()
+    db = LsmDB(os.path.join(work, "obs-async"),
+               async_config(geom, sched, metrics=reg, tracer=tr), device=dev)
+    n = memtables * memtable_records(geom, value_size)
+    writes = [(key_of(i), ycsb_value(i, value_size)) for i in range(n)]
+    acked = [0]
+    counts = [[0, 0, 0] for _ in range(readers)]   # gets, multi_gets, keys
+    errors: list = []
+    stop = threading.Event()
+    opts = ReadOptions(fill_cache=False)
+
+    def read_loop(i: int) -> None:
+        rng = np.random.default_rng(i)
+        try:
+            while not stop.is_set():
+                hi = acked[0]
+                if hi < 64:
+                    stop.wait(0.002)
+                    continue
+                idx = rng.integers(0, hi, 32)
+                got = db.multi_get([writes[j][0] for j in idx], opts)
+                counts[i][1] += 1
+                counts[i][2] += len(idx)
+                for j in idx[:4]:
+                    got.append(db.get(writes[j][0], opts))
+                    counts[i][0] += 1
+                want = [writes[j][1] for j in idx] + \
+                    [writes[j][1] for j in idx[:4]]
+                if got != want:
+                    errors.append(("stale or wrong value", i))
+                stop.wait(READER_PAUSE)
+        except BaseException as e:   # noqa: BLE001 - raised below
+            errors.append(("reader failed", repr(e)))
+
+    threads = [threading.Thread(target=read_loop, args=(i,),
+                                name=f"reader-{i}", daemon=True)
+               for i in range(readers)]
+    t0 = time.perf_counter()
+    with keep_waves(limit=KEPT_WAVES, threads=("reader-",)) as calls:
+        for t in threads:
+            t.start()
+        for j, (k, v) in enumerate(writes):
+            db.put(k, v)
+            acked[0] = j + 1
+        db.wait_idle(timeout=FAULT_WAIT)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    write_s = time.perf_counter() - t0
+    st = dataclasses.asdict(db.stats)
+    db.close()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"(b) readers: {errors[:5]}")
+    out = dict(puts=n, write_s=write_s, stats=st)
+    gets, mgets, keys = (sum(c[i] for c in counts) for i in range(3))
+    if (st["puts"], st["gets"], st["multi_gets"], st["multi_get_keys"]) != \
+            (n, gets, mgets, keys):
+        raise AssertionError(f"(b) counts puts/gets/multi_gets/keys "
+                             f"{st['puts'], st['gets'], st['multi_gets']}"
+                             f"{st['multi_get_keys']} != {n, gets, mgets}"
+                             f"{keys}")
+    out.update(gets=gets, multi_gets=mgets, keys=keys)
+    out["counters"] = check_counters(reg, st, "(b)")
+    out["hists"] = check_hist_counts(reg, st, "(b)")
+    events = tr.to_chrome()["traceEvents"]
+    out["spans"] = check_nesting(events)
+    out["threads"] = len({e["tid"] for e in events if e["ph"] == "X"})
+    out["launch"] = check_launches(events, "cuda_event" if on_card
+                                   else "host", "(b)")
+    if st["compactions"] < 1 or out["launch"]["launches"] < 1:
+        raise AssertionError("(b) the async store ran no compaction")
+    t0 = time.perf_counter()
+    trace_path = os.path.join(work, "obs-async-trace.json")
+    tr.export(trace_path)
+    out["export_s"] = time.perf_counter() - t0
+    out["trace_bytes"] = os.path.getsize(trace_path)
+    t0 = time.perf_counter()
+    rep = report_cli(trace_path)
+    out["report_s"] = time.perf_counter() - t0
+    os.remove(trace_path)
+    out["stalls"] = stall_culprits(rep["stalls"], st["write_stalls"], "(b)")
+    out["events"] = rep["n_events"]
+    out["names"] = collections.Counter(e["name"] for e in events
+                                       if e["ph"] == "X")
+    out["waves"] = check_waves(calls)
+    if {name for name, _ in out["waves"]} != set(WAVE_WRAPPERS):
+        raise AssertionError(f"(b) the readers' wave calls checked: "
+                             f"{out['waves']}")
+    return out
+
+
+def obs_sharded(work: str, dev, *, geom: SSTGeometry, sched: SchedulerConfig,
+                value_size: int, shards: int = OBS_SHARDS,
+                memtables: int = OBS_SHARD_MEMTABLES) -> dict:
+    """(c): a ``ShardedDB`` of ``shards`` shards with one registry and one
+    tracer, ``memtables`` full memtables of puts a shard (a flush each,
+    as in phase 8), then one ``maybe_compact()`` whose round stacks the
+    shards' L0->L1 jobs into one launch.  Checks: a
+    ``compact.batch_launch`` of ``jobs >= 2`` with its child phases; each
+    shard's counters equal its ``DBStats``; the merged per-shard put
+    histograms equal the shards' buckets summed; the batched kernel calls
+    bit-identical to the plain batched versions; a read-back by
+    ``multi_get``."""
+    from repro_torch.lsm.sharded import ShardedDB, boundaries_from_sample
+    from repro_torch.obs import MetricsRegistry, Tracer, merge_histograms
+    on_card = torch.device(dev).type == "cuda"
+    reg, tr = MetricsRegistry(), Tracer()
+    per = memtables * memtable_records(geom, value_size)
+    cuts = boundaries_from_sample(
+        [key_of(i) for i in range(4 * shards * per)], shards)
+    ids = shard_keys(cuts, shards, per)
+    db = ShardedDB(os.path.join(work, "obs-sharded"), DBConfig(
+        geom=geom, scheduler=sched, auto_compact=False, metrics=reg,
+        tracer=tr), shards=shards, boundaries=cuts, device=dev)
+    t0 = time.perf_counter()
+    for s in range(shards):
+        for i in ids[s]:
+            db.put(key_of(i), ycsb_value(i, value_size))
+    load_s = time.perf_counter() - t0
+    with keep_batch_calls() as calls, one_round_per_notify():
+        db.maybe_compact()
+    sample = [i for s in range(shards) for i in ids[s][::max(1, per // 500)]]
+    got = db.multi_get([key_of(i) for i in sample])
+    if got != [ycsb_value(i, value_size) for i in sample]:
+        raise AssertionError("(c) multi_get disagrees with the writes")
+    shard_stats = [dataclasses.asdict(s) for s in db.shard_stats()]
+    total = dataclasses.asdict(db.stats)
+    batch = (db.engine.batch_launches, db.engine.max_batch_jobs)
+    db.close()
+    out = dict(load_s=load_s, stats=total, batch=batch, read=len(sample))
+    out["counters"] = sum(check_counters(reg, st, f"(c) shard {i}",
+                                         shard=str(i))
+                          for i, st in enumerate(shard_stats))
+    hists = [reg.find("lsm.op.latency_us", op="put", shard=str(i))
+             for i in range(shards)]
+    merged = merge_histograms(hists)
+    summed: collections.Counter = collections.Counter()
+    for h in hists:
+        summed.update(h.snapshot()[0])
+    if merged.snapshot()[0] != dict(summed) or not total["puts"] \
+            or merged.count != total["puts"]:
+        raise AssertionError("(c) the merged per-shard put histograms "
+                             "differ from the shards' sums")
+    out["hist"] = (merged.count, [h.count for h in hists],
+                   merged.percentile(99.0))
+    events = tr.to_chrome()["traceEvents"]
+    out["spans"] = check_nesting(events)
+    out["launch"] = check_launches(events, "cuda_event" if on_card
+                                   else "host", "(c)")
+    if out["launch"]["max_jobs"] < 2 or batch[0] < 1:
+        raise AssertionError(f"(c) no stacked launch: {out['launch']}, "
+                             f"engine {batch}")
+    out["rounds"] = [e["args"] for e in events
+                     if e["ph"] == "X" and e["name"] == "compact.round"]
+    out["batched"] = check_batch_calls(calls)
+    if not out["batched"]:
+        raise AssertionError("(c) the stacked round made no batched call")
+    return out
+
+
+@contextlib.contextmanager
+def capture_windows():
+    """Record each CUDA graph capture made inside: the capturing thread
+    and the host interval of its ``torch.cuda.graph`` block."""
+    wins: list = []
+    real = torch.cuda.graph
+
+    @contextlib.contextmanager
+    def timed(*a, **kw):
+        t0 = time.perf_counter_ns()
+        with real(*a, **kw) as g:
+            yield g
+        wins.append((threading.get_ident(), t0, time.perf_counter_ns()))
+
+    with mock.patch.object(torch.cuda, "graph", timed):
+        yield wins
+
+
+def obs_serve(eng, prompts, work: str, *, max_new: int = OBS_NEW,
+              db_cfg: DBConfig | None = None) -> dict:
+    """(d): a ``ServeEngine`` (phase 5's params, no copy) over a new page
+    store at phase 7's session geometry with a registry and a tracer,
+    which the engine takes as its own: one ``generate`` of one request
+    (its decode batch size captured anew), ``save_session`` and
+    ``load_session``.  Checks: the state loads back bit for bit; one
+    ``serve.generate`` / ``serve.page_out`` / ``serve.page_in`` span and
+    histogram count each; no event of the capturing thread begins inside
+    a capture, and no ``serve.*`` span lies inside one; the prefill's
+    first ``selective_scan`` call (at this request's shape) and the
+    load's wave calls held against the plain versions."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    dev = eng.device
+    reg, tr = MetricsRegistry(), Tracer()
+    db = LsmDB(os.path.join(work, "obs-pages"), db_cfg or session_config(),
+               device=dev, metrics=reg, tracer=tr)
+    p = prompts[:1]
+    seng = ServeEngine(eng.cfg, eng.params, max_len=p.shape[1] + max_new,
+                       device=dev, page_store=db)
+    if seng.metrics is not reg or seng.tracer is not tr:
+        raise AssertionError("(d) the engine did not take the store's "
+                             "registry and tracer")
+    t0 = time.perf_counter()
+    with capture_windows() as wins, keep_waves(
+            limit=1, names=("selective_scan",), clone=True) as scans:
+        _, cache, pos = seng.generate(p, max_new)
+    gen_s = time.perf_counter() - t0
+    scan = check_scan_calls(scans)
+    del scans
+    if dev.type == "cuda" and [c[0][:2] for c in scan] != [tuple(p.shape)]:
+        raise AssertionError(f"(d) the prefill's scan calls checked: {scan}")
+    t0 = time.perf_counter()
+    records = seng.save_session(SESSION_NAME, cache, pos)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with keep_waves(limit=KEPT_WAVES) as calls:
+        loaded = seng.load_session(SESSION_NAME)
+    load_s = time.perf_counter() - t0
+    check_state(loaded, (cache, pos), "(d) load_session")
+    waves = check_waves(calls)
+    del calls
+    db.close()
+    raw = list(tr._events)
+    serve = [(name, ts, dur, tid) for ph, name, ts, dur, tid, _ in raw
+             if ph == "X" and name.startswith("serve.")]
+    names = sorted(name for name, _, _, _ in serve)
+    if names != ["serve.generate", "serve.page_in", "serve.page_out"]:
+        raise AssertionError(f"(d) serve spans {names}")
+    hists = {op: reg.find("serve.op.latency_us", op=op).count
+             for op in ("generate", "page_out", "page_in")}
+    if hists != {"generate": 1, "page_out": 1, "page_in": 1}:
+        raise AssertionError(f"(d) serve histograms {hists}")
+    if dev.type == "cuda" and not wins:
+        raise AssertionError("(d) the generate captured no decode step")
+    for ident, c0, c1 in wins:
+        inside = [name for _, name, ts, _, tid, _ in raw
+                  if tid == ident and c0 <= ts < c1]
+        inside += [name for name, ts, dur, _ in serve
+                   if c0 <= ts and ts + dur <= c1]
+        if inside:
+            raise AssertionError(f"(d) recorded inside a capture: {inside}")
+    if {name for name, _ in waves} != set(WAVE_WRAPPERS):
+        raise AssertionError(f"(d) the load's wave calls checked: {waves}")
+    return dict(bytes=state_bytes((cache, pos)), records=records,
+                gen_s=gen_s, save_s=save_s, load_s=load_s, hists=hists,
+                scan=scan,
+                captures=[(c1 - c0) / 1e6 for _, c0, c1 in wins],
+                serve=[(name, dur / 1e6) for name, _, dur, _ in serve],
+                waves=waves, events=len(raw))
+
+
+def hold_children_on_cupti(engine, paths, attempts: int = 3) -> dict:
+    """One traced job of ``engine`` (``compact_paths(paths)``) under the
+    profiler (``trace_timeline``), its three child phases held against the
+    CUPTI trace of the same call.  The job's device events run in order
+    on one stream, so each phase's span must cover the extent (first
+    start to last end) of the hand-written kernels launched in it: phase
+    1's before the first ``merge_runs`` kernel, phase 2's ``merge_runs``
+    kernels, phase 3's after the last; and the three together must lie
+    within the extent of all the call's device events, which begin with
+    the staging copies before the pipeline's first event and end with the
+    read-back after its last.  Each comparison allows 1 % and
+    ``CUPTI_SLACK_MS``.  Returns the children's and the extents' ms."""
+    events = []
+    for _ in range(attempts):
+        events = sorted(trace_timeline(lambda: engine.compact_paths(paths)))
+        if events:
+            break
+    if not events:
+        raise RuntimeError(f"the profiler recorded no device time after its "
+                           f"marker in {attempts} traces")
+    xs = [e for e in engine.tracer.to_chrome()["traceEvents"]
+          if e["ph"] == "X"][-4:]
+    if [e["name"] for e in xs] != ["compact.execute", *PHASE_SPANS] or \
+            any("scale" in e["args"] for e in xs[1:]):
+        raise AssertionError(f"(e) the traced job's spans: {xs}")
+    child_ms = [e["dur"] / 1e3 for e in xs[1:]]
+    hand = [(t, kind, ms) for t, name, ms in events
+            if (kind := event_kind(name)) not in (COPIES, PYTORCH)]
+    merges = [i for i, (_, kind, _) in enumerate(hand)
+              if kind == "merge_runs"]
+    if not merges or any(k != "merge_runs" for _, k, _ in
+                         hand[merges[0]:merges[-1] + 1]):
+        raise AssertionError(f"(e) the job's hand-written kernels in order: "
+                             f"{[k for _, k, _ in hand]}")
+
+    def extent_ms(evs) -> float:
+        if not evs:
+            return 0.0
+        return (max(t + ms * 1e3 for t, _, ms in evs) -
+                min(t for t, _, _ in evs)) / 1e3
+
+    parts = (hand[:merges[0]], hand[merges[0]:merges[-1] + 1],
+             hand[merges[-1] + 1:])
+    if not (parts[0] and parts[2]):
+        raise AssertionError(f"(e) no hand-written kernel before or after "
+                             f"the merge: {[k for _, k, _ in hand]}")
+    kernels_ms = [extent_ms(p) for p in parts]
+    call_ms = extent_ms(events)
+    for name, got, least in zip(PHASE_SPANS, child_ms, kernels_ms):
+        if got < least * 0.99 - CUPTI_SLACK_MS:
+            raise AssertionError(
+                f"(e) {name} spans {got:.4f} ms, less than the "
+                f"{least:.4f} ms of its kernels in the CUPTI trace")
+    if sum(child_ms) > call_ms * 1.01 + CUPTI_SLACK_MS:
+        raise AssertionError(
+            f"(e) the children sum to {sum(child_ms):.4f} ms, more than the "
+            f"{call_ms:.4f} ms the job's device events span in the CUPTI "
+            f"trace")
+    return dict(children_ms=child_ms, kernels_ms=kernels_ms,
+                call_ms=call_ms)
+
+
+def timed_puts(db, stream) -> list[int]:
+    lat = []
+    clock = time.perf_counter_ns
+    for k, v in stream:
+        t0 = clock()
+        db.put(k, v)
+        lat.append(clock() - t0)
+    return lat
+
+
+def obs_cost(work: str, dev, a: dict, *, geom: SSTGeometry,
+             value_size: int, memtables: int = OBS_COST_MEMTABLES,
+             job_runs: int = OBS_JOB_RUNS) -> dict:
+    """The cost of tracing.  Puts: the first ``memtables`` memtables of
+    (a)'s load stream into a store with a registry and a tracer and into
+    one with ``NULL_REGISTRY`` / ``NULL_TRACER``, alternated twice; p50
+    and p99 a side.  One job: (a)'s first L0->L1 job through an engine
+    with a tracer and one without, alternated ``job_runs`` times after a
+    warm-up call each: device seconds (CUDA events), host wall, and the
+    CUDA events made a call, which must be equal (tracing adds none).  On
+    the card, one more traced call's child phases are held against the
+    CUPTI trace of that call (``hold_children_on_cupti``)."""
+    from repro_torch.obs import (NULL_REGISTRY, NULL_TRACER,
+                                 MetricsRegistry, Tracer)
+    n = memtables * memtable_records(geom, value_size)
+    stream = [(k, v) for _, k, v in itertools.islice(
+        YCSBWorkload(a["spec"]).load_ops(), n)]
+    lat: dict[str, list[int]] = {"untraced": [], "traced": []}
+    for rnd in range(2):
+        for side in ("untraced", "traced"):
+            obs = (dict(metrics=MetricsRegistry(), tracer=Tracer())
+                   if side == "traced" else
+                   dict(metrics=NULL_REGISTRY, tracer=NULL_TRACER))
+            path = os.path.join(work, f"obs-cost-{side}-{rnd}")
+            db = LsmDB(path, dataclasses.replace(a["cfg"], **obs),
+                       device=dev)
+            lat[side] += timed_puts(db, stream)
+            db.close()
+            shutil.rmtree(path)
+    puts = {side: (float(np.percentile(v, 50)) / 1e3,
+                   float(np.percentile(v, 99)) / 1e3)
+            for side, v in lat.items()}
+
+    job = next(j for j in a["kept"]["jobs"] if j["n"] >= 4)
+    made = []
+    real_event = torch.cuda.Event
+
+    def counted(*args, **kw):
+        made.append(1)
+        return real_event(*args, **kw)
+
+    engines = {"untraced": TorchCompactionEngine(geom, device=dev),
+               "traced": TorchCompactionEngine(geom, device=dev,
+                                               tracer=Tracer())}
+    runs: dict[str, list] = {side: [] for side in engines}
+    try:
+        for side, e in engines.items():
+            e.compact_paths(job["paths"])   # warm: staging buffers
+        for _ in range(job_runs):
+            for side, e in engines.items():
+                del made[:]
+                t0 = time.perf_counter()
+                with mock.patch.object(torch.cuda, "Event", counted):
+                    _, es = e.compact_paths(job["paths"])
+                runs[side].append((es.device_seconds,
+                                   time.perf_counter() - t0, len(made)))
+        cupti = (hold_children_on_cupti(engines["traced"], job["paths"])
+                 if torch.device(dev).type == "cuda" else None)
+    finally:
+        for e in engines.values():
+            e.close()
+    events = {side: sorted({r[2] for r in v}) for side, v in runs.items()}
+    if events["traced"] != events["untraced"]:
+        raise AssertionError(f"tracing changed the CUDA events a job "
+                             f"records: {events}")
+    job_out = {side: (statistics.median(r[0] for r in v),
+                      statistics.median(r[1] for r in v))
+               for side, v in runs.items()}
+    return dict(puts=puts, n=n, job=job_out, job_inputs=job["n"],
+                events=events["traced"], runs=job_runs, cupti=cupti)
+
+
+def obs_phase(work: str, dev, eng, prompts, *, geom=OBS_GEOM,
+              sched=PAPER_SCHED, value_size: int = OBS_VALUE,
+              memtables: int = PAPER_MEMTABLES, session_cfg=None,
+              report=None) -> dict:
+    """Phase 11: (a)-(d) on ``dev`` with the launch counts set to 0 just
+    before and read just after; then the kernels of (a)'s compaction jobs
+    and first flushes rebuilt on the plain versions (``check_jobs``,
+    ``check_flushes``; (b), (c) and (d) held their read-wave and batched
+    calls as they ran), and (e) the cost of tracing.  Each part's result
+    (with its ``seconds``) goes to ``report(part, result)`` as it comes.
+    (``geom``, ``memtables`` and ``session_cfg`` scale it down for a
+    rehearsal.)"""
+    kw = dict(geom=geom, sched=sched, value_size=value_size)
+    parts = {
+        "a": lambda: obs_sync(work, dev, memtables=memtables, **kw),
+        "b": lambda: obs_async(work, dev, **kw),
+        "c": lambda: obs_sharded(work, dev, **kw),
+        "d": lambda: obs_serve(eng, prompts, work, db_cfg=session_cfg)}
+    ops.reset_launch_counts()
+    out = {}
+    for part, run in parts.items():
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["seconds"] = time.perf_counter() - t0
+        if report is not None:
+            report(part, out[part])
+    out["launches"] = ops.launch_counts()
+    t0 = time.perf_counter()
+    kept = out["a"]["kept"]
+    out["held"] = dict(jobs=check_jobs(kept["jobs"], geom, dev),
+                       flushes=check_flushes(kept["flushes"], geom, dev),
+                       seconds=time.perf_counter() - t0)
+    if report is not None:
+        report("held", out["held"])
+    t0 = time.perf_counter()
+    out["e"] = obs_cost(work, dev, out["a"], geom=geom,
+                        value_size=value_size)
+    out["e"]["seconds"] = time.perf_counter() - t0
+    if report is not None:
+        report("e", out["e"])
+    return out
+
+
+def obs_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The report lines of one part of phase 11."""
+    took = f" ({r['seconds']:.1f} s)"
+    if part == "a":
+        row = r["row"]
+        p50, p99, p999 = row["latency_us"]["put"]
+        la = r["launch"]
+        return [
+            f"[11] (a) YCSB-A v={row['value_size']} {row['records']} records "
+            f"+ {row['operations']} ops on a sync store with a registry and "
+            f"a tracer: load {row['load_ops_s']:,.0f} ops/s, run "
+            f"{row['run_ops_s']:,.0f} ops/s; put p50 {p50:.1f} / p99 "
+            f"{p99:.1f} / p99.9 {p999:.1f} us (host clock); {r['counters']} "
+            f"lsm.* counters equal DBStats, histogram counts {r['hists']}; "
+            f"ycsb.op.latency_us{{op=put}} p99 {r['p99_check'][0]:.1f} us vs "
+            f"exact {r['p99_check'][1]:.1f} us [{card}]" + took,
+            f"[11] (a) {r['spans']} spans nest ({dict(r['names'])}); "
+            f"{la['launches']} launch spans, each with its 3 child phases "
+            f"inside it (clock {la['clock']}, {la['scaled']} scaled): "
+            f"children {la['children_s'] * 1e3:.4f} ms vs "
+            f"compact_device_seconds {r['device_s'] * 1e3:.4f} ms, launch "
+            f"walls {la['wall_s'] * 1e3:.4f} ms; {r['events']} events "
+            f"[{card}]"]
+    if part == "b":
+        la = r["launch"]
+        return [
+            f"[11] (b) async store (flush_workers={ASYNC_FLUSH_WORKERS}): "
+            f"{r['puts']} puts in {r['write_s']:.2f} s beside {READERS} "
+            f"readers ({r['gets']} gets, {r['multi_gets']} multi_gets of "
+            f"{r['keys']} keys, counted exactly); {r['stats']['flushes']} "
+            f"flushes, {r['stats']['compactions']} compactions, "
+            f"{r['stats']['write_stalls']} write stalls {r['stalls']}; "
+            f"{r['counters']} counters equal DBStats; {r['spans']} spans "
+            f"nest on {r['threads']} threads; {la['launches']} launch spans "
+            f"with their child phases ({la['shared']} on a shared stream); "
+            f"trace of {r['events']} events, {r['trace_bytes']:,} B, "
+            f"exported in {r['export_s']:.2f} s; obs.report exit 0 in "
+            f"{r['report_s']:.2f} s; the readers' wave calls {r['waves']} "
+            f"bit-identical to the plain versions [{card}]" + took]
+    if part == "c":
+        la = r["launch"]
+        return [
+            f"[11] (c) ShardedDB of {OBS_SHARDS} shards, one registry and "
+            f"tracer: load {r['load_s']:.1f} s; rounds {r['rounds']}; "
+            f"engine batch_launches {r['batch'][0]}, max_batch_jobs "
+            f"{r['batch'][1]}; {la['launches']} launch spans (most jobs "
+            f"{la['max_jobs']}) with their child phases; {r['counters']} "
+            f"per-shard counters equal the shards' DBStats; merged put "
+            f"histogram {r['hist'][0]} = {r['hist'][1]}, p99 "
+            f"{r['hist'][2]:.1f} us; batched calls {r['batched']} "
+            f"bit-identical; {r['read']} keys read back [{card}]" + took]
+    if part == "d":
+        return [
+            f"[11] (d) ServeEngine over a page store with the store's "
+            f"registry and tracer: generate {r['gen_s'] * 1e3:.1f} ms "
+            f"(captures {[round(c, 3) for c in r['captures']]} ms, nothing "
+            f"recorded inside), save_session {r['bytes']:,} B as "
+            f"{r['records']} records {r['save_s']:.3f} s, load_session "
+            f"{r['load_s']:.3f} s, bit for bit; spans "
+            f"{[(n, round(d, 3)) for n, d in r['serve']]} ms; histogram "
+            f"counts {r['hists']}; the prefill's first selective_scan "
+            f"(u shape, max abs err y, h_last) {r['scan']} within "
+            f"{SCAN_TOL} of the plain scan; wave calls {r['waves']} "
+            f"bit-identical [{card}]" + took]
+    if part == "held":
+        return [
+            f"[11] (a)'s jobs (inputs, merge launches, live rows) "
+            f"{r['jobs']} and first flushes (entries) {r['flushes']} "
+            f"rebuilt byte-identical on the plain versions "
+            f"({r['seconds']:.1f} s)"]
+    (un50, un99), (tr50, tr99) = r["puts"]["untraced"], r["puts"]["traced"]
+    (ud, uw), (td, tw) = r["job"]["untraced"], r["job"]["traced"]
+    return [
+        f"[11] (e) the cost of tracing, put ({r['n']} puts of (a)'s load "
+        f"stream, twice each way): untraced p50 {un50:.2f} / p99 "
+        f"{un99:.2f} us, with a registry and a tracer p50 {tr50:.2f} / p99 "
+        f"{tr99:.2f} us (host clock) [{card}]",
+        f"[11] (e) one L0->L1 job ({r['job_inputs']} inputs, median of "
+        f"{r['runs']}): untraced device {ud * 1e3:.4f} ms / host wall "
+        f"{uw * 1e3:.2f} ms, traced device {td * 1e3:.4f} ms / host wall "
+        f"{tw * 1e3:.2f} ms; CUDA events a call {r['events']} either way "
+        f"[{card}]" + took] + ([] if r["cupti"] is None else [
+            f"[11] (e) one traced job against its CUPTI trace: children "
+            f"{[round(x, 4) for x in r['cupti']['children_ms']]} ms cover "
+            f"their hand-written kernels' extents "
+            f"{[round(x, 4) for x in r['cupti']['kernels_ms']]} ms and sum "
+            f"to at most the call's device extent "
+            f"{r['cupti']['call_ms']:.4f} ms (1 % + {CUPTI_SLACK_MS} ms) "
+            f"[{card}]"])
+
+
+# ---------------------------------------------------------------------------
 
 
 def watch_engines():
@@ -4429,7 +5227,7 @@ def main(argv: list[str]) -> int:
         xd = cross_device_pages(work, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    served = (sv["engine"], sv["prompts"])   # phase 9 (f) serves again
+    served = (sv["engine"], sv["prompts"])   # phases 9 (f), 11 (d) serve
     del sv
     log(session_lines(ss, xd, card))
     log(no_launch_retries(built, 7))
@@ -4464,7 +5262,6 @@ def main(argv: list[str]) -> int:
             "\n".join(async_part_lines(part, r, card))))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    del served
     idle = [k for k in STORE_PATH if not p9["launches"][k]]
     if idle:
         raise AssertionError(f"kernels not launched on the async store's "
@@ -4495,8 +5292,32 @@ def main(argv: list[str]) -> int:
         f"{k} {p10['launches'][k]}" for k in KERNELS))
     log(f"[10] {time.perf_counter() - t0:.1f} s")
 
+    log(f"[11] metrics and tracing on the card: a registry and a tracer "
+        f"through a sync, an async and a sharded store at "
+        f"PAPER.geometry({OBS_VALUE}) and the served engine's page store; "
+        f"the launch spans' phases timed by CUDA events")
+    built, watching = watch_engines()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        p11 = obs_phase(work, dev, *served, report=lambda part, r: log(
+            "\n".join(obs_part_lines(part, r, card))))
+    finally:
+        watching.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    del served
+    idle = [k for k in STORE_PATH if not p11["launches"][k]]
+    if idle:
+        raise AssertionError(f"kernels not launched in phase 11: {idle}")
+    log(f"[11] launches (a)-(d): " + ", ".join(
+        f"{k} {p11['launches'][k]}" for k in KERNELS))
+    log(no_launch_retries(built, 11))
+    log(f"[11] {time.perf_counter() - t0:.1f} s")
+
     # the main paths: phase 3's store (with phase 4's device sort and
-    # phase 5's prefill), phase 9's async stores and phase 10's faults
+    # phase 5's prefill), phase 9's async stores, phase 10's faults and
+    # phase 11's instrumented stores
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -4506,10 +5327,11 @@ def main(argv: list[str]) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(path_launches[entry] + p9["launches"][entry] +
-                      p10["launches"][entry]),
+                      p10["launches"][entry] + p11["launches"][entry]),
             launches_by_path={"store": path_launches[entry],
                               "async": p9["launches"][entry],
-                              "faults": p10["launches"][entry]},
+                              "faults": p10["launches"][entry],
+                              "obs": p11["launches"][entry]},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -172,10 +172,19 @@ class GlobalCompactionQueue:
     jobs of the round still install, and the first error re-raises
     through the executor (on ``wait_idle``).  The worker launches on the
     current device's default stream, as the caller's thread does.
+
+    ``tracer`` records each round as a ``compact.round`` span (args
+    ``shards``, ``jobs``) around its ``compact_many`` and installs;
+    ``metrics`` holds the ``compact.queue.depth`` gauge (shards with
+    pending work), sampled onto a counter track too.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, tracer=None, metrics=None):
+        from repro_torch.obs.metrics import NULL_REGISTRY
+        from repro_torch.obs.trace import NULL_TRACER
         self.engine = engine
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics if metrics is not None else NULL_REGISTRY
         self._lock = threading.Lock()
         # id(db) -> db
         self._pending: dict[int, object] = {}   # guarded-by: _lock
@@ -186,6 +195,15 @@ class GlobalCompactionQueue:
         self.rounds = 0                         # guarded-by: _lock
         self.jobs_run = 0                       # guarded-by: _lock
         self.trivial_moves = 0                  # guarded-by: _lock
+        self._g_depth = self.metrics.gauge(
+            "compact.queue.depth",
+            help="shards with pending compaction work")
+
+    def _sample_depth_locked(self):
+        depth = len(self._pending)
+        self._g_depth.set(depth)
+        if self.tracer.enabled:
+            self.tracer.counter("compact.queue.depth", depth)
 
     def notify(self, db):
         """Mark ``db`` as having (possible) compaction work and make sure
@@ -194,6 +212,7 @@ class GlobalCompactionQueue:
             if self._closed:
                 return
             self._pending[id(db)] = db
+            self._sample_depth_locked()
             if self._scheduled:
                 return
             self._scheduled = True
@@ -210,6 +229,7 @@ class GlobalCompactionQueue:
                 with self._lock:
                     dbs = list(self._pending.values())
                     self._pending.clear()
+                    self._sample_depth_locked()
                     if not dbs:
                         self._scheduled = False
                         return
@@ -245,17 +265,20 @@ class GlobalCompactionQueue:
         with self._lock:
             self.rounds += 1
             self.jobs_run += len(jobs)
-        results = self.engine.compact_many(jobs)
-        err = None
-        for (db, job), (out, es) in zip(owners, results):
-            try:
-                db.apply_compaction(job, out, es)
-            except BaseException as e:  # noqa: BLE001 - per shard
-                if err is None:
-                    err = e
-            with self._lock:
-                if not self._closed:
-                    self._pending[id(db)] = db
+        with self.tracer.span("compact.round", shards=len(dbs),
+                              jobs=len(jobs)):
+            results = self.engine.compact_many(jobs)
+            err = None
+            for (db, job), (out, es) in zip(owners, results):
+                try:
+                    db.apply_compaction(job, out, es)
+                except BaseException as e:  # noqa: BLE001 - per shard
+                    if err is None:
+                        err = e
+                with self._lock:
+                    if not self._closed:
+                        self._pending[id(db)] = db
+                        self._sample_depth_locked()
         if err is not None:
             raise err
 

@@ -61,6 +61,8 @@ LAUNCHES = {name: 0 for name in SIGNATURES}
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()     # one build, whichever thread comes first
 _count_lock = threading.Lock()   # launches counted from several threads
+_all_launches = 0                # since import, every thread (under the lock)
+_thread = threading.local()      # ``.launches``: this thread's, since import
 build_seconds: float | None = None   # wall time of the build (None: cached)
 
 
@@ -175,8 +177,22 @@ def launch(name: str, *args, launched: ctypes.c_int | None = None) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} "
                            f"(error {err})")
+    n = 1 if launched is None else launched.value
+    global _all_launches
     with _count_lock:
-        LAUNCHES[name] += 1 if launched is None else launched.value
+        LAUNCHES[name] += n
+        _all_launches += n
+    _thread.launches = getattr(_thread, "launches", 0) + n
+
+
+def launch_marks() -> tuple[int, int]:
+    """``(launches by every thread, launches by this thread)`` since
+    import.  Two readings bracket a stretch of this thread's work: another
+    thread launched in it when the first count grew more than the
+    second."""
+    with _count_lock:
+        total = _all_launches
+    return total, getattr(_thread, "launches", 0)
 
 
 def launch_counts() -> dict[str, int]:

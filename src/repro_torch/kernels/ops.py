@@ -26,6 +26,7 @@ from repro_torch.kernels import selective_scan as _scan
 
 launch_counts = _build.launch_counts
 reset_launch_counts = _build.reset_launch_counts
+launch_marks = _build.launch_marks
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -5,6 +5,7 @@ card or the CPU compaction baseline (the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.ycsb [--engine device|cpu]
         [--threads 1] [--value-size 256] [--records N] [--operations N]
         [--workload A] [--paper] [--async] [--device cpu]
+        [--trace-out PATH] [--metrics-out PATH] [--prom-out PATH]
 
 ``--paper`` runs at the paper's geometry and scheduler
 (``configs.luda_paper.PAPER``: 4 KB blocks, 4 MB SSTs and memtables);
@@ -22,13 +23,27 @@ compaction worker; the JAX package's ``benchmarks/ycsb_bench.py
 prints a row a mode -- put p50 / p99 / p99.9, ops/s, flushes,
 compactions, write stalls; each run also reads back every acknowledged
 key by ``get`` after the drain.
+
+``--trace-out`` writes the run's Chrome/Perfetto trace (the store's and
+its engine's spans; ``python -m repro_torch.obs.report`` reads it),
+``--metrics-out`` the registry's JSON snapshot and ``--prom-out`` its
+Prometheus text, as the JAX package's ``benchmarks/ycsb_bench.py`` takes
+them.  The registry then also holds the launcher's own measured latencies
+as ``ycsb.op.latency_us{op=put|get}``, and each run's put histogram's
+p99 is checked against the exact p99 of the same puts (within 2**0.5:
+half a bucket of quantization and one of rank); the exit code is 1 when
+it disagrees.  With ``--async`` both runs share the registry and the
+trace, and every series of a run carries its label ``mode=sync`` or
+``mode=async``, so neither run's counters hold the other's.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
+import sys
 import tempfile
 import time
 
@@ -39,6 +54,8 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.data.ycsb import WorkloadSpec, YCSBWorkload
 from repro_torch.device import resolve_device
 from repro_torch.lsm.db import DBConfig, LsmDB
+from repro_torch.obs import (MetricsRegistry, Tracer, merge_histograms,
+                             write_metrics, write_prometheus)
 
 
 # an async store's flush workers, as the JAX bench's ``measure_latency``
@@ -73,7 +90,8 @@ def percentiles_us(lat_ns: list[int]) -> list[float] | None:
 
 
 def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
-        path: str | None = None, check_gets: bool = False) -> dict:
+        path: str | None = None, check_gets: bool = False, metrics=None,
+        tracer=None, metric_labels: dict | None = None) -> dict:
     """Load ``spec.records`` through ``put``, then run ``spec.operations``
     of the YCSB mix, on a new store at ``path`` (default: a temporary
     directory, removed after).  The op streams are built before the clock
@@ -87,7 +105,8 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
     ops/s; the drain's seconds; read, update and insert latencies, and
     those of every put of the load and the run (p50, p99, p99.9 in us,
     host clock; None for a kind the mix lacks), and the longest put;
-    write stalls; with ``check_gets``, the keys read back by ``get``
+    write stalls; the store's ``DBStats`` as a dict (``db_stats``); with
+    ``check_gets``, the keys read back by ``get``
     after the drain (else 0); flushes, compactions
     (and the L0->L1 jobs among them, with the fewest input files of one)
     and compaction bytes; each job's
@@ -97,7 +116,12 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
     and, on a sync store, the same sum as ``compact_device_s`` (None
     otherwise): on an async store the events also bracket the readers'
     and flushes' work queued on the card between them, and the worker's
-    waits for the interpreter, so the span is not the jobs' device time."""
+    waits for the interpreter, so the span is not the jobs' device time.
+
+    ``metrics`` / ``tracer`` / ``metric_labels`` go to the store
+    (``LsmDB(metrics=, tracer=, metric_labels=)``); with ``metrics`` the
+    run also records each put's and read's measured latency in
+    ``ycsb.op.latency_us{op=put|get}``, under ``metric_labels`` too."""
     dev = resolve_device(device)
     wl = YCSBWorkload(spec)
     load_ops = list(wl.load_ops())
@@ -109,13 +133,24 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
     lat: dict[str, list[int]] = {"read": [], "update": [], "insert": [],
                                  "put": []}
     clock = time.perf_counter_ns
-    db = LsmDB(path, cfg, device=dev)
+    pend_put = pend_get = lambda us: None
+    labels = dict(metric_labels or {})
+    if metrics is not None:
+        pend_put = metrics.histogram(
+            "ycsb.op.latency_us", op="put",
+            help="launcher-measured op latency (us)", **labels).pend
+        pend_get = metrics.histogram("ycsb.op.latency_us", op="get",
+                                     **labels).pend
+    db = LsmDB(path, cfg, device=dev, metrics=metrics, tracer=tracer,
+               metric_labels=labels)
     try:
         t0 = time.perf_counter()
         for _, key, val in load_ops:
             c0 = clock()
             db.put(key, val)
-            lat["put"].append(clock() - c0)
+            dt = clock() - c0
+            lat["put"].append(dt)
+            pend_put(dt / 1e3)
             model[key] = val
         load_s = time.perf_counter() - t0
 
@@ -124,7 +159,9 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
             c0 = clock()
             if op == "read":
                 got = db.get(key)
-                lat["read"].append(clock() - c0)
+                dt = clock() - c0
+                lat["read"].append(dt)
+                pend_get(dt / 1e3)
                 if got != model.get(key):
                     raise AssertionError(f"read of {key!r} disagrees with "
                                          "the acknowledged writes")
@@ -133,6 +170,7 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
                 dt = clock() - c0
                 lat[op].append(dt)
                 lat["put"].append(dt)
+                pend_put(dt / 1e3)
                 model[key] = val
         run_s = time.perf_counter() - t0
 
@@ -175,6 +213,7 @@ def run(spec: WorkloadSpec, cfg: DBConfig, *, device=None,
         l0_jobs=sum(j[0] == 0 for j in jobs),
         l0_min_inputs=min((j[1] for j in jobs if j[0] == 0), default=0),
         jobs=jobs,
+        db_stats=dataclasses.asdict(st),
         compact_bytes_in=st.compact_bytes_in,
         compact_bytes_out=st.compact_bytes_out,
         compact_wall_s=st.compact_wall_seconds,
@@ -198,7 +237,55 @@ def mode_line(r: dict) -> str:
             f"{r['drain_s']:.2f} s")
 
 
-def main(argv=None) -> None:
+def check_histogram_p99(metrics, exact_p99_us: float, op: str | None,
+                        **labels) -> tuple[float, float, bool]:
+    """The registry's ``ycsb.op.latency_us`` p99 estimate (``op=None``:
+    every op's series merged; ``labels``: the series of one run) against
+    the exact p99 of the same samples: ``(estimate, exact, ok)``.  A bucket is 2**0.25 wide and the estimate
+    its geometric midpoint, so a right estimate lies within half a bucket
+    of quantization and one bucket of rank error: a factor of 2**0.5 (the
+    JAX bench's ``check_histogram_p99``)."""
+    if op is None:
+        h = merge_histograms([
+            m for m in metrics.find("ycsb.op.latency_us")
+            if all(m.labels.get(k) == v for k, v in labels.items())])
+    else:
+        h = metrics.find("ycsb.op.latency_us", op=op, **labels)
+    if h is None or h.snapshot()[1] == 0:
+        return 0.0, exact_p99_us, False
+    est = h.percentile(99.0)
+    tol = 2.0 ** 0.5
+    ok = (exact_p99_us / tol <= est <= exact_p99_us * tol
+          if exact_p99_us > 0 else True)
+    return est, exact_p99_us, ok
+
+
+def export_obs(args, metrics, tracer, results: list[dict]) -> bool:
+    """Write the artifacts ``args`` asks for; cross-check each run's put
+    histogram p99 against the exact p99 of its puts (a run of
+    ``results``, its series labelled by its ``labels``).  Returns whether
+    every one agreed."""
+    if args.trace_out:
+        tracer.export(args.trace_out)
+        print(f"trace written to {args.trace_out} ({len(tracer)} events)")
+    if args.metrics_out:
+        write_metrics(metrics, args.metrics_out)
+        print(f"metrics JSON written to {args.metrics_out}")
+    if args.prom_out:
+        write_prometheus(metrics, args.prom_out)
+        print(f"Prometheus text written to {args.prom_out}")
+    agreed = True
+    for r in results:
+        est, exact, ok = check_histogram_p99(
+            metrics, r["latency_us"]["put"][1], "put", **r["labels"])
+        print(f"histogram p99 cross-check (put{r['labels'] or ''}): "
+              f"estimate {est:.1f} us vs exact {exact:.1f} us, within "
+              f"2**0.5: {ok}")
+        agreed &= ok
+    return agreed
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", choices=("device", "cpu"), default="device")
     ap.add_argument("--threads", type=int, default=1,
@@ -216,7 +303,17 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "run (chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry snapshot as JSON")
+    ap.add_argument("--prom-out", default=None, metavar="PATH",
+                    help="write the metrics registry in Prometheus text "
+                         "exposition format")
     args = ap.parse_args(argv)
+    obs = bool(args.trace_out or args.metrics_out or args.prom_out)
+    metrics, tracer = (MetricsRegistry(), Tracer()) if obs else (None, None)
 
     spec = WorkloadSpec.named(
         args.workload, records=args.records,
@@ -228,8 +325,13 @@ def main(argv=None) -> None:
         cfg = store_config(args.value_size, engine=args.engine,
                            threads=args.threads, paper=args.paper,
                            async_mode=async_mode)
+        # two runs share the registry: each labels its own series
+        labels = ({"mode": "async" if async_mode else "sync"}
+                  if args.async_mode else {})
         results.append(run(spec, cfg, device=args.device,
-                           check_gets=args.async_mode))
+                           check_gets=args.async_mode, metrics=metrics,
+                           tracer=tracer, metric_labels=labels))
+        results[-1]["labels"] = labels
     if not args.async_mode:
         r = results[0]
         print(f"[{r['engine']} on {r['device']}] load {r['records']} ops in "
@@ -241,8 +343,9 @@ def main(argv=None) -> None:
               f"wall {r['compact_wall_s']:.3f} s, device "
               + ("not measured" if r["compact_device_s"] is None
                  else f"{r['compact_device_s']:.4f} s (CUDA events)"))
+        ok = not obs or export_obs(args, metrics, tracer, results)
         print(json.dumps(r))
-        return
+        return 0 if ok else 1
     sync, asyn = results
     for r in results:
         print(mode_line(r))
@@ -250,8 +353,14 @@ def main(argv=None) -> None:
           f"{asyn['latency_us']['put'][1] / sync['latency_us']['put'][1]:.3f}"
           f"; both runs read back every acknowledged write "
           f"({sync['gets_after_drain']} keys by get after the drain)")
+    ok = True
+    if obs:
+        print("the exports hold both modes, one registry and one trace, "
+              "each run's series labelled mode=sync or mode=async")
+        ok = export_obs(args, metrics, tracer, results)
     print(json.dumps({"sync": sync, "async": asyn}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

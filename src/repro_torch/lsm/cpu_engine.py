@@ -25,6 +25,10 @@ from repro_torch.lsm.engine import (EngineStats, np_bloom_hashes,
                                     np_bytes_to_u32, np_crc_blocks,
                                     np_prefix_decode, np_u32_to_bytes,
                                     np_wire_words)
+# defined beside the read path's other host helpers; exported here too, as
+# JAX's cpu_engine defines it
+from repro_torch.lsm.engine import np_bloom_query  # noqa: F401
+from repro_torch.obs.trace import NULL_TRACER
 
 U32 = np.uint32
 
@@ -98,9 +102,11 @@ class CpuCompactionEngine:
 
     name = "cpu"
 
-    def __init__(self, geom: SSTGeometry, threads: int = 1):
+    def __init__(self, geom: SSTGeometry, threads: int = 1, tracer=None):
         self.geom = geom
         self.threads = threads
+        # the three phases as host spans, as JAX's CPU engine records them
+        self.tracer = tracer if tracer is not None else NULL_TRACER
 
     def close(self):
         """Nothing to release: the engine holds no files or threads."""
@@ -127,8 +133,10 @@ class CpuCompactionEngine:
         blocks as the inputs hold (``write_sst`` trims the empty ones)."""
         t0 = time.perf_counter()
         g = self.geom
-        parts = [self._unpack(SSTImage(*(np.asarray(a) for a in im)))
-                 for im in images]
+        tr = self.tracer
+        with tr.span("compact.crc_verify", inputs=len(images)):
+            parts = [self._unpack(SSTImage(*(np.asarray(a) for a in im)))
+                     for im in images]
         keys = np.concatenate([p[0] for p in parts])
         meta = np.concatenate([p[1] for p in parts])
         vals = np.concatenate([p[2] for p in parts])
@@ -138,14 +146,16 @@ class CpuCompactionEngine:
         # phase 2: run-aware k-way merge + dedup (key asc, seq desc); the
         # unique trailing index makes the order that of a full lexsort
         t_sort0 = time.perf_counter()
-        sk = np.where(valid[:, None], keys, U32(0xFFFFFFFF))
-        inv_meta = (~meta).astype(U32)
-        idx = np.arange(len(sk), dtype=U32)
-        packed = np.ascontiguousarray(
-            np.concatenate([sk, inv_meta[:, None], idx[:, None]],
-                           axis=1).astype(">u4")).view(
-            f"S{4 * (sk.shape[1] + 2)}").ravel()
-        order = _np_merge_run_order(packed, [p[0].shape[0] for p in parts])
+        with tr.span("compact.merge_phase2", runs=len(parts)):
+            sk = np.where(valid[:, None], keys, U32(0xFFFFFFFF))
+            inv_meta = (~meta).astype(U32)
+            idx = np.arange(len(sk), dtype=U32)
+            packed = np.ascontiguousarray(
+                np.concatenate([sk, inv_meta[:, None], idx[:, None]],
+                               axis=1).astype(">u4")).view(
+                f"S{4 * (sk.shape[1] + 2)}").ravel()
+            order = _np_merge_run_order(packed,
+                                        [p[0].shape[0] for p in parts])
         t_sort = time.perf_counter() - t_sort0
         keys_s, meta_s, valid_s = keys[order], meta[order], valid[order]
         vals_s = vals[order]
@@ -155,9 +165,10 @@ class CpuCompactionEngine:
         if bottom_level:
             live &= (meta_s & 1).astype(bool)
 
-        out = self.build_image(keys_s[live], meta_s[live], vals_s[live],
-                               n_blocks=sum(im.keys.shape[0]
-                                            for im in images))
+        with tr.span("compact.format"):
+            out = self.build_image(keys_s[live], meta_s[live], vals_s[live],
+                                   n_blocks=sum(im.keys.shape[0]
+                                                for im in images))
         wire = g.wire_words_per_block * 4
         stats = EngineStats(
             n_input=int(valid.sum()), n_live=int(live.sum()),

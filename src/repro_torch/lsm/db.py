@@ -62,8 +62,25 @@ written outside it.  Reads take the memtables and ``versions.current``
 once under it and search outside it.  Every thread launches on the
 device's default stream, which they share: a reader's kernels and a
 worker's are ordered on it, so a tensor one thread frees is never handed
-out again while another thread's queued kernel still reads it.  Not here
-yet: metrics and tracing (ROADMAP A10).
+out again while another thread's queued kernel still reads it.
+
+**Metrics and tracing** (as JAX's store records them).  Every ``DBStats``
+field is a registry counter ``lsm.<field>`` (``DBConfig.metrics`` or
+``metrics=``; a private ``obs.MetricsRegistry`` by default,
+``obs.NULL_REGISTRY`` to opt out), bumped atomically from any thread;
+``stats`` reads them into a point-in-time ``DBStats``.  Beside them: the
+histograms ``lsm.op.latency_us{op=put|get|multi_get|write_batch}`` and the
+gauges ``lsm.imm_queue.depth``, ``lsm.compaction.debt`` and
+``lsm.bg_error`` (0 healthy, 1 transient, 2 hard), the first two also
+sampled onto the tracer's counter tracks.  A tracer (``DBConfig.tracer``
+or ``tracer=``; ``obs.NULL_TRACER`` by default) records the spans
+``db.put``, ``db.write_batch``, ``db.multi_get``, ``write_stall`` (args
+``cause``, ``depth``), ``memtable.rotate``, ``db.resume``,
+``flush.build``, ``flush.install_l0``, ``flush.sync``, ``compact.pick``,
+``compact.trivial_move``, ``compact.install`` and ``compact.job``; the
+store's own engine records its launch spans into the same tracer.
+``metric_labels`` (``ShardedDB``: ``shard=i``) label every series and go
+into the spans' args.
 """
 
 from __future__ import annotations
@@ -95,6 +112,8 @@ from repro_torch.lsm.fs import fsync_dir
 from repro_torch.lsm.memtable import ImmutableMemTable
 from repro_torch.lsm.sstable import BlockCache, FileMeta, TableCache
 from repro_torch.lsm.version import VersionEdit, VersionSet
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -120,6 +139,9 @@ class DBConfig:
     #   flushes and one compaction worker
     flush_workers: int = 1          # image builds overlap; installs ordered
     max_pending_memtables: int = 4  # immutable-queue depth before stalling
+    metrics: object | None = None   # obs.MetricsRegistry (None: a private
+    #   registry; obs.NULL_REGISTRY opts out of the counters)
+    tracer: object | None = None    # obs.Tracer (None: NULL_TRACER)
     failpoints: object | None = None    # a fault-injection spec (str or
     #   dict), installed into ``faults.FAILPOINTS`` at open
     bg_max_retries: int = 3         # retries of a transient background failure
@@ -128,6 +150,12 @@ class DBConfig:
 
 @dataclasses.dataclass
 class DBStats:
+    """Point-in-time statistics (``LsmDB.stats``).  The live counters are
+    the registry's ``lsm.<field>`` counters, labelled by shard in a
+    ``ShardedDB``; every field of JAX's ``DBStats`` is here, and four the
+    port adds: ``multi_get_waves``, ``multi_get_staged_bytes``,
+    ``multi_get_stage_seconds`` and ``compact_wall_seconds``."""
+
     puts: int = 0
     write_batches: int = 0
     batch_ops: int = 0
@@ -154,10 +182,14 @@ class DBStats:
     compact_sort_seconds: float = 0.0     # phase-2 share of the above
     flush_host_seconds: float = 0.0
     bloom_negative_skips: int = 0
+    block_cache_hits: int = 0
+    block_cache_misses: int = 0
     write_stalls: int = 0          # rotations that waited for a full queue
     bg_retries: int = 0            # retries of transient background failures
     bg_resumes: int = 0            # resume() calls that cleared a bg_error
     orphans_removed: int = 0
+    engine_fallbacks: int = 0      # always 0: JAX's count of jobs its CPU
+    #   engine finished after a failed launch; the port has no fallback
 
     def add(self, other: "DBStats") -> "DBStats":
         """Field-wise sum (aggregation across shards)."""
@@ -189,18 +221,22 @@ class CompactionRecord(NamedTuple):
 def make_engine(cfg: DBConfig, device=None):
     """Build the compaction engine a ``DBConfig`` names: ``"device"`` is
     the torch engine on ``device`` (None: ``cuda``), ``"cpu"`` the numpy
-    baseline, which touches no device."""
+    baseline, which touches no device.  The engine takes ``cfg.tracer``,
+    so its launch spans land in the store's trace."""
     if cfg.engine == "device":
         return TorchCompactionEngine(cfg.geom, device=device,
-                                     sort_mode=cfg.sort_mode)
+                                     sort_mode=cfg.sort_mode,
+                                     tracer=cfg.tracer)
     if cfg.engine == "cpu":
-        return CpuCompactionEngine(cfg.geom, threads=cfg.threads)
+        return CpuCompactionEngine(cfg.geom, threads=cfg.threads,
+                                   tracer=cfg.tracer)
     raise ValueError(f"unknown engine {cfg.engine!r}")
 
 
 class LsmDB:
     def __init__(self, path: str, cfg: DBConfig | None = None, *,
-                 device=None, engine=None, compaction_sink=None):
+                 device=None, engine=None, compaction_sink=None,
+                 metrics=None, tracer=None, metric_labels=None):
         """Open (or create) the store at ``path``.  ``device``: where the
         device engine's flushes and compactions and the read path's
         batched stages run; None means ``cuda``, which must be present
@@ -215,6 +251,12 @@ class LsmDB:
         ``apply_compaction`` (``core.background.GlobalCompactionQueue``).
         In async mode such a store starts flush workers and no compaction
         worker.
+
+        ``metrics`` / ``tracer`` / ``metric_labels``: the registry, the
+        tracer and the labels of every series (``ShardedDB`` shares one
+        registry and one tracer across its shards, labelled ``shard=i``);
+        they win over ``cfg.metrics`` and ``cfg.tracer``.  An engine the
+        store builds takes its tracer.
         """
         self.path = path
         self.cfg = cfg or DBConfig()
@@ -222,21 +264,28 @@ class LsmDB:
         self._device = resolve_device(device)
         if self.cfg.failpoints is not None:
             faults.FAILPOINTS.install(self.cfg.failpoints)
+        self._init_obs(metrics, tracer, metric_labels)
         self._owns_engine = engine is None
         self._compaction_sink = compaction_sink
-        self.engine = (engine if engine is not None
-                       else make_engine(self.cfg, self._device))
+        if engine is None:
+            engine = make_engine(self.cfg, self._device)
+            # a tracer given here, not in cfg, reaches the store's engine
+            engine.tracer = self.tracer
+        self.engine = engine
         os.makedirs(path, exist_ok=True)
         self._lock = threading.RLock()
         self._imm_cv = threading.Condition(self._lock)
-        self._stats = DBStats()
         self.compactions: list[CompactionRecord] = []  # guarded-by: _lock
         self.versions = VersionSet(path)                # guarded-by: _lock
         self.versions.open()
         self.scheduler = CompactionScheduler(           # guarded-by: _lock
             self.cfg.scheduler)
         self.scheduler.compact_pointer = dict(self.versions.compact_pointer)
-        self.block_cache = BlockCache(self.cfg.block_cache_blocks)
+        # the cache counts its hits and misses straight into the registry
+        self.block_cache = BlockCache(
+            self.cfg.block_cache_blocks,
+            on_hit=self._c["block_cache_hits"].inc,
+            on_miss=self._c["block_cache_misses"].inc)
         self.cache = TableCache(self.cfg.table_cache, geom=self.geom,
                                 block_cache=self.block_cache,
                                 device=self._device)
@@ -285,12 +334,56 @@ class LsmDB:
     def device(self):
         return self._device
 
+    def _init_obs(self, metrics, tracer, metric_labels):
+        """The registry's counters (one a ``DBStats`` field), histograms
+        and gauges, and the tracer, as JAX's store makes them."""
+        if metrics is None:
+            metrics = self.cfg.metrics
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        t = tracer if tracer is not None else self.cfg.tracer
+        self.tracer = t if t is not None else NULL_TRACER
+        labels = dict(metric_labels or {})
+        self._span_args = labels or None
+        # a counter track a shard, so that Perfetto draws them apart
+        self._track = "".join(f"[{k}={v}]" for k, v in sorted(labels.items()))
+        self._c = {f.name: self.metrics.counter(f"lsm.{f.name}", **labels)
+                   for f in dataclasses.fields(DBStats)}
+        self._h_put = self.metrics.histogram("lsm.op.latency_us",
+                                             op="put", **labels)
+        self._h_get = self.metrics.histogram("lsm.op.latency_us",
+                                             op="get", **labels)
+        self._h_multi_get = self.metrics.histogram("lsm.op.latency_us",
+                                                   op="multi_get", **labels)
+        self._h_write_batch = self.metrics.histogram(
+            "lsm.op.latency_us", op="write_batch", **labels)
+        self._g_imm = self.metrics.gauge("lsm.imm_queue.depth", **labels)
+        self._g_debt = self.metrics.gauge("lsm.compaction.debt", **labels)
+        # 0: healthy, 1: a transient bg_error (resume() recovers), 2: a
+        # hard one (repair first)
+        self._g_bg_error = self.metrics.gauge("lsm.bg_error", **labels)
+
     @property
     def stats(self) -> DBStats:
-        """Point-in-time copy of the store's counters, as
+        """Point-in-time ``DBStats`` of the registry's counters, as
         ``repro.lsm.db.LsmDB.stats``: two reads give two objects, so their
         difference is what happened in between."""
-        return dataclasses.replace(self._stats)
+        return DBStats(**{
+            f.name: (float(v) if isinstance(f.default, float) else int(v))
+            for f in dataclasses.fields(DBStats)
+            for v in (self._c[f.name].value,)})
+
+    def _sample_pressure_locked(self):
+        """Set the write-pressure gauges (immutable-queue depth and
+        compaction debt) and, when tracing, sample them onto counter
+        tracks.  Called on state transitions."""
+        depth = len(self.imm)
+        debt = self.scheduler.debt(self.versions.current)
+        self._g_imm.set(depth)
+        self._g_debt.set(debt)
+        tr = self.tracer
+        if tr.enabled:
+            tr.counter("lsm.imm_queue.depth" + self._track, depth)
+            tr.counter("lsm.compaction.debt" + self._track, round(debt, 3))
 
     def _replay_wal_locked(self):
         """Replay rotated WAL segments (an async-mode store leaves them),
@@ -326,7 +419,7 @@ class LsmDB:
                     continue
             if stale:
                 os.remove(p)
-                self._stats.orphans_removed += 1
+                self._c["orphans_removed"].inc()
 
     # ------------------------------------------------------------------
     # writes
@@ -358,13 +451,20 @@ class LsmDB:
         opts = opts or DEFAULT_WRITE_OPTIONS
         self._check_key(key)
         self._check_value(value)
+        t0 = time.perf_counter_ns()
         with self._lock:
             self._check_open_locked()
             seq = self._next_seq_locked()
             self._wal.append(wal.PUT, seq, key, value, sync=opts.sync)
             self.mem.put(key, seq, value)
-            self._stats.puts += 1
             self._maybe_flush_locked(wait_stall=opts.wait_stall)
+        # the hot path: an atomic counter and a lock-free histogram append
+        dt = time.perf_counter_ns() - t0
+        self._c["puts"].inc()
+        self._h_put.pend(dt / 1000.0)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("db.put", t0, dt)
 
     def delete(self, key: bytes, opts: WriteOptions | None = None):
         opts = opts or DEFAULT_WRITE_OPTIONS
@@ -374,8 +474,8 @@ class LsmDB:
             seq = self._next_seq_locked()
             self._wal.append(wal.DELETE, seq, key, sync=opts.sync)
             self.mem.delete(key, seq)
-            self._stats.deletes += 1
             self._maybe_flush_locked(wait_stall=opts.wait_stall)
+        self._c["deletes"].inc()
 
     def write_batch(self, ops, opts: WriteOptions | None = None) -> int:
         """Apply ``("put", key, value)`` / ``("delete", key)`` ops in order
@@ -397,6 +497,7 @@ class LsmDB:
                                  "(want 'put' or 'delete')")
         if not rows:
             return 0
+        t0 = time.perf_counter_ns()
         with self._lock:
             self._check_open_locked()
             first_seq = self.versions.last_seq + 1
@@ -410,9 +511,15 @@ class LsmDB:
                     self.mem.put(key, first_seq + i, value)
                 else:
                     self.mem.delete(key, first_seq + i)
-            self._stats.write_batches += 1
-            self._stats.batch_ops += len(rows)
             self._maybe_flush_locked(wait_stall=opts.wait_stall)
+        dt = time.perf_counter_ns() - t0
+        self._c["write_batches"].inc()
+        self._c["batch_ops"].inc(len(rows))
+        self._h_write_batch.pend(dt / 1000.0)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("db.write_batch", t0, dt,
+                        args={"n_ops": len(rows), **(self._span_args or {})})
         return len(rows)
 
     def _maybe_flush_locked(self, wait_stall: bool = True):
@@ -447,16 +554,27 @@ class LsmDB:
         # wedge every later install
         self._flush_exec.check()
         self._raise_if_halted_locked()
+        tr = self.tracer
         while len(self.imm) >= self.cfg.max_pending_memtables:
             if not wait_stall:
                 raise IOError(
                     "write stall: immutable-memtable queue is full and "
                     "WriteOptions.wait_stall is False")
-            self._stats.write_stalls += 1
-            if not self._imm_cv.wait(timeout=60.0):
+            self._c["write_stalls"].inc()
+            self._sample_pressure_locked()
+            t_stall = time.perf_counter_ns()
+            ok = self._imm_cv.wait(timeout=60.0)
+            if tr.enabled:
+                tr.complete("write_stall", t_stall,
+                            time.perf_counter_ns() - t_stall,
+                            args={"cause": "imm_queue_full",
+                                  "depth": len(self.imm),
+                                  **(self._span_args or {})})
+            if not ok:
                 raise IOError("write stalled > 60 s: the immutable queue "
                               "is not draining")
             self._raise_if_halted_locked()
+        t_rot = time.perf_counter_ns()
         self._wal.close()
         self._wal_seg_no += 1
         seg = os.path.join(self.path, f"wal-{self._wal_seg_no:06d}.log")
@@ -472,6 +590,10 @@ class LsmDB:
         self.imm.append(entry)
         self.mem = memtable.MemTable()
         self._wal = wal.WALWriter(self._wal_path, sync=self._wal_sync)
+        self._sample_pressure_locked()
+        if tr.enabled:
+            tr.complete("memtable.rotate", t_rot,
+                        time.perf_counter_ns() - t_rot, args=self._span_args)
         self._flush_exec.submit(self._background_flush, entry)
 
     def _set_bg_error(self, err: BaseException,
@@ -490,6 +612,9 @@ class LsmDB:
         with self._lock:
             if self._bg_error is None:
                 self._bg_error = err
+                if isinstance(err, BackgroundError):
+                    self._g_bg_error.set(
+                        1 if err.severity == "transient" else 2)
             self._imm_cv.notify_all()
         return err
 
@@ -500,6 +625,7 @@ class LsmDB:
         compaction.  Returns True when an error was cleared.  After a
         hard error (corruption) the damage is still on disk.  A parked
         ``SimulatedCrash`` is raised again: a dead store stays dead."""
+        t0 = time.perf_counter_ns()
         if self._async:
             # let in-flight work end first: it is failing or skipping
             # against the standing error, which is what this clears
@@ -512,22 +638,25 @@ class LsmDB:
                 return False
             if isinstance(self._bg_error, faults.SimulatedCrash):
                 raise self._bg_error
+            err = self._bg_error
             self._bg_error = None
+            self._g_bg_error.set(0)
             resub = [dataclasses.replace(e, ticket=self._install_seq.issue())
                      for e in self.imm]
             self.imm = resub
             self._imm_cv.notify_all()
-            self._stats.bg_resumes += 1
+        self._c["bg_resumes"].inc()
         for e in resub:
             self._flush_exec.submit(self._background_flush, e)
         if self.cfg.auto_compact and \
                 (self._async or self._compaction_sink is not None):
             self._schedule_compaction()
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("db.resume", t0, time.perf_counter_ns() - t0,
+                        args={"cleared": repr(err), "requeued": len(resub),
+                              **(self._span_args or {})})
         return True
-
-    def _count_retry(self):
-        with self._lock:
-            self._stats.bg_retries += 1
 
     def _background_flush(self, entry: ImmutableMemTable):
         """A flush worker's task: build ``entry``'s L0 image on the
@@ -536,18 +665,20 @@ class LsmDB:
         t0 = time.perf_counter()
 
         def build():
-            entries = entry.table.sorted_entries()
-            faults.fire("flush.build")
-            if not entries:
-                return None
-            return self.engine.build_image(*self._pack_entries(entries))
+            with self.tracer.span("flush.build", **(self._span_args or {})):
+                entries = entry.table.sorted_entries()
+                faults.fire("flush.build")
+                if not entries:
+                    return None
+                return self.engine.build_image(*self._pack_entries(entries))
 
         try:
             # a transient failure (an I/O hiccup, an injected soft fault)
             # is retried with backoff before it halts the pipeline
             img = faults.with_retries(
                 build, retries=self.cfg.bg_max_retries,
-                base_s=self.cfg.bg_retry_base_s, on_retry=self._count_retry)
+                base_s=self.cfg.bg_retry_base_s,
+                on_retry=self._c["bg_retries"].inc)
         except BaseException as e:
             # halt the pipeline: a younger memtable must not install below
             # this still-queued older one, or this table's data would
@@ -566,6 +697,7 @@ class LsmDB:
                 # install (the data stays readable on the queue and its
                 # WAL segments stay on disk, replayed in rotation order)
                 self._raise_if_halted_locked()
+            t_inst = time.perf_counter_ns()
             edit = VersionEdit()
             if img is not None:
                 self._install_ssts(img, level=0, edit=edit)  # files on disk
@@ -574,8 +706,13 @@ class LsmDB:
                     self._log_edit_locked(edit)
                 self.imm.remove(entry)
                 self._imm_cv.notify_all()
-                self._stats.flushes += 1
-                self._stats.flush_host_seconds += time.perf_counter() - t0
+                self._sample_pressure_locked()
+            self._c["flushes"].inc()
+            self._c["flush_host_seconds"].add(time.perf_counter() - t0)
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "flush.install_l0", t_inst,
+                    time.perf_counter_ns() - t_inst, args=self._span_args)
             # WAL segments die inside the sequenced region: an older
             # memtable's segments are unlinked before a newer one's, so a
             # crash never leaves old WAL data to replay over newer L0 data
@@ -631,7 +768,7 @@ class LsmDB:
     def get(self, key: bytes, opts: ReadOptions | None = None
             ) -> bytes | None:
         """The value, or None if absent or deleted."""
-        self._stats.gets += 1
+        t0 = time.perf_counter_ns()
         opts = opts or DEFAULT_READ_OPTIONS
 
         def read(mems, version):
@@ -641,7 +778,12 @@ class LsmDB:
                     return value
             return self._search_version(version, key, opts)
 
-        return self._read(opts, read)
+        try:
+            return self._read(opts, read)
+        finally:
+            # reads take no store lock: the registry counter is atomic
+            self._c["gets"].inc()
+            self._h_get.pend((time.perf_counter_ns() - t0) / 1000.0)
 
     def multi_get(self, keys, opts: ReadOptions | None = None
                   ) -> list[bytes | None]:
@@ -651,10 +793,21 @@ class LsmDB:
         order, equal to ``[self.get(k, opts) for k in keys]``."""
         keys = list(keys)
         opts = opts or DEFAULT_READ_OPTIONS
-        self._stats.multi_gets += 1
-        self._stats.multi_get_keys += len(keys)
-        return self._read(opts, lambda mems, version: self._multi_get_inner(
-            keys, opts, mems, version))
+        t0 = time.perf_counter_ns()
+        try:
+            return self._read(opts, lambda mems, version:
+                              self._multi_get_inner(keys, opts, mems,
+                                                    version))
+        finally:
+            self._c["multi_gets"].inc()
+            self._c["multi_get_keys"].inc(len(keys))
+            dt = time.perf_counter_ns() - t0
+            self._h_multi_get.pend(dt / 1000.0)
+            tr = self.tracer
+            if tr.enabled:
+                tr.complete("db.multi_get", t0, dt,
+                            args={"n_keys": len(keys),
+                                  **(self._span_args or {})})
 
     def _multi_get_inner(self, keys: list, opts: ReadOptions, mems,
                          version) -> list[bytes | None]:
@@ -670,7 +823,8 @@ class LsmDB:
                 unresolved.append((i, key))
         cands = lsm_read.version_candidates(version, unresolved, self.cache)
         resolved = lsm_read.resolve_candidates(
-            cands, self.geom, opts, self.device, stats=self._stats)
+            cands, self.geom, opts, self.device, counters=self._c,
+            tracer=self.tracer, span_args=self._span_args)
         for slot, (_, value) in resolved.items():
             out[slot] = value
         return out
@@ -695,7 +849,7 @@ class LsmDB:
     def _table_get(self, fm: FileMeta, key: bytes, opts: ReadOptions):
         found, value, pruned = self.cache.reader(fm).probe(key, opts)
         if pruned:
-            self._stats.bloom_negative_skips += 1
+            self._c["bloom_negative_skips"].inc()
         return found, value
 
     def scan(self, start: bytes, end: bytes,
@@ -758,21 +912,25 @@ class LsmDB:
             if len(self.mem) == 0:
                 return
             t0 = time.perf_counter()
-            faults.fire("flush.build")
-            keys, meta, vals = self._pack_entries(self.mem.sorted_entries())
-            img = self.engine.build_image(keys, meta, vals)
-            self._install_ssts(img, level=0)
-            self.mem = memtable.MemTable()
-            self._wal.close()
-            for p in self._extra_wals + [self._wal_path]:
-                try:
-                    os.remove(p)
-                except FileNotFoundError:
-                    pass
-            self._extra_wals = []
-            self._wal = wal.WALWriter(self._wal_path, sync=self._wal_sync)
-            self._stats.flushes += 1
-            self._stats.flush_host_seconds += time.perf_counter() - t0
+            with self.tracer.span("flush.sync", **(self._span_args or {})):
+                faults.fire("flush.build")
+                keys, meta, vals = self._pack_entries(
+                    self.mem.sorted_entries())
+                img = self.engine.build_image(keys, meta, vals)
+                self._install_ssts(img, level=0)
+                self.mem = memtable.MemTable()
+                self._wal.close()
+                for p in self._extra_wals + [self._wal_path]:
+                    try:
+                        os.remove(p)
+                    except FileNotFoundError:
+                        pass
+                self._extra_wals = []
+                self._wal = wal.WALWriter(self._wal_path,
+                                          sync=self._wal_sync)
+            self._c["flushes"].inc()
+            self._c["flush_host_seconds"].add(time.perf_counter() - t0)
+            self._sample_pressure_locked()
 
     def _install_ssts(self, img: SSTImage, level: int,
                       edit: VersionEdit | None = None) -> list[FileMeta]:
@@ -847,7 +1005,7 @@ class LsmDB:
                     lambda: self.compact_job(job),
                     retries=self.cfg.bg_max_retries,
                     base_s=self.cfg.bg_retry_base_s,
-                    on_retry=self._count_retry)
+                    on_retry=self._c["bg_retries"].inc)
                 if self.cfg.scheduler.paper_faithful:
                     # the paper's artifact (§IV-C): at most one job a
                     # flush -- do not drain the scheduler
@@ -903,7 +1061,8 @@ class LsmDB:
         """Pick the next compaction job (advances the round-robin pointer).
         A compaction sink's owner pairs this with ``apply_trivial_move`` /
         ``apply_compaction``."""
-        with self._lock:
+        with self._lock, \
+                self.tracer.span("compact.pick", **(self._span_args or {})):
             return self.scheduler.pick(self.versions.current)
 
     def _pointer_edit_locked(self, level: int):
@@ -918,23 +1077,28 @@ class LsmDB:
     def apply_trivial_move(self, job: CompactionJob):
         """Move a trivial job's one file down a level (metadata only)."""
         fm = job.inputs_lo[0]
-        with self._lock:
+        with self._lock, \
+                self.tracer.span("compact.trivial_move", level=job.level,
+                                 **(self._span_args or {})):
             self.versions.log_and_apply(VersionEdit(
                 added=[(job.level + 1, fm)],
                 deleted=[(job.level, fm.file_no)],
                 compact_pointer=self._pointer_edit_locked(job.level)))
-            self._stats.trivial_moves += 1
+            self._sample_pressure_locked()
+        self._c["trivial_moves"].inc()
 
     def compact_job(self, job: CompactionJob):
         if self.is_trivial_move(job):
             self.apply_trivial_move(job)
             return
-        t0 = time.perf_counter()
-        out, es = self.engine.compact_paths(
-            [f.path for f in job.all_inputs], bottom_level=job.bottom_level)
-        with self._lock:
-            self._stats.compact_wall_seconds += time.perf_counter() - t0
-        self.apply_compaction(job, out, es)
+        paths = [f.path for f in job.all_inputs]
+        with self.tracer.span("compact.job", level=job.level,
+                              inputs=len(paths), **(self._span_args or {})):
+            t0 = time.perf_counter()
+            out, es = self.engine.compact_paths(
+                paths, bottom_level=job.bottom_level)
+            self._c["compact_wall_seconds"].add(time.perf_counter() - t0)
+            self.apply_compaction(job, out, es)
 
     def apply_compaction(self, job: CompactionJob, out: SSTImage,
                          es: EngineStats):
@@ -949,25 +1113,31 @@ class LsmDB:
         edit = VersionEdit(
             deleted=[(job.level, f.file_no) for f in job.inputs_lo] +
                     [(job.level + 1, f.file_no) for f in job.inputs_hi])
-        self._install_ssts(out, level=job.level + 1, edit=edit)
-        with self._lock:
-            # the job's picker is the only thread that moves this pointer
-            edit.compact_pointer = self._pointer_edit_locked(job.level)
-            self._log_edit_locked(edit)
-            for f in job.all_inputs:
-                self.cache.drop(f.file_no)
-            s = self._stats
-            s.compactions += 1
-            s.batched_compactions += es.batched
-            s.compact_bytes_in += es.bytes_in
-            s.compact_bytes_out += es.bytes_out
-            s.compact_entries_in += es.n_input
-            s.compact_entries_dropped += es.n_dropped
-            s.compact_host_seconds += es.host_seconds
-            s.compact_device_seconds += es.device_seconds
-            s.compact_sort_seconds += es.sort_seconds
-            self.compactions.append(CompactionRecord(
-                level=job.level, inputs=len(job.all_inputs), stats=es))
+        with self.tracer.span("compact.install", level=job.level,
+                              **(self._span_args or {})):
+            self._install_ssts(out, level=job.level + 1, edit=edit)
+            with self._lock:
+                # the job's picker is the only thread that moves this
+                # pointer
+                edit.compact_pointer = self._pointer_edit_locked(job.level)
+                self._log_edit_locked(edit)
+                for f in job.all_inputs:
+                    self.cache.drop(f.file_no)
+                self.compactions.append(CompactionRecord(
+                    level=job.level, inputs=len(job.all_inputs), stats=es))
+                self._sample_pressure_locked()
+        c = self._c
+        c["compactions"].inc()
+        c["compact_bytes_in"].inc(es.bytes_in)
+        c["compact_bytes_out"].inc(es.bytes_out)
+        c["compact_entries_in"].inc(es.n_input)
+        c["compact_entries_dropped"].inc(es.n_dropped)
+        c["compact_host_seconds"].add(es.host_seconds)
+        c["compact_device_seconds"].add(es.device_seconds)
+        c["compact_sort_seconds"].add(es.sort_seconds)
+        if es.batched:
+            c["batched_compactions"].inc()
+        # engine_fallbacks stays 0: no engine of the port falls back
         for f in job.all_inputs:
             try:
                 os.remove(f.path)

@@ -32,6 +32,23 @@ has not yet launched: a job called alone, it is the job's time on the
 card; under an async store it also holds the readers' waves and the
 worker's waits for the interpreter, so it is a span, not the job's
 device time (a profiler's trace gives that).
+
+Tracing (``tracer``, an ``obs.Tracer``; ``NULL_TRACER`` by default): the
+spans ``compact.read_inputs``, ``compact.execute`` (one job),
+``compact.batch_launch`` (a stacked launch) and ``compact_many`` at the
+places JAX's device engine records them.  Under each launch span the
+pipeline's three phases are child spans, ``compact.crc_verify`` (phase 1,
+from the pipeline's start to phase 2's), ``compact.merge_phase2`` and
+``compact.format`` (phase 3, from phase 2's end to the pipeline's),
+measured where JAX's are modelled: on the card the times between the
+CUDA events the pipeline and its ``"sort"`` span record anyway (no event
+is added, traced or not), on the CPU the host clock.  Their args name the
+clock (``"clock": "cuda_event"`` or ``"host"``), carry ``"stream":
+"shared"`` when another thread launched one of the port's kernels between
+the pipeline's two events (``ops.launch_marks``, read only when traced;
+on the card its work is then inside the children), and ``"scale"`` when
+they were scaled down to fit the launch span's wall.  The durations are read after the output is back on
+the host, where the engine waits for the events already.
 """
 
 from __future__ import annotations
@@ -46,9 +63,16 @@ import numpy as np
 from repro_torch.core import formats, offload
 from repro_torch.core.formats import SSTGeometry, SSTImage
 from repro_torch.device import DeviceTimer, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.lsm import faults
+from repro_torch.obs.trace import NULL_TRACER
 
 U32 = np.uint32
+
+# the pipeline's phases as child spans of a launch span, in order: the
+# time before the "sort" span, the span, the time after it
+PHASE_SPANS = ("compact.crc_verify", "compact.merge_phase2",
+               "compact.format")
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +214,9 @@ class TorchCompactionEngine:
     name = "torch"
 
     def __init__(self, geom: SSTGeometry, device=None,
-                 sort_mode: str = "merge"):
+                 sort_mode: str = "merge", tracer=None):
         self.geom = geom
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.device = resolve_device(device)
         self.executor = offload.CompactionExecutor(
             geom, device=self.device, sort_mode=sort_mode)
@@ -277,10 +302,11 @@ class TorchCompactionEngine:
         with self._lock:
             t0 = time.perf_counter()
             host, imgs = [], []
-            for im in self._read_all_locked(paths):
-                host.append(im)
-                imgs.append(formats.image_from_numpy(im, self.device,
-                                                     self.staging))
+            with self.tracer.span("compact.read_inputs", files=len(paths)):
+                for im in self._read_all_locked(paths):
+                    host.append(im)
+                    imgs.append(formats.image_from_numpy(im, self.device,
+                                                         self.staging))
             return self._run_locked(imgs, host,
                                     sum(im.keys.shape[0] for im in host),
                                     bottom_level, t0)
@@ -302,9 +328,12 @@ class TorchCompactionEngine:
         one."""
         from repro_torch.core.scheduler import batch_signature
         with self._lock:
+            t_many0 = self.tracer.now()
             t_read0 = time.perf_counter()
-            flat = list(self._read_all_locked(
-                [p for paths, _ in jobs for p in paths]))
+            flat_paths = [p for paths, _ in jobs for p in paths]
+            with self.tracer.span("compact.read_inputs",
+                                  files=len(flat_paths)):
+                flat = list(self._read_all_locked(flat_paths))
             read_share = (time.perf_counter() - t_read0) / max(1, len(jobs))
             job_imgs, off = [], 0
             for paths, _ in jobs:
@@ -346,6 +375,10 @@ class TorchCompactionEngine:
                         res = self._single_locked(job_imgs[j], jobs[j][1],
                                                   read_share)
                     results[j] = res
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "compact_many", t_many0, self.tracer.now() - t_many0,
+                    args={"jobs": len(jobs), "groups": len(groups)})
             return results
 
     def _single_locked(self, images, bottom_level: bool, read_share: float):
@@ -379,12 +412,16 @@ class TorchCompactionEngine:
         self.max_batch_jobs = max(self.max_batch_jobs, n_jobs)
         timer = DeviceTimer(self.device)
         t_exec = time.perf_counter()
+        t_exec_ns = self.tracer.now()
+        marks = self._marks()
         with timer.span("pipeline"):
             faults.fire("engine.launch")
             outs = self.executor.compact_many(
                 staged, bottom_level=bottom_level, pad_blocks=bucket,
                 timer=timer)
             faults.fire("engine.crc")
+        if marks is not None:
+            marks = (marks, self._marks())
         host = formats.images_to_numpy([out for out, _ in outs],
                                        self.staging)
         exec_wall = time.perf_counter() - t_exec
@@ -404,6 +441,9 @@ class TorchCompactionEngine:
             stats.device_seconds = device_s
             stats.sort_seconds = sort_s
             results.append((out, stats))
+        if self.tracer.enabled:
+            self._trace_launch("compact.batch_launch", t_exec_ns, timer,
+                               marks, jobs=n_jobs, bucket=bucket)
         return results
 
     def _compact_staged_locked(self, imgs, real_blocks, *, bottom_level,
@@ -416,11 +456,15 @@ class TorchCompactionEngine:
         bucket = offload.next_pow2(sum(im.keys.shape[0] for im in imgs))
         timer = DeviceTimer(self.device)
         t_exec = time.perf_counter()
+        t_exec_ns = self.tracer.now()
+        marks = self._marks()
         with timer.span("pipeline"):
             faults.fire("engine.launch")
             out, s = self.executor.compact(imgs, bottom_level=bottom_level,
                                            pad_blocks=bucket, timer=timer)
             faults.fire("engine.crc")
+        if marks is not None:
+            marks = (marks, self._marks())
         out = formats.image_to_numpy(out, self.staging)
         exec_wall = time.perf_counter() - t_exec
         wire = self.geom.wire_words_per_block * 4
@@ -431,7 +475,47 @@ class TorchCompactionEngine:
         stats.device_seconds = timer.seconds("pipeline")
         stats.sort_seconds = timer.seconds("sort")
         stats.host_seconds = max(time.perf_counter() - t0 - exec_wall, 0.0)
+        if self.tracer.enabled:
+            self._trace_launch("compact.execute", t_exec_ns, timer, marks,
+                               jobs=1, bucket=bucket)
         return out, stats
+
+    def _marks(self):
+        """``ops.launch_marks()`` where a traced pipeline on the card needs
+        them to tell a shared stream, else None."""
+        if self.tracer.enabled and self.device.type == "cuda":
+            return ops.launch_marks()
+        return None
+
+    def _trace_launch(self, name: str, t0_ns: int, timer: DeviceTimer,
+                      marks, **args):
+        """Record the launch span ``name`` from ``t0_ns`` (its output is on
+        the host by now) and, nested in it from its start, the pipeline's
+        three phases (``PHASE_SPANS``) as ``timer`` measured them.  The
+        children keep JAX's clamp: where their sum overruns the launch
+        span's wall they are scaled down to fit (``"scale"`` in their
+        args).  ``marks``: ``launch_marks`` before and after the pipeline
+        (None on the CPU or untraced); the children say ``"stream": "shared"`` when
+        another thread launched in between."""
+        tr = self.tracer
+        wall_ns = tr.now() - t0_ns
+        tr.complete(name, t0_ns, wall_ns, args=args)
+        phases = timer.phases("pipeline", "sort")
+        if phases is None or sum(phases) <= 0.0:
+            return
+        scale = min(1.0, wall_ns / 1e9 / sum(phases))
+        child = {"clock": timer.clock}
+        if marks is not None:
+            (all0, own0), (all1, own1) = marks
+            if all1 - all0 > own1 - own0:
+                child["stream"] = "shared"
+        if scale < 1.0:
+            child["scale"] = scale
+        cur = t0_ns
+        for phase, seconds in zip(PHASE_SPANS, phases):
+            dur = int(seconds * scale * 1e9)
+            tr.complete(phase, cur, dur, args=dict(child))
+            cur += dur
 
     def build_image(self, keys, meta, vals) -> SSTImage:
         """Pack sorted host entries into a host image (the flush), padded

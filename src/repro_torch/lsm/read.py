@@ -32,6 +32,10 @@ stage, as the JAX package pads them; padded rows report absent (zero
 filters; ``nvalid = 0``).  The kernels would take any count, but the
 bucketing keeps the set of launch shapes small, which the repository's
 jit-cache lint (``repro.analysis`` JC001) checks at every call site.
+
+Tracing: each wave's prune is a ``read.bloom_probe`` span and its gather
+(the block decodes and the stacked search) a ``read.block_gather`` span,
+as in JAX, with the candidate count as ``n``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from repro_torch.core import formats
 from repro_torch.core.formats import SSTGeometry
 from repro_torch.kernels import ops
 from repro_torch.lsm import engine
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -80,17 +85,24 @@ def version_candidates(version, slot_keys, cache) -> list[Candidate]:
 
 
 def resolve_candidates(cands: list[Candidate], geom: SSTGeometry, opts,
-                       device: torch.device, *, stats=None
+                       device: torch.device, *, counters=None, tracer=None,
+                       span_args=None
                        ) -> dict[int, tuple[int, bytes | None]]:
     """``{slot: (rank, value|None)}`` for the minimum-rank found candidate
     of each slot (``None``: a tombstone); slots that found nothing are
     absent.  ``device`` is the store's: the ``"device"`` backend stages
-    there.  ``stats`` (a ``DBStats``) counts bloom prunes per candidate,
-    the waves, and the device stages' staged bytes and host-clock seconds.
-    Raises ``FileNotFoundError`` if a candidate's file is gone; the
-    caller decides whether to retry."""
+    there.  ``counters``: the owner's ``lsm.*`` counters by ``DBStats``
+    field, which count bloom prunes per candidate
+    (``bloom_negative_skips``), the waves, and the device stages' staged
+    bytes and host-clock seconds (block-cache traffic is counted by the
+    cache's own hooks).  ``tracer`` records each wave's two stages, with
+    ``span_args`` (the owner's labels) in their args.  Raises
+    ``FileNotFoundError`` if a candidate's file is gone; the caller
+    decides whether to retry."""
     if not cands:
         return {}
+    tracer = tracer if tracer is not None else NULL_TRACER
+    sa = span_args or {}
     queues: dict[int, list[Candidate]] = {}
     for c in cands:   # version_candidates appends in rank order per slot
         queues.setdefault(c.slot, []).append(c)
@@ -108,17 +120,18 @@ def resolve_candidates(cands: list[Candidate], geom: SSTGeometry, opts,
             fronts[slot] = pos + 1
         if not wave:
             break
-        if stats is not None:
-            stats.multi_get_waves += 1
-        for slot, rv in _resolve_wave(wave, geom, opts, device,
-                                      stats).items():
+        if counters is not None:
+            counters["multi_get_waves"].inc()
+        for slot, rv in _resolve_wave(wave, geom, opts, device, counters,
+                                      tracer, sa).items():
             best[slot] = rv
             fronts.pop(slot, None)
     return best
 
 
 def _resolve_wave(cands: list[Candidate], geom: SSTGeometry, opts, device,
-                  stats) -> dict[int, tuple[int, bytes | None]]:
+                  counters, tracer, sa
+                  ) -> dict[int, tuple[int, bytes | None]]:
     """One stacked prune -> gather pass over at most one candidate per
     slot."""
     blocks = [c.reader.candidate_block(c.key) for c in cands]  # loads files
@@ -150,34 +163,40 @@ def _resolve_wave(cands: list[Candidate], geom: SSTGeometry, opts, device,
             w = next(r.shape[-1] for r in rows if r is not None)
             ones = np.full((w,), 0xFFFFFFFF, np.uint32)  # no filter: keep
             filters = np.stack([ones if r is None else r for r in rows])
-            keep = _bloom_stage(filters, probes, geom, opts.backend, device,
-                                stats)
+            with tracer.span("read.bloom_probe", n=len(probe_idx), **sa):
+                keep = _bloom_stage(filters, probes, geom, opts.backend,
+                                    device, counters)
         else:
             keep = np.ones(len(probe_idx), bool)
         alive[probe_idx] = keep
-        if stats is not None:
-            stats.bloom_negative_skips += int(len(probe_idx) - keep.sum())
+        if counters is not None:
+            pruned = int(len(probe_idx) - keep.sum())
+            if pruned:
+                counters["bloom_negative_skips"].inc(pruned)
 
     survivors = [i for i in range(len(cands)) if alive[i]]
     if not survivors:
         return {}
 
     # gather: decode the surviving blocks once, one stacked search
-    for i in survivors:
-        ck = (id(cands[i].reader), blocks[i])
-        if ck not in decoded:
-            decoded[ck] = cands[i].reader.decode_block(
-                blocks[i], fill_cache=opts.fill_cache,
-                verify_crc=opts.verify_crc)
-    blks = [decoded[(id(cands[i].reader), blocks[i])] for i in survivors]
-    if opts.backend == "host":
-        found, metas, vals = _host_lookup(
-            blks, [cands[i].key for i in survivors])
-    else:
-        queries = np.stack(
-            [formats.pack_key_bytes(cands[i].key, geom.key_bytes)
-             for i in survivors])
-        found, metas, vals = _device_lookup(blks, queries, device, stats)
+    with tracer.span("read.block_gather", n=len(survivors), **sa):
+        for i in survivors:
+            ck = (id(cands[i].reader), blocks[i])
+            if ck not in decoded:
+                decoded[ck] = cands[i].reader.decode_block(
+                    blocks[i], fill_cache=opts.fill_cache,
+                    verify_crc=opts.verify_crc)
+        blks = [decoded[(id(cands[i].reader), blocks[i])]
+                for i in survivors]
+        if opts.backend == "host":
+            found, metas, vals = _host_lookup(
+                blks, [cands[i].key for i in survivors])
+        else:
+            queries = np.stack(
+                [formats.pack_key_bytes(cands[i].key, geom.key_bytes)
+                 for i in survivors])
+            found, metas, vals = _device_lookup(blks, queries, device,
+                                                counters)
 
     best: dict[int, tuple[int, bytes | None]] = {}
     for j, i in enumerate(survivors):
@@ -199,7 +218,7 @@ def _bucket(n: int, lo: int = 8) -> int:
 
 
 def _bloom_stage(filters: np.ndarray, probes: np.ndarray, geom: SSTGeometry,
-                 backend: str, device, stats=None) -> np.ndarray:
+                 backend: str, device, counters=None) -> np.ndarray:
     """bool ``[P]``: probe row ``i`` against filter row ``i``."""
     n = filters.shape[0]
     if backend == "host":
@@ -209,11 +228,11 @@ def _bloom_stage(filters: np.ndarray, probes: np.ndarray, geom: SSTGeometry,
     pad = _bucket(n) - n   # zero filters: padded rows report absent
     filters_t, probes_t = _stage([np.pad(filters, ((0, pad), (0, 0))),
                                   np.pad(probes, ((0, pad), (0, 0)))], device,
-                                 stats)
+                                 counters)
     hit = ops.bloom_multi_probe(filters_t, probes_t,
                                 n_probes=geom.bloom_probes)
     keep = hit.cpu().numpy()[:n]
-    _count_stage(stats, t0)
+    _count_stage(counters, t0)
     return keep
 
 
@@ -244,21 +263,21 @@ def _host_lookup(blks, keys):
     return found, metas, vals
 
 
-def _count_stage(stats, t0: float) -> None:
+def _count_stage(counters, t0: float) -> None:
     """Add a device stage's host-clock seconds since ``t0`` (stacking, the
-    copy over, the kernel, the copy back) to ``stats``."""
-    if stats is not None:
-        stats.multi_get_stage_seconds += time.perf_counter() - t0
+    copy over, the kernel, the copy back) to ``counters``."""
+    if counters is not None:
+        counters["multi_get_stage_seconds"].add(time.perf_counter() - t0)
 
 
-def _stage(arrays, device, stats=None) -> list[torch.Tensor]:
+def _stage(arrays, device, counters=None) -> list[torch.Tensor]:
     """Copy 32-bit host arrays to ``device`` in one transfer: one int32
     host buffer, split on the device into tensors of the arrays' shapes.
-    ``stats`` counts the bytes copied."""
+    ``counters`` count the bytes copied."""
     flat = np.concatenate([np.ascontiguousarray(a).view(np.int32).ravel()
                            for a in arrays])
-    if stats is not None:
-        stats.multi_get_staged_bytes += flat.nbytes
+    if counters is not None:
+        counters["multi_get_staged_bytes"].inc(flat.nbytes)
     buf = torch.from_numpy(flat).to(device)
     out, off = [], 0
     for a in arrays:
@@ -267,7 +286,7 @@ def _stage(arrays, device, stats=None) -> list[torch.Tensor]:
     return out
 
 
-def _device_lookup(blks, queries: np.ndarray, device, stats=None):
+def _device_lookup(blks, queries: np.ndarray, device, counters=None):
     """Stack the candidate blocks, copy them to ``device`` in one transfer,
     resolve every query in one ``lookup_blocks_packed`` call, and read its
     one buffer back in one transfer."""
@@ -284,7 +303,7 @@ def _device_lookup(blks, queries: np.ndarray, device, stats=None):
               np.pad(vals, ((0, pad), (0, 0), (0, 0))),
               np.pad(nvalid, (0, pad)),
               np.pad(queries, ((0, pad), (0, 0)))]
-    packed = ops.lookup_blocks_packed(*_stage(staged, device, stats))
+    packed = ops.lookup_blocks_packed(*_stage(staged, device, counters))
     out = packed.cpu().numpy().view(np.uint32)[:n]
-    _count_stage(stats, t0)
+    _count_stage(counters, t0)
     return out[:, 0].astype(bool), out[:, 1], out[:, 2:]

@@ -31,7 +31,13 @@ slice of byte space).  ``put``, ``delete`` and ``write_batch`` take
 ``WriteOptions``; ``DBConfig.failpoints`` is armed before the boundary
 table is written (its failpoint is ``shards.write``, a torn
 ``SHARDS.json.tmp``), and ``ShardedDB.open(path, cfg, repair=True)`` runs
-``lsm.repair.repair_sharded`` first.  Not here yet: metrics (ROADMAP A10).
+``lsm.repair.repair_sharded`` first.
+
+One registry (``cfg.metrics``, else a new ``obs.MetricsRegistry``) and
+one tracer (``cfg.tracer``, else ``obs.NULL_TRACER``) serve every shard,
+the queue and the engine: each shard's series carry ``shard=i``, so they
+stay apart while their histograms merge bucket for bucket
+(``obs.merge_histograms``); ``stats`` sums the shards' ``DBStats``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,9 @@ from repro_torch.device import resolve_device
 from repro_torch.lsm import ReadOptions, WriteOptions, faults
 from repro_torch.lsm.db import DBConfig, DBStats, LsmDB, make_engine
 from repro_torch.lsm.fs import fsync_dir
+from repro_torch.lsm.engine import TorchCompactionEngine
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
 
 SHARDS_FILE = "SHARDS.json"
 
@@ -120,15 +129,24 @@ class ShardedDB:
         self.boundaries = self._load_or_init_boundaries(
             shards, boundaries, sample_keys)
         self.n_shards = len(self.boundaries) + 1
+        # one registry and one tracer for the shards, the queue and the
+        # engine: a shard's series stay apart by their shard label, and
+        # their histograms merge bucket for bucket
+        self.metrics = (self.cfg.metrics if self.cfg.metrics is not None
+                        else MetricsRegistry())
+        self.tracer = (self.cfg.tracer if self.cfg.tracer is not None
+                       else NULL_TRACER)
         self.engine = make_engine(self.cfg, self.device)
-        self.queue = GlobalCompactionQueue(self.engine)
+        self.queue = GlobalCompactionQueue(self.engine, tracer=self.tracer,
+                                           metrics=self.metrics)
         self.shards = []
         try:
             for i in range(self.n_shards):
                 self.shards.append(LsmDB(
                     os.path.join(path, f"shard-{i:04d}"), self.cfg,
                     device=self.device, engine=self.engine,
-                    compaction_sink=self.queue.notify))
+                    compaction_sink=self.queue.notify, metrics=self.metrics,
+                    tracer=self.tracer, metric_labels={"shard": str(i)}))
         except BaseException:
             # a later shard failed to open: stop what already started
             self.queue.close()

@@ -181,25 +181,36 @@ class DecodedBlock:
     vals: np.ndarray          # uint32 [K, Vw]
     nvalid: int
 
+    @property
+    def nbytes(self) -> int:
+        return (self.keys_u32.nbytes + self.keys_packed.nbytes +
+                self.meta.nbytes + self.vals.nbytes)
+
 
 class BlockCache:
     """Host LRU cache of ``DecodedBlock``s keyed ``(file_no, block)`` (file
     numbers are never reused); capacity in blocks, 0 disables it.
     Thread-safe: a sharded store's compaction worker drops files while the
-    caller reads."""
+    caller reads.  ``on_hit`` / ``on_miss`` are called on each lookup that
+    finds a block or not (the store's ``lsm.block_cache_*`` counters)."""
 
-    def __init__(self, capacity: int = 4096):
+    def __init__(self, capacity: int = 4096, *, on_hit=None, on_miss=None):
         self.capacity = capacity
         self._lock = threading.Lock()
         # guarded-by: _lock
         self._c: OrderedDict[tuple[int, int], DecodedBlock] = OrderedDict()
+        self._on_hit = on_hit
+        self._on_miss = on_miss
 
     def get(self, file_no: int, block: int) -> DecodedBlock | None:
         with self._lock:
             blk = self._c.get((file_no, block))
             if blk is not None:
                 self._c.move_to_end((file_no, block))
-            return blk
+        hook = self._on_hit if blk is not None else self._on_miss
+        if hook is not None:
+            hook()
+        return blk
 
     def put(self, file_no: int, block: int, blk: DecodedBlock):
         if self.capacity <= 0:
@@ -262,6 +273,10 @@ class TableReader:
                     formats.unpack_key_bytes(keys[b, 0]).rstrip(b"\x00")
                     for b in range(keys.shape[0])]
             return self._first_keys
+
+    @property
+    def n_blocks(self) -> int:
+        return self._load().keys.shape[0]
 
     def candidate_block(self, key: bytes) -> int:
         """The one block that can hold ``key``: the rightmost block whose

@@ -17,12 +17,20 @@ runs eagerly.  The prefill stays eager.  A capture may run while a
 session store's background workers launch on the card (an async
 ``LsmDB``): it is captured in ``thread_local`` mode, so their allocations,
 copies and synchronizations on other threads neither fail nor end up in
-the graph; a capture that fails raises.  Metrics and tracing wait for
-ROADMAP A10: passing ``metrics`` or ``tracer`` raises
-``NotImplementedError``.
+the graph; a capture that fails raises.
+
+Metrics and tracing, as in JAX: the histograms
+``serve.op.latency_us{op=generate|page_out|page_in|page_in_many}`` and
+the spans ``serve.generate``, ``serve.page_out``, ``serve.page_in`` and
+``serve.page_in_many``.  They wrap host-level calls only, never the
+captured region: host code there runs once at capture and never on
+replay.  ``metrics`` and ``tracer`` default to the page store's, so the
+serving spans land in the trace of the store's flushes and compactions.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -30,6 +38,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_map
+from repro_torch.obs.metrics import NULL_REGISTRY
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.session_store import LsmSessionStore
 
 
@@ -94,12 +104,11 @@ class ServeEngine:
 
         ``session_store`` is any ``SessionStore``; ``page_store`` is an
         ``LsmDB`` that gets wrapped in an ``LsmSessionStore`` with this
-        engine's state template.  Pass at most one of the two."""
-        for name, value in (("metrics", metrics), ("tracer", tracer)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet (ROADMAP "
-                    "A10)")
+        engine's state template.  Pass at most one of the two.
+
+        ``metrics`` / ``tracer``: an ``obs`` registry and tracer; by
+        default the page store's, else ``NULL_REGISTRY`` /
+        ``NULL_TRACER``."""
         if page_store is not None and session_store is not None:
             raise ValueError("pass page_store or session_store, not both")
         self.cfg = cfg
@@ -114,6 +123,21 @@ class ServeEngine:
         # benches reach through it for flush/compact/stats)
         self.store = (page_store if page_store is not None
                       else getattr(session_store, "db", None))
+        if metrics is None:
+            metrics = getattr(self.store, "metrics", None)
+        if tracer is None:
+            tracer = getattr(self.store, "tracer", None)
+        self.metrics = metrics if metrics is not None else NULL_REGISTRY
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._h_gen = self.metrics.histogram(
+            "serve.op.latency_us", op="generate",
+            help="serving op latency (us)")
+        self._h_out = self.metrics.histogram("serve.op.latency_us",
+                                             op="page_out")
+        self._h_in = self.metrics.histogram("serve.op.latency_us",
+                                            op="page_in")
+        self._h_in_many = self.metrics.histogram("serve.op.latency_us",
+                                                 op="page_in_many")
         self._graphs: dict[int, _CapturedDecode] = {}   # by batch size
 
     def _state_template(self):
@@ -154,6 +178,14 @@ class ServeEngine:
         has NOT been decoded into the cache yet, so feeding it back through
         ``_decode`` at ``pos`` continues exactly where an uninterrupted run
         would have gone."""
+        t0 = time.perf_counter_ns()
+        with self.tracer.span("serve.generate",
+                              batch=len(prompts), max_new=max_new):
+            out = self._generate_inner(prompts, max_new)
+        self._h_gen.pend((time.perf_counter_ns() - t0) / 1000.0)
+        return out
+
+    def _generate_inner(self, prompts, max_new: int):
         prompts = torch.as_tensor(prompts, dtype=torch.int32,
                                   device=self.device)
         logit, cache, pos = model.prefill(
@@ -175,12 +207,19 @@ class ServeEngine:
         """Page the session state out through the session store.
         Returns the number of records written (backend-defined)."""
         assert self.sessions is not None, "no session store configured"
-        return self.sessions.save(session, (cache, pos))
+        t0 = time.perf_counter_ns()
+        with self.tracer.span("serve.page_out", session=session):
+            count = self.sessions.save(session, (cache, pos))
+        self._h_out.pend((time.perf_counter_ns() - t0) / 1000.0)
+        return count
 
     def load_session(self, session: str):
         """Page one session back in; raises ``KeyError`` if absent."""
         assert self.sessions is not None, "no session store configured"
-        cache, pos = self.sessions.load(session)
+        t0 = time.perf_counter_ns()
+        with self.tracer.span("serve.page_in", session=session):
+            cache, pos = self.sessions.load(session)
+        self._h_in.pend((time.perf_counter_ns() - t0) / 1000.0)
         return cache, pos
 
     def load_sessions(self, sessions, *, missing_ok: bool = False):
@@ -188,7 +227,12 @@ class ServeEngine:
         per-session reads into two multi_get waves on the LSM backend.
         Returns ``[(cache, pos) | None, ...]`` aligned with input."""
         assert self.sessions is not None, "no session store configured"
-        return self.sessions.load_many(list(sessions), missing_ok=missing_ok)
+        sessions = list(sessions)
+        t0 = time.perf_counter_ns()
+        with self.tracer.span("serve.page_in_many", n=len(sessions)):
+            out = self.sessions.load_many(sessions, missing_ok=missing_ok)
+        self._h_in_many.pend((time.perf_counter_ns() - t0) / 1000.0)
+        return out
 
     def drop_session(self, session: str) -> bool:
         """Remove a paged session (head + all chunks, atomically on the

@@ -947,3 +947,153 @@ def test_async_store_takes_no_stream_from_the_pool(dev, tmp_path,
     assert db.stats.flushes >= 6 and db.stats.compactions >= 1
     db.close()
     assert taken == []
+
+
+# ---------------------------------------------------------------------------
+# metrics and tracing on the card (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+
+def small_store_config(**kw):
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.lsm.db import DBConfig
+    geom = SSTGeometry(key_bytes=16, value_bytes=272, block_bytes=4096,
+                       sst_bytes=64 * 1024)
+    return DBConfig(geom=geom, scheduler=SchedulerConfig(
+        l0_trigger=4, base_bytes=512 * 1024), **kw)
+
+
+def test_launch_phases_are_cuda_event_children(dev, tmp_path):
+    """``chip_smoke.py`` phase 11 (a), small: a traced sync store on the
+    card; each launch span holds its three child phases, clock
+    ``cuda_event``, inside it, and their sum over the jobs equals
+    ``compact_device_seconds`` within 1 % (both read the same events)."""
+    from repro_torch.lsm.db import LsmDB
+    from repro_torch.obs import Tracer
+    tr = Tracer()
+    db = LsmDB(str(tmp_path / "db"), small_store_config(tracer=tr),
+               device=dev)
+    for i in range(3000):
+        db.put(b"k%06d" % (i % 1500), bytes([i % 251]) * 200)
+    db.flush()
+    db.maybe_compact()
+    st = db.stats
+    db.close()
+    events = tr.to_chrome()["traceEvents"]
+    chip_smoke.check_nesting(events)
+    la = chip_smoke.check_launches(events, "cuda_event", "the store")
+    assert la["launches"] == st.compactions >= 1 and la["shared"] == 0
+    assert abs(la["children_s"] - st.compact_device_seconds) <= \
+        0.01 * st.compact_device_seconds
+
+
+def test_untraced_job_records_no_extra_events(dev, tmp_path, monkeypatch):
+    """A job through an engine with a tracer makes the CUDA events, the
+    kernel launches and the image of the same job untraced: the child
+    phases read the pipeline's own events (4 a job)."""
+    from repro_torch.lsm.db import LsmDB
+    from repro_torch.lsm.engine import TorchCompactionEngine
+    from repro_torch.obs import Tracer
+    cfg = small_store_config(auto_compact=False)
+    db = LsmDB(str(tmp_path / "db"), cfg, device=dev)
+    for i in range(1200):
+        db.put(b"k%06d" % (i % 700), bytes([i % 251]) * 200)
+    db.flush()
+    paths = [fm.path for fm in db.versions.current.levels[0]]
+    db.close()
+    assert len(paths) >= 4
+    made = []
+    real = torch.cuda.Event
+
+    def counted(*args, **kw):
+        made.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    seen = []
+    for tracer in (None, Tracer()):
+        eng = TorchCompactionEngine(cfg.geom, device=dev, tracer=tracer)
+        try:
+            eng.compact_paths(paths)   # staging buffers made
+            del made[:]
+            before = ops.launch_counts()
+            out, es = eng.compact_paths(paths)
+            after = ops.launch_counts()
+        finally:
+            eng.close()
+        seen.append((len(made), {k: after[k] - before[k] for k in after},
+                     [np.asarray(a).tobytes() for a in out]))
+    assert seen[0] == seen[1] and seen[0][0] == 4
+
+
+def test_launch_children_say_when_another_thread_launched(dev, tmp_path):
+    """A traced job alone: its child phases carry no ``"stream"``; the
+    same job while another thread launches kernels on the card: they say
+    ``"stream": "shared"`` (the engine reads ``ops.launch_marks`` around
+    the pipeline)."""
+    from repro_torch.lsm.db import LsmDB
+    from repro_torch.lsm.engine import PHASE_SPANS, TorchCompactionEngine
+    from repro_torch.obs import Tracer
+    cfg = small_store_config(auto_compact=False)
+    db = LsmDB(str(tmp_path / "db"), cfg, device=dev)
+    for i in range(1200):
+        db.put(b"k%06d" % (i % 700), bytes([i % 251]) * 200)
+    db.flush()
+    paths = [fm.path for fm in db.versions.current.levels[0]]
+    db.close()
+    tr = Tracer()
+    eng = TorchCompactionEngine(cfg.geom, device=dev, tracer=tr)
+    words = torch.zeros((64, 16), dtype=torch.int32, device=dev)
+    stop, started = threading.Event(), threading.Event()
+
+    def other():
+        while not stop.is_set():
+            ops.crc32_blocks(words)
+            started.set()
+
+    def child_args():
+        kids = [e for e in tr.to_chrome()["traceEvents"]
+                if e["ph"] == "X" and e["name"] in PHASE_SPANS][-3:]
+        assert [k["name"] for k in kids] == list(PHASE_SPANS)
+        return [k["args"] for k in kids]
+
+    t = threading.Thread(target=other, daemon=True)
+    try:
+        eng.compact_paths(paths)
+        assert all("stream" not in a for a in child_args())
+        t.start()
+        assert started.wait(60)
+        eng.compact_paths(paths)
+        assert all(a.get("stream") == "shared" for a in child_args())
+    finally:
+        stop.set()
+        t.join(60)
+        eng.close()
+
+
+def test_no_span_recorded_in_a_graph_replay(falcon4):
+    """``chip_smoke.py`` phase 11 (d), small: a traced engine captures its
+    decode step inside ``generate`` with nothing recorded inside the
+    capture, and a replay records nothing: a second ``generate`` adds one
+    ``serve.generate`` span and no capture."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.engine import ServeEngine
+    eng, toks = falcon4
+    tr = Tracer()
+    seng = ServeEngine(eng.cfg, eng.params, max_len=64, device=toks.device,
+                       tracer=tr)
+    with chip_smoke.capture_windows() as wins:
+        part, cache, pos = seng.generate(toks, 4)
+        n = len(tr)
+        tok = torch.from_numpy(part[:, -1:]).to(toks.device)
+        for _ in range(3):
+            logits, cache = seng._decode(seng.params, cache, tok, pos)
+            tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+            pos = pos + 1
+        assert len(tr) == n
+        seng.generate(toks, 4)
+    assert len(wins) == 1
+    raw = list(tr._events)
+    assert [e[1] for e in raw] == ["serve.generate"] * 2
+    ident, c0, c1 = wins[0]
+    assert not [e for e in raw if e[4] == ident and c0 <= e[2] < c1]

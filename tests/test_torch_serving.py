@@ -25,6 +25,8 @@ from repro.launch import serve as jax_serve
 from repro.lsm.db import DBConfig as JaxDBConfig
 from repro.lsm.db import LsmDB as JaxDB
 from repro.models import model as jmodel
+from repro.obs import MetricsRegistry as JaxRegistry
+from repro.obs import Tracer as JaxTracer
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.formats import SSTGeometry
@@ -32,6 +34,7 @@ from repro_torch.launch import serve
 from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.models import convert, model
 from repro_torch.models.convert import tree_map
+from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving import session_store
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.session_store import (LsmSessionStore,
@@ -109,11 +112,62 @@ def test_returned_state_is_resumable(engines):
     np.testing.assert_array_equal(np.stack(outs, 1), full[:, 4:])
 
 
+# ServeEngine's two observability arguments, the port's and JAX's kinds
+OBS = {"metrics": (MetricsRegistry, JaxRegistry),
+       "tracer": (Tracer, JaxTracer)}
+
+
+def serve_records(arg, obj) -> list:
+    """What a registry or a tracer holds of the ``serve.*`` names: the
+    histograms' (labels, count), or the spans' (name, args)."""
+    if arg == "metrics":
+        return sorted((tuple(sorted(h["labels"].items())), h["count"])
+                      for h in obj.snapshot()["histograms"]
+                      if h["name"] == "serve.op.latency_us")
+    return [(e["name"], e["args"]) for e in obj.to_chrome()["traceEvents"]
+            if e["ph"] == "X" and e["name"].startswith("serve.")]
+
+
 @pytest.mark.parametrize("arg", ["metrics", "tracer"])
-def test_session_paging_and_metrics_wait(engines, arg):
-    _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP A1[01]"):
-        ServeEngine(teng.cfg, teng.params, device="cpu", **{arg: object()})
+def test_serving_metrics_and_tracer(engines, tmp_path, arg):
+    """ROADMAP A10: ``ServeEngine`` takes a registry and a tracer, records
+    ``serve.op.latency_us{op=generate}`` and the ``serve.generate`` span
+    into them, and defaults to its page store's; a generate, a page-out
+    and two page-ins record what JAX's engine records."""
+    jeng, teng = engines
+    port_kind, jax_kind = OBS[arg]
+    given = port_kind()
+    eng = ServeEngine(teng.cfg, teng.params, max_len=64, device="cpu",
+                      **{arg: given})
+    assert getattr(eng, arg) is given
+    eng.generate(prompts(2, 5), max_new=3)
+    assert serve_records(arg, given) == (
+        [((("op", op),), int(op == "generate")) for op in
+         ("generate", "page_in", "page_in_many", "page_out")]
+        if arg == "metrics" else
+        [("serve.generate", {"batch": 2, "max_new": 3})])
+
+    stores = (LsmDB(str(tmp_path / "port"), DBConfig(
+                  geom=SSTGeometry(**KV), memtable_bytes=128 * 1024),
+                  device="cpu", **{arg: port_kind()}),
+              JaxDB(str(tmp_path / "jax"), JaxDBConfig(
+                  geom=JaxGeometry(**KV), engine="cpu",
+                  memtable_bytes=128 * 1024), **{arg: jax_kind()}))
+    served = (paged(teng, stores[0]),
+              JaxServeEngine(jeng.cfg, jeng.params, max_len=64,
+                             page_store=stores[1]))
+    seen = []
+    for e, db in zip(served, stores):
+        assert getattr(e, arg) is getattr(db, arg)   # the store's
+        _, cache, pos = e.generate(prompts(1, 4), max_new=2)
+        e.save_session("s", cache, pos)
+        e.load_session("s")
+        e.load_sessions(["s", "absent"], missing_ok=True)
+        seen.append(serve_records(arg, getattr(db, arg)))
+        db.close()
+    assert seen[0] == seen[1]
+    assert len(seen[0]) == 4 and (arg == "tracer" or
+                                  all(n == 1 for _, n in seen[0]))
 
 
 # the serving launcher's store, with tests/test_serving.py's smaller SSTs
