@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port of the LUDA store (and of the
-falcon-mamba-7b server beside it) on one GPU.
+model server beside it) on one GPU.
 
     python3 chip_smoke.py        (from the repository root)
 
@@ -14,7 +14,9 @@ Phases, any fault exits non-zero:
    kernels also at their edges, one launch a call; the sort and the bloom
    build at their edges (``SORT_EDGES``, ``BLOOM_EDGES``), the sort with
    the launches its plan names, the build with one; PyTorch's nearest
-   route to the sort timed beside it; the card's launch floor (a
+   route to the sort timed beside it, and the same call (``torch.unique``
+   between two sign flips) as the merge's library time; the card's launch
+   floor (a
    one-element fill) beside the small kernels;
 3. drive the store (``repro_torch.lsm.db.LsmDB``) at the paper's geometry:
    a seeded bulk load, a YCSB-A mix, deletes, compactions, reads and
@@ -139,12 +141,35 @@ Phases, any fault exits non-zero:
    against untraced, and the CUDA events a job records either way (the
    same).
 
-Phases 3-9 and 11 fail if a compaction engine built in them retried a
-launch: no engine failpoint is armed outside phase 10.
+12. the model zoo's attention, MoE and encoder-decoder archs on the card
+   (bf16 compute, random weights from a seed, each model freed before the
+   next, its peak memory printed): (a) gemma3-4b (34 layers, windows of
+   1,024 with every 6th layer global, a tied vocab of 262,144) and (b)
+   granite-moe-3b-a800m (32 layers, 40 experts, top-8) at full width and
+   depth served as phase 5 serves falcon: 4 requests of 512 prompt tokens
+   and 16 new, captured decode's tokens equal to eager's, prefill-then-
+   decode against the longer prefill, prefill and decode timed beside the
+   decode step's bound (its weights over the HBM rate), (b)'s capacity
+   drops counted; (a) also the ring wrap: 1,000 prompt tokens and 48
+   teacher-forced captured steps past the windowed layers' 1,024 slots,
+   each step's logits against ``forward``; (c) card against CPU at fp32
+   compute and scan, the same weights: gemma3-4b cut to 6 layers,
+   granite-moe to 2, falcon-mamba-7b to 4, at full width, the MoE
+   routings equal and the logits within 1e-3 of the largest; (d) every
+   other arch once (a prefill and 8 decode steps; qwen3-14b, yi-34b,
+   granite-20b, phi3.5-moe and internvl2-26b at full width cut to 2
+   layers, whisper-medium whole over 1,500 frames, jamba at its smoke
+   config), finite, prefill-then-decode within 5e-2, the served ones
+   captured = eager; (e) one gemma3 request's ``(cache, pos)`` paged
+   through the store as phase 7 pages falcon's, loaded bit for bit and
+   resumed as an uninterrupted run.
+
+Phases 3-9, 11 and 12 fail if a compaction engine built in them retried
+a launch: no engine failpoint is armed outside phase 10.
 
 The line before the last is a JSON ``kernels`` record (each kernel's
-``launches`` sums phase 3's paths, phase 9's, phase 10's and phase 11's,
-split in ``launches_by_path``); the last line is
+``launches`` sums phase 3's paths, phase 9's, phase 10's, phase 11's and
+phase 12's, split in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
     python3 chip_smoke.py --kernels
@@ -161,6 +186,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import hashlib
 import itertools
 import json
@@ -180,7 +206,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.luda_paper import PAPER  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.formats import SSTGeometry  # noqa: E402
@@ -196,6 +222,7 @@ from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
 from repro_torch.lsm.engine import (  # noqa: E402
     PHASE_SPANS, TorchCompactionEngine)
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.session_store import (  # noqa: E402
@@ -400,14 +427,16 @@ def check_merge_cases(dev, card: str, rng) -> None:
             f"a call{timed}")
 
 
-def kernel_cases(rng, dev):
+def kernel_cases(rng, dev, merge_rows: dict | None = None):
     """(name, kernel call, plain call, bytes, operations) at the main
     path's shapes: a 4-SST L0 job of the paper geometry (4096 blocks,
     65,536 rows) and a 16-SST merge (262,144 rows).  Bytes count each
     input read once and each output written once; operations count what
     these inputs need (the CRC one table step a byte, whatever implements
     it; the prefix loop stops at the first differing lane, the bloom skips
-    invalid slots)."""
+    invalid slots).  ``merge_rows`` gets the merge cases' rows and run
+    lengths by case name."""
+    merge_rows = {} if merge_rows is None else merge_rows
     g = PAPER_GEOM
     B, K, L, Vw = 4096, g.block_kvs, g.key_lanes, g.value_words
     widths = (1, K * L, K, K * Vw, K)
@@ -424,6 +453,7 @@ def kernel_cases(rng, dev):
         rows = as_i32(tuple_runs(rng, [run_rows] * n_runs, pad, L), dev)
         lens = [run_rows] * n_runs + [pad]
         n = rows.shape[0]
+        merge_rows[f"merge_runs/{n}"] = (rows, lens)
         # a merge tree compares each row once a level, up to L + 2 lanes
         # (two operations a lane)
         cases.append((f"merge_runs/{n}",
@@ -438,6 +468,7 @@ def kernel_cases(rng, dev):
                         for _ in range(BATCH_JOBS)])
     lens = [15_360] * 4 + [4096]
     n = rows.shape[0] * rows.shape[1]
+    merge_rows[f"merge_runs/{BATCH_JOBS}x{rows.shape[1]}"] = (rows, lens)
     cases.append((f"merge_runs/{BATCH_JOBS}x{rows.shape[1]}",
                   lambda r=rows, ln=lens: ops.merge_runs(r, ln),
                   lambda r=rows, ln=lens: ref.merge_runs_batched(r, ln),
@@ -925,6 +956,21 @@ def unique_sort(rows: torch.Tensor) -> torch.Tensor:
     return torch.unique(rows ^ flip, dim=0) ^ flip
 
 
+def unique_merge(rows: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes ``merge_runs``' function, timed
+    beside it and used nowhere in the port: the phase-2 tuples carry an
+    index lane, so every row is unique and ``unique_sort`` of them is
+    their merge.  A batch ``[J, n, L]`` takes its job as a leading lane,
+    so that one call merges every job's rows on their own."""
+    if rows.dim() == 2:
+        return unique_sort(rows)
+    j, n, lanes = rows.shape
+    job = torch.arange(j, dtype=rows.dtype, device=rows.device)
+    tagged = torch.cat([job[:, None, None].expand(j, n, 1), rows], dim=2)
+    return unique_sort(tagged.reshape(j * n, lanes + 1))[:, 1:].reshape(
+        j, n, lanes)
+
+
 def compare_outputs(name: str, got, want) -> tuple[int, str]:
     """Raise unless a kernel's output (a tensor or a tuple of them) equals
     its plain version's bit for bit; returns the max abs error over the
@@ -945,7 +991,8 @@ def check_kernels(dev, card: str) -> tuple[dict, dict]:
     sort's inputs by row count; ``card`` (name, power limit) goes beside
     every time."""
     rng = np.random.default_rng(2020)
-    cases, sections = kernel_cases(rng, dev)
+    merge_rows: dict = {}
+    cases, sections = kernel_cases(rng, dev, merge_rows)
     sort_rows: dict = {}
     cases += read_kernel_cases(rng, dev, sort_rows)
     results = {}
@@ -975,9 +1022,21 @@ def check_kernels(dev, card: str) -> tuple[dict, dict]:
             f"({res['bound_by']}); one call {res['call_ms']:.4f} ms, plain "
             f"{res['plain_call_ms']:.4f} ms [{card}]")
         results[name] = res
-    log(f"  library_ms: none for every kernel: {NO_LIBRARY} (a sectioned "
-        "CRC, a lexicographic 6-lane merge or sort, a prefix count, a bloom"
-        " build or 6-probe test, a lower-bound search with a gather)")
+    for case, (rows, lens) in merge_rows.items():
+        # merge_runs returns the merged rows: torch.unique(dim=0) between
+        # two sign flips computes that function on the same rows
+        plain = ref.merge_runs_batched if rows.dim() == 3 else ref.merge_runs
+        compare_outputs(f"unique_merge/{case}", unique_merge(rows),
+                        plain(rows, lens))
+        ms = device_ms(lambda r=rows: unique_merge(r), 20)
+        results[case]["library_ms"] = ms
+        log(f"  library_ms of {case}: torch.unique(dim=0) between two sign "
+            f"flips{' (the job as a leading lane)' if rows.dim() == 3 else ''}"
+            f", equal to the merge: device time {ms:.4f} ms, the kernel "
+            f"{results[case]['ms']:.4f} ms [{card}]")
+    log(f"  library_ms: none for the other kernels: {NO_LIBRARY} (a "
+        "sectioned CRC, a lexicographic 6-lane sort, a prefix count, a "
+        "bloom build or 6-probe test, a lower-bound search with a gather)")
     for n, rows in sort_rows.items():
         compare_outputs(f"unique_sort/{n}", unique_sort(rows),
                         ref.sort_tuples(rows))
@@ -1684,13 +1743,92 @@ def prefill_device_share(eng, prompts) -> tuple[float, float]:
     return sum(split.values()), split.get("selective_scan", 0.0)
 
 
+def drop_free(cfg):
+    """``cfg`` with an MoE capacity that holds every token (``c`` = the
+    tokens: ``capacity_factor`` = experts / top-k), for comparing two
+    routes through the model: capacity drops legitimately differ between
+    a batched prefill and a one-token step (the JAX package's
+    ``test_decode_matches_forward`` raises the capacity for the same
+    reason).  Other configs come back as they are."""
+    if not cfg.moe_experts:
+        return cfg
+    return cfg.with_(capacity_factor=max(cfg.capacity_factor,
+                                         cfg.moe_experts / cfg.moe_top_k))
+
+
+def decode_routes(eng, cache, first, pos, steps: int, *, enc_out=None,
+                  captured: bool = True) -> dict:
+    """``steps`` greedy decode steps from one state, eagerly
+    (``model.decode_step``) and, with ``captured``, through the engine's
+    captured step, each timed a step on the host clock after a
+    synchronize; every logit must be finite.  With both routes the greedy
+    tokens must be equal and the last logits and cache bit for bit equal
+    or, should cuBLAS take other kernels under capture, within
+    ``LOGIT_TOL`` (as every other pair of routes through the model).
+    Returns each route's median ms, tokens, last logits and cache, and
+    ``bitwise`` and ``gap`` (None without the captured route)."""
+    dev, cfg = eng.device, eng.cfg
+    ways = [("eager", lambda c, t, p: lm.decode_step(
+        eng.params, c, t, p, cfg, enc_out=enc_out))]
+    if captured:
+        ways.append(("captured", lambda c, t, p: eng._decode(
+            eng.params, c, t, p)))
+    runs = {}
+    for how, step_fn in ways:
+        c, tok, p, toks, step_s = cache, first, pos, [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            step, c = step_fn(c, tok, p)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            if not bool(torch.isfinite(step).all()):
+                raise AssertionError(f"{cfg.name}: {how} decode logits are "
+                                     "not all finite")
+            tok, p = step[:, 0].argmax(-1)[:, None].to(torch.int32), p + 1
+            toks.append(tok[:, 0])
+        runs[how] = dict(ms=statistics.median(step_s) * 1e3,
+                         tokens=torch.stack(toks, 1).cpu().numpy(),
+                         logits=step, cache=c)
+    runs["bitwise"] = runs["gap"] = None
+    if captured:
+        eager, capt = runs["eager"], runs["captured"]
+        if not np.array_equal(eager["tokens"], capt["tokens"]):
+            raise AssertionError(f"{cfg.name}: captured decode's greedy "
+                                 "tokens differ from the eager step's")
+        runs["gap"] = last_logits_gap(capt["logits"][:, 0],
+                                      eager["logits"][:, 0])[0]
+        runs["bitwise"] = same_state((capt["logits"], capt["cache"]),
+                                     (eager["logits"], eager["cache"]))
+        if not runs["bitwise"] and runs["gap"] > LOGIT_TOL:
+            raise AssertionError(f"{cfg.name}: captured decode's last "
+                                 f"logits differ by {runs['gap']:.3g} of "
+                                 "the largest |logit|")
+    return runs
+
+
+def prefill_then_decode_gap(eng, inputs: dict, logit, *, enc_out=None
+                            ) -> tuple[float, float]:
+    """The last prompt token decoded onto the shorter prefill's state
+    against ``logit``, the whole prompt's prefill (``last_logits_gap``);
+    an MoE model runs drop-free on both routes (``drop_free``)."""
+    cfg = drop_free(eng.cfg)
+    if cfg is not eng.cfg:
+        logit = lm.prefill(eng.params, inputs, cfg, eng.max_len)[0]
+    short = dict(inputs, tokens=inputs["tokens"][:, :-1])
+    _, c1, p1 = lm.prefill(eng.params, short, cfg, eng.max_len)
+    dec, _ = lm.decode_step(eng.params, c1, inputs["tokens"][:, -1:], p1,
+                            cfg, enc_out=enc_out)
+    return last_logits_gap(dec[:, 0], logit)
+
+
 def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
                 seed: int = 0) -> dict:
     """Build ``cfg`` from a seed on ``dev``, serve ``batch`` requests of
     ``prompt_len`` tokens through ``ServeEngine.generate`` (the launch
     counts are reset just before it and read just after), time prefill and
-    decode, and compare prefill-then-decode with the longer prefill and the
-    kernel's prefill with the plain scan's."""
+    decode, and compare prefill-then-decode with the longer prefill and,
+    for a model with mamba layers, the kernel's prefill with the plain
+    scan's, and split one prefill's device time."""
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1729,58 +1867,25 @@ def serve_phase(cfg, dev, *, batch: int, prompt_len: int, max_new: int,
     first_tok = logit.argmax(-1)[:, None].to(torch.int32)
     # decode from the same state both ways: the eager step, and the
     # engine's captured one (captured by the warm-up's generate)
-    decode = {}
-    for how, step_fn in (
-            ("eager", lambda c, t, p: lm.decode_step(eng.params, c, t, p,
-                                                     cfg)),
-            ("captured", lambda c, t, p: eng._decode(eng.params, c, t, p))):
-        c, tok, p, toks, step_s = cache, first_tok, pos, [], []
-        for _ in range(max_new - 1):
-            t0 = time.perf_counter()
-            step, c = step_fn(c, tok, p)
-            sync(dev)
-            step_s.append(time.perf_counter() - t0)
-            if not bool(torch.isfinite(step).all()):
-                raise AssertionError(f"{how} decode logits are not all "
-                                     "finite")
-            tok, p = step[:, 0].argmax(-1)[:, None].to(torch.int32), p + 1
-            toks.append(tok[:, 0])
-        decode[how] = dict(ms=statistics.median(step_s) * 1e3,
-                           tokens=torch.stack(toks, 1).cpu().numpy(),
-                           logits=step, cache=c)
-    eager, captured = decode["eager"], decode["captured"]
-    if not np.array_equal(eager["tokens"], captured["tokens"]):
-        raise AssertionError("captured decode's greedy tokens differ from "
-                             "the eager step's")
-    logits_gap = last_logits_gap(captured["logits"][:, 0],
-                                 eager["logits"][:, 0])[0]
-    bitwise = same_state((captured["logits"], captured["cache"]),
-                         (eager["logits"], eager["cache"]))
-    # the graph replays the eager step's kernels, so the two agree bit for
-    # bit unless cuBLAS picks other kernels under capture; then the gap is
-    # held to LOGIT_TOL, as every other pair of routes through the model
-    if not bitwise and logits_gap > LOGIT_TOL:
-        raise AssertionError(f"captured decode's last logits differ by "
-                             f"{logits_gap:.3g} of the largest |logit|")
-
-    # the last prompt token decoded onto the shorter prefill's state
-    _, c1, p1 = lm.prefill(eng.params, {"tokens": prompts[:, :-1]}, cfg,
-                           eng.max_len)
-    dec, _ = lm.decode_step(eng.params, c1, prompts[:, -1:], p1, cfg)
-    decode_gap = last_logits_gap(dec[:, 0], logit)
-    # the same prefill with the plain scan in the kernel's place
-    with mock.patch.object(ops, "selective_scan", ref.selective_scan):
-        plain, _, _ = lm.prefill(eng.params, {"tokens": prompts}, cfg,
-                                 eng.max_len)
-    plain_gap = last_logits_gap(logit, plain)
-    share = prefill_device_share(eng, prompts) if on_card else None
+    decode = decode_routes(eng, cache, first_tok, pos, max_new - 1)
+    decode_gap = prefill_then_decode_gap(eng, {"tokens": prompts}, logit)
+    plain_gap = share = None
+    if "mamba" in cfg.pattern:
+        # the same prefill with the plain scan in the kernel's place
+        with mock.patch.object(ops, "selective_scan", ref.selective_scan):
+            plain, _, _ = lm.prefill(eng.params, {"tokens": prompts}, cfg,
+                                     eng.max_len)
+        plain_gap = last_logits_gap(logit, plain)
+        share = prefill_device_share(eng, prompts) if on_card else None
     peak = torch.cuda.max_memory_allocated() if on_card else None
     return dict(n_params=n_params, card_bytes=card_bytes, init_s=init_s,
                 allocated=allocated, peak=peak,
                 tokens=tokens, gen_s=gen_s, launches=launches,
                 prefill_ms=statistics.median(prefill_s) * 1e3,
-                decode_ms=eager["ms"], captured_ms=captured["ms"],
-                captured_logits_gap=logits_gap, captured_bitwise=bitwise,
+                decode_ms=decode["eager"]["ms"],
+                captured_ms=decode["captured"]["ms"],
+                captured_logits_gap=decode["gap"],
+                captured_bitwise=decode["bitwise"],
                 tokens_per_s=tokens.size / gen_s, decode_gap=decode_gap,
                 plain_gap=plain_gap, prefill_device=share, engine=eng,
                 prompts=prompts)
@@ -1939,6 +2044,8 @@ SESSION_RESUME = 8
 # the kernels the session's path runs: the prefill's scan, a flush's and a
 # compaction's, and a multi_get wave's
 SESSION_PATH = ("selective_scan",) + WRITE_PATH + READ_PATH
+# an attention model's session path: no scan
+ATTN_SESSION_PATH = WRITE_PATH + READ_PATH
 
 
 def session_config() -> DBConfig:
@@ -2145,9 +2252,13 @@ def session_phase(eng, prompts, work: str, *, max_new: int = SERVE_NEW,
     of the save and the churn (``keep_jobs``, ``check_jobs``) and each
     read-wave call of the first load (``keep_waves``, ``check_waves``).
     Returns the timings and counts; raises at the first check that fails.
+    On the card the session's path must launch every kernel of
+    ``SESSION_PATH`` (a model with mamba layers) or ``ATTN_SESSION_PATH``.
     (``db_cfg``, by default ``session_config()``, scales the store down
     for a rehearsal.)"""
     dev = eng.device
+    kernels_of_path = SESSION_PATH if "mamba" in eng.cfg.pattern \
+        else ATTN_SESSION_PATH
     path = os.path.join(work, "pages")
     keep_dir = os.path.join(work, "session-jobs")
     db_cfg = db_cfg or session_config()
@@ -2190,7 +2301,7 @@ def session_phase(eng, prompts, work: str, *, max_new: int = SERVE_NEW,
     check_state(many[0], state, "load_sessions")
     if many[1] is not None:
         raise AssertionError("load_sessions found the absent session")
-    idle = [k for k in SESSION_PATH if dev.type == "cuda" and
+    idle = [k for k in kernels_of_path if dev.type == "cuda" and
             not launches[k]]
     if idle:
         raise AssertionError(f"the session's path launched no {idle}")
@@ -4971,6 +5082,531 @@ def obs_part_lines(part: str, r: dict, card: str) -> list[str]:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the attention, MoE and encoder-decoder archs on the card
+# ---------------------------------------------------------------------------
+
+GEMMA, GRANITE_MOE = "gemma3-4b", "granite-moe-3b-a800m"
+WHISPER, JAMBA = "whisper-medium", "jamba-1.5-large-398b"
+# (a): the ring wrap: a prompt inside a windowed layer's 1,024 slots, then
+# teacher-forced decode steps past them, each held against ``forward``
+RING_PROMPT, RING_STEPS = 1_000, 48
+# (c): card against CPU at fp32 compute (fp32 scan), full width, cut in
+# depth; the logits within XDEV_TOL of the largest |logit|
+XDEV = ((GEMMA, 6), (GRANITE_MOE, 2), (FALCON, 4))
+XDEV_TOKENS = 64
+XDEV_TOL = 1e-3
+# (d): every other arch once, at full width: cut to 2 layers where full
+# depth does not fit the card (the fp32 init and the bf16 copy: qwen3-14b
+# alone would take 59 + 29.5 GB), whisper at full depth, jamba at its
+# smoke config; a prompt of 248 tokens and 8 decode steps (max_len 256, a
+# multiple of the smoke config's 32-key attention chunks), whisper over
+# 1,500 frames (its 30 s window), internvl2 behind 256 patches
+CUT_ARCHS = ("qwen3-14b", "yi-34b", "granite-20b", "phi3.5-moe-42b-a6.6b",
+             "internvl2-26b")
+ARCH_BATCH, ARCH_PROMPT, ARCH_STEPS = 2, 248, 8
+WHISPER_FRAMES = 1_500
+# (e): one gemma3 request of 128 prompt tokens paged through the store
+ARCH_SESSION_PROMPT = 128
+
+
+def arch_configs() -> dict:
+    """Phase 12's configurations at the card's sizes: (a)-(b) served,
+    (c) card against CPU, (d) the rest once."""
+    return {"serve": (get_config(GEMMA), get_config(GRANITE_MOE)),
+            "xdev": tuple(get_config(n).with_(n_layers=k) for n, k in XDEV),
+            "once": tuple(get_config(n).with_(n_layers=2) for n in CUT_ARCHS)
+            + (get_config(WHISPER), get_smoke_config(JAMBA))}
+
+
+def free_card(dev) -> None:
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _subtrees(tree, has: str):
+    """The dicts of ``tree`` that hold the key ``has``."""
+    if isinstance(tree, dict):
+        if has in tree:
+            yield tree
+            return
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _subtrees(t, has)
+
+
+def decode_step_bytes(eng, cache, tok, pos) -> dict:
+    """The bytes one decode step of ``tok`` at ``pos`` from ``cache`` must
+    read, for its bound.  ``weight_bytes``: every leaf of the engine's
+    tree but an untied embedding table (a step gathers its rows only; a
+    tied table is the head, read whole) and, of each MoE layer's experts,
+    only those that the step's routing hits (``experts_hit``, one count a
+    MoE layer, read off one eager step).  ``cache_bytes``: each attention
+    layer's filled slots after the step's insert (K, V and the position)
+    and each mamba layer's whole state."""
+    n = state_bytes(eng.params)
+    if "head" in eng.params:
+        n -= state_bytes(eng.params["embed"])
+    hit = []
+    route = moe._route
+
+    def watch(rp, xt, c):
+        r = route(rp, xt, c)
+        hit.append(int(torch.unique(r[1]).numel()))
+        return r
+
+    with mock.patch.object(moe, "_route", watch):
+        _, new = lm.decode_step(eng.params, cache, tok, pos, eng.cfg)
+    if hit:
+        experts = sum(state_bytes([f[w] for w in ("wi", "wg", "wo")
+                                   if w in f])
+                      for f in _subtrees(eng.params, "router"))
+        per_expert = experts // (len(hit) * eng.cfg.moe_experts)
+        n += sum(hit) * per_expert - experts
+    kv = 0
+    for c in _subtrees(new, "pos"):
+        k = c["k"]
+        slot = k.shape[-2] * k.shape[-1] * k.element_size()
+        kv += int((c["pos"] >= 0).sum()) * (2 * slot
+                                            + c["pos"].element_size())
+    kv += state_bytes(new) - sum(state_bytes(c)
+                                 for c in _subtrees(new, "pos"))
+    return dict(weight_bytes=n, cache_bytes=kv, experts_hit=hit)
+
+
+def moe_drops(eng, prompts) -> list[tuple[int, int, int]]:
+    """(dropped, routed, capacity) slots of each MoE layer in one prefill
+    of ``prompts``: the layers' ranks within their experts, against the
+    capacity ``moe_ffn`` computes for the prefill's tokens."""
+    seen = []
+    rank = moe._positions_in_expert
+
+    def watch(flat_e, e):
+        pos = rank(flat_e, e)
+        seen.append(pos)
+        return pos
+
+    with mock.patch.object(moe, "_positions_in_expert", watch):
+        lm.prefill(eng.params, {"tokens": prompts}, eng.cfg, eng.max_len)
+    out = []
+    for pos in seen:
+        c = moe.capacity(eng.cfg, pos.numel() // eng.cfg.moe_top_k)
+        out.append((int((pos >= c).sum()), pos.numel(), c))
+    return out
+
+
+def ring_wrap(eng, dev, *, prompt_len: int = RING_PROMPT,
+              steps: int = RING_STEPS, seed: int = 12) -> dict:
+    """One request of ``prompt_len`` tokens prefilled with ``max_len =
+    prompt_len + steps``, then ``steps`` teacher-forced steps of the
+    engine's captured decode (a new engine over the same cast params: no
+    copy), so that the windowed layers' positions run past their ring of
+    slots; the prefill's and every step's logits held against ``forward``
+    over all the tokens, within ``LOGIT_TOL`` of the largest |logit|."""
+    cfg = eng.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, prompt_len + steps)).astype(np.int32)).to(dev)
+    reng = ServeEngine(cfg, eng.params, max_len=prompt_len + steps,
+                       device=dev)
+    full, _ = lm.forward(reng.params, {"tokens": toks}, cfg)
+    logit, cache, pos = lm.prefill(reng.params,
+                                   {"tokens": toks[:, :prompt_len]}, cfg,
+                                   reng.max_len)
+    gaps = [last_logits_gap(logit, full[:, prompt_len - 1])]
+    for i in range(prompt_len, prompt_len + steps):
+        step, cache = reng._decode(reng.params, cache, toks[:, i:i + 1],
+                                   pos)
+        gaps.append(last_logits_gap(step[:, 0], full[:, i]))
+        pos = pos + 1
+    slots = min(w for w in cfg.windows if w)
+    ring_pos = [int(p) for p in cache["blocks"]["p0"]["pos"][0, 0]]
+    worst = max(g for g, _ in gaps)
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"the ring wrap: logits differ from forward's "
+                             f"by {worst:.3g} of the largest |logit|")
+    if sorted(ring_pos) != list(range(prompt_len + steps - slots,
+                                      prompt_len + steps)):
+        raise AssertionError("the windowed layers' ring does not hold the "
+                             "last positions")
+    return dict(prompt_len=prompt_len, steps=steps, gaps=gaps, worst=worst,
+                slots=slots,
+                wrapped=prompt_len + steps - slots,
+                agree=sum(a for _, a in gaps) / len(gaps),
+                graphs=len(reng._graphs))
+
+
+def device_profile(fn, attempts: int = 3) -> dict | None:
+    """One call of ``fn`` in a CUPTI trace (``trace_timeline``): its
+    device events, their summed time, the span from the first one's start
+    to the last one's end, the idle share of that span and the three
+    names that took the most time; None when ``attempts`` traces came
+    back empty."""
+    for _ in range(attempts):
+        tl = trace_timeline(fn)
+        if tl:
+            break
+    else:
+        return None
+    busy = sum(ms for _, _, ms in tl)
+    span = (max(t + ms * 1e3 for t, _, ms in tl) - min(t for t, _, _ in tl)
+            ) / 1e3
+    by: dict[str, float] = collections.defaultdict(float)
+    for _, name, ms in tl:
+        by[name] += ms
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:3]
+    return dict(events=len(tl), busy_ms=busy, span_ms=span,
+                idle=1 - busy / span if span > 0 else 0.0, top=top)
+
+
+def served_arch(cfg, dev, *, seed: int = 0, ring: dict | None = None,
+                batch: int = SERVE_BATCH, prompt_len: int = SERVE_PROMPT,
+                max_new: int = SERVE_NEW) -> dict:
+    """(a), (b): ``cfg`` served as phase 5 serves falcon
+    (``serve_phase``), the bytes of its decode step's bound, the MoE
+    prefill's capacity drops, and (``ring``: ``ring_wrap``'s arguments)
+    the ring wrap."""
+    sv = serve_phase(cfg, dev, batch=batch, prompt_len=prompt_len,
+                     max_new=max_new, seed=seed)
+    eng = sv["engine"]
+    sv.update(cfg=cfg, batch=batch, prompt_len=prompt_len, max_new=max_new)
+    if cfg.moe_experts:
+        sv["drops"] = moe_drops(eng, sv["prompts"])
+    batch_in = {"tokens": sv["prompts"]}
+    logit, cache, pos = lm.prefill(eng.params, batch_in, cfg, eng.max_len)
+    tok = logit.argmax(-1)[:, None].to(torch.int32)
+    sv.update(decode_step_bytes(eng, cache, tok, pos))
+    if torch.device(dev).type == "cuda":
+        sv["prefill_profile"] = device_profile(lambda: lm.prefill(
+            eng.params, batch_in, cfg, eng.max_len))
+        sv["step_profile"] = device_profile(lambda: eng._decode(
+            eng.params, cache, tok, pos))
+    del logit, cache
+    if ring is not None:
+        sv["ring"] = ring_wrap(eng, dev, **ring)
+    if sv["decode_gap"][0] > LOGIT_TOL:
+        raise AssertionError(f"{cfg.name}: prefill-then-decode differs from "
+                             f"the longer prefill by {sv['decode_gap'][0]:.3g}"
+                             " of the largest |logit|")
+    if not ((sv["tokens"] >= 0) & (sv["tokens"] < lm.padded_vocab(cfg))
+            ).all():
+        raise AssertionError(f"{cfg.name}: tokens outside the padded vocab")
+    return sv
+
+
+def card_against_cpu(cfg, dev, *, tokens: int = XDEV_TOKENS,
+                     seed: int = 0) -> dict:
+    """(c): ``cfg`` at fp32 compute and an fp32 scan, one set of weights
+    (made on the card, copied to the CPU): ``forward`` over ``tokens``
+    tokens and a prefill of all but the last followed by one decode step,
+    on the card and on the CPU.  The MoE routing must be equal and the
+    logits within ``XDEV_TOL`` of the largest |logit| (the CPU route is
+    the one the CPU tests hold against JAX)."""
+    cfg = cfg.with_(dtype="float32", ssm_scan_dtype="float32")
+    params = lm.init(seed, cfg, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, tokens)).astype(np.int32))
+    out = {}
+    route = moe._route
+    for where, d in (("card", torch.device(dev)), ("cpu", torch.device(
+            "cpu"))):
+        p = params if where == "card" else tree_map(lambda a: a.cpu(),
+                                                    params)
+        t = toks.to(d)
+        routes = []
+
+        def watch(rp, xt, c, routes=routes):
+            r = route(rp, xt, c)
+            routes.append(r[1].cpu())
+            return r
+
+        with mock.patch.object(moe, "_route", watch):
+            logits, aux = lm.forward(p, {"tokens": t}, cfg)
+            _, cache, pos = lm.prefill(p, {"tokens": t[:, :-1]}, cfg, tokens)
+            step, _ = lm.decode_step(p, cache, t[:, -1:], pos, cfg)
+        out[where] = dict(logits=logits.cpu(), step=step[:, 0].cpu(),
+                          aux=float(aux), routes=routes)
+        del p, logits, cache, step
+    del params
+    card, cpu = out["card"], out["cpu"]
+    res = dict(name=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               tokens=tokens,
+               forward_gap=last_logits_gap(card["logits"], cpu["logits"])[0],
+               step_gap=last_logits_gap(card["step"], cpu["step"])[0],
+               aux=(card["aux"], cpu["aux"]), routes=len(cpu["routes"]))
+    if len(card["routes"]) != len(cpu["routes"]) or not all(
+            torch.equal(a, b) for a, b in zip(card["routes"],
+                                              cpu["routes"])):
+        raise AssertionError(f"{cfg.name}: the MoE routing differs between "
+                             "the card and the CPU")
+    if max(res["forward_gap"], res["step_gap"]) > XDEV_TOL:
+        raise AssertionError(f"{cfg.name}: card against CPU at fp32: logits "
+                             f"differ by {res['forward_gap']:.3g} / "
+                             f"{res['step_gap']:.3g} of the largest |logit|")
+    return res
+
+
+def arch_once(cfg, dev, *, batch: int = ARCH_BATCH,
+              prompt_len: int = ARCH_PROMPT, steps: int = ARCH_STEPS,
+              frames: int = WHISPER_FRAMES, seed: int = 0) -> dict:
+    """(d): ``cfg`` built from a seed, a prefill of ``batch`` x
+    ``prompt_len`` tokens (with ``frames`` frames for the encoder-decoder
+    arch, behind ``cfg.frontend_len`` patches for the vision arch) and
+    ``steps`` decode steps, eager, and for an arch the engine serves also
+    through the engine's captured step from the same state (the greedy
+    tokens equal, the logits bit for bit or within ``LOGIT_TOL``); every
+    logit finite; prefill-then-decode against the longer prefill within
+    ``LOGIT_TOL`` (``decode_routes``, ``prefill_then_decode_gap``).  The
+    launch counts are set to 0 before the prefill and read after the
+    decode steps."""
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(seed, cfg, device=dev)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
+    eng = ServeEngine(cfg, params, max_len=prefix + prompt_len + steps,
+                      device=dev)
+    del params
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)}
+    if cfg.frontend == "vision":
+        inputs["patches"] = normal(batch, cfg.frontend_len, cfg.d_model)
+    enc = None
+    if cfg.enc_dec:
+        inputs["frames"] = normal(batch, frames, cfg.d_model)
+        enc, _ = lm._encode(eng.params, inputs["frames"], cfg)
+    served = not (cfg.enc_dec or cfg.frontend)
+    ops.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    logit, cache, pos = lm.prefill(eng.params, inputs, cfg, eng.max_len)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logit).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits not all finite")
+    first = logit.argmax(-1)[:, None].to(torch.int32)
+    runs = decode_routes(eng, cache, first, pos, steps, enc_out=enc,
+                         captured=served)
+    launches = ops.launch_counts()
+    decode_gap = prefill_then_decode_gap(eng, inputs, logit, enc_out=enc)
+    if decode_gap[0] > LOGIT_TOL:
+        raise AssertionError(f"{cfg.name}: prefill-then-decode differs from "
+                             f"the longer prefill by {decode_gap[0]:.3g}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    res = dict(name=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               n_params=n_params, init_s=init_s, prefill_ms=prefill_ms,
+               eager_ms=runs["eager"]["ms"],
+               captured_ms=runs["captured"]["ms"] if served else None,
+               bitwise=runs["bitwise"], captured_gap=runs["gap"],
+               decode_gap=decode_gap,
+               launches=launches, peak=peak, served=served,
+               tokens=runs["eager"]["tokens"])
+    del eng, runs, cache, enc, inputs
+    free_card(dev)
+    return res
+
+
+def archs_phase(work: str, dev, *, configs: dict | None = None,
+                serve_sizes: dict | None = None, ring: dict | None = None,
+                xdev_tokens: int = XDEV_TOKENS, once_sizes: dict | None
+                = None, session_prompt: int = ARCH_SESSION_PROMPT,
+                db_cfg: DBConfig | None = None, report=None) -> dict:
+    """Phase 12: (a) gemma3-4b served (``served_arch``) with the ring
+    wrap, (e) one of its requests paged through the store
+    (``session_phase`` on its engine, the store's kernels), then the model
+    freed; (b) granite-moe-3b-a800m served with its capacity drops; (c)
+    card against CPU at fp32 (``card_against_cpu``); (d) the other archs
+    once (``arch_once``).  ``report(part, result)`` is called as each part
+    ends.  Returns the parts' results and ``launches``, the kernel
+    launches of (d) and (e), each counted from 0 around its path.
+    (``configs``, the sizes, ``ring`` and ``db_cfg`` scale the phase down
+    for a rehearsal.)"""
+    configs = configs or arch_configs()
+    serve_sizes = serve_sizes or {}
+    once_sizes = once_sizes or {}
+    report = report or (lambda part, r: None)
+    launches = collections.Counter()
+    out = {}
+    gemma, granite = configs["serve"]
+    t0 = time.perf_counter()
+    out["a"] = served_arch(gemma, dev, ring=ring or {}, **serve_sizes)
+    out["a"]["seconds"] = time.perf_counter() - t0
+    report("a", out["a"])
+    t0 = time.perf_counter()
+    prompts = out["a"]["prompts"][:1, :session_prompt]
+    out["e"] = session_phase(out["a"].pop("engine"), prompts, work,
+                             db_cfg=db_cfg)
+    out["e"]["seconds"] = time.perf_counter() - t0
+    launches.update(out["e"]["launches"])
+    report("e", out["e"])
+    del out["a"]["prompts"]
+    free_card(dev)
+    t0 = time.perf_counter()
+    out["b"] = served_arch(granite, dev, **serve_sizes)
+    del out["b"]["engine"], out["b"]["prompts"]
+    out["b"]["seconds"] = time.perf_counter() - t0
+    report("b", out["b"])
+    free_card(dev)
+    t0 = time.perf_counter()
+    out["c"] = [card_against_cpu(cfg, dev, tokens=xdev_tokens)
+                for cfg in configs["xdev"]]
+    free_card(dev)
+    report("c", dict(rows=out["c"], seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    out["d"] = []
+    for cfg in configs["once"]:
+        r = arch_once(cfg, dev, **once_sizes)
+        launches.update(r["launches"])
+        out["d"].append(r)
+    report("d", dict(rows=out["d"], seconds=time.perf_counter() - t0))
+    out["launches"] = dict(launches)
+    return out
+
+
+def served_lines(part: str, sv: dict, card: str) -> list[str]:
+    """The phase-12 report of (a) or (b)."""
+    cfg, batch = sv["cfg"], sv["batch"]
+    bound_ms = (sv["weight_bytes"] + sv["cache_bytes"]) / HBM_BYTES_PER_S \
+        * 1e3
+    experts = "" if not sv["experts_hit"] else (
+        f"; of each MoE layer's {cfg.moe_experts} experts only the "
+        f"{min(sv['experts_hit'])}-{max(sv['experts_hit'])} that the step's "
+        f"routing hits, {sum(sv['experts_hit'])} over "
+        f"{len(sv['experts_hit'])} layers")
+    peak = "not measured" if sv["peak"] is None else \
+        f"{sv['peak'] / 1e9:.2f} GB"
+    lines = [
+        f"[12] ({part}) {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.kv_heads} kv heads "
+        f"of {cfg.resolved_head_dim}, vocab {cfg.vocab} padded to "
+        f"{lm.padded_vocab(cfg)}, {cfg.dtype}; {sv['n_params']:,} "
+        f"parameters (config count {cfg.param_count():,}), built in "
+        f"{sv['init_s']:.1f} s; the engine holds "
+        f"{sv['card_bytes'] / 1e9:.2f} GB; peak allocated {peak} [{card}]",
+        f"[12] ({part}) generate: {batch} requests x {sv['prompt_len']} "
+        f"prompt tokens, {sv['max_new']} new each in "
+        f"{sv['gen_s'] * 1e3:.1f} ms = {sv['tokens_per_s']:.1f} tokens/s "
+        f"(captured decode); prefill {sv['prefill_ms']:.1f} ms (host clock "
+        f"after a synchronize, median of 3) [{card}]"]
+    for how, ms in (("eager (model.decode_step)", sv["decode_ms"]),
+                    ("captured (ServeEngine._decode, one CUDA graph)",
+                     sv["captured_ms"])):
+        lines.append(
+            f"[12] ({part}) decode {how}: {ms:.2f} ms a step of {batch} = "
+            f"{batch / ms * 1e3:.1f} tokens/s (host clock after a "
+            f"synchronize, median of {sv['max_new'] - 1}); bound "
+            f"{bound_ms:.3f} ms (the step's {sv['weight_bytes'] / 1e9:.3f} GB"
+            f" of weights{experts}, and {sv['cache_bytes'] / 1e9:.3f} GB of "
+            f"the KV cache's filled slots, over 3.35 TB/s) [{card}]")
+    same = "bit for bit equal" if sv["captured_bitwise"] else (
+        f"differ, by {sv['captured_logits_gap']:.3g} of the largest |logit| "
+        f"(limit {LOGIT_TOL})")
+    lines.append(
+        f"[12] ({part}) captured against eager: greedy tokens equal; last "
+        f"logits and cache {same}; prefill of {sv['prompt_len'] - 1} + "
+        f"decode vs prefill of {sv['prompt_len']}: last logits "
+        f"{sv['decode_gap'][0]:.3g} of the largest (limit {LOGIT_TOL}), "
+        f"argmax agrees in {sv['decode_gap'][1]:.0%}; req0 "
+        f"{sv['tokens'][0].tolist()}")
+    for what, key in (("one prefill", "prefill_profile"),
+                      ("one captured decode step", "step_profile")):
+        pr = sv.get(key)
+        if key in sv:
+            lines.append(
+                f"[12] ({part}) {what} in a CUPTI trace: " + (
+                    "no device events came back" if pr is None else
+                    f"{pr['events']} device events, {pr['busy_ms']:.3f} ms "
+                    f"busy over a {pr['span_ms']:.3f} ms span (idle "
+                    f"{pr['idle']:.1%}); most time: " + "; ".join(
+                        f"{n[:60]} {ms:.3f} ms" for n, ms in pr["top"]))
+                + f" [{card}]")
+    if "drops" in sv:
+        d = sv["drops"]
+        lines.append(
+            f"[12] ({part}) the prefill's MoE capacity: c = {d[0][2]} slots "
+            f"an expert for {d[0][1]} routed slots "
+            f"({d[0][1] // cfg.moe_top_k} tokens x top-{cfg.moe_top_k} of "
+            f"{cfg.moe_experts} experts); dropped "
+            f"{sum(x for x, _, _ in d)} of {sum(n for _, n, _ in d)} over "
+            f"{len(d)} layers ({min(x for x, _, _ in d)}-"
+            f"{max(x for x, _, _ in d)} a layer)")
+    if "ring" in sv:
+        rg = sv["ring"]
+        lines.append(
+            f"[12] ({part}) the ring wrap: 1 request of {rg['prompt_len']} "
+            f"prompt tokens, then {rg['steps']} teacher-forced captured "
+            f"decode steps: positions {rg['prompt_len']}-"
+            f"{rg['prompt_len'] + rg['steps'] - 1}, {rg['wrapped']} of them "
+            f"past the windowed layers' {rg['slots']} slots; the prefill's "
+            f"and every step's logits against forward over all "
+            f"{rg['prompt_len'] + rg['steps']} tokens: worst "
+            f"{rg['worst']:.3g} of the largest |logit| (limit {LOGIT_TOL}), "
+            f"argmax agrees at {rg['agree']:.0%} of the positions")
+    lines.append(f"[12] ({part}) {sv['seconds']:.1f} s")
+    return lines
+
+
+def archs_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The report lines of one part of phase 12."""
+    if part in ("a", "b"):
+        return served_lines(part, r, card)
+    if part == "e":
+        return [
+            f"[12] (e) one gemma3-4b request's (cache, pos), "
+            f"{r['bytes']:,} B, paged through an LsmDB at phase 7's geometry:"
+            f" {r['records']} records, save {r['save_s']:.3f} s, "
+            f"load_session {r['load_s']:.3f} s and load_sessions "
+            f"{r['load_many_s']:.3f} s bit for bit; {r['resume']} captured "
+            f"steps resumed from the loaded state equal an uninterrupted "
+            f"run; churn, reopen and drop as in phase 7; the jobs "
+            f"{r['job_checks']} byte-identical to their reruns on the plain "
+            f"versions, the load's wave calls bit-identical [{card}]",
+            "[12] (e) launches: " + ", ".join(
+                f"{k} {r['launches'][k]}" for k in ATTN_SESSION_PATH),
+            f"[12] (e) {r['seconds']:.1f} s"]
+    if part == "c":
+        lines = [
+            f"[12] (c) {x['name']} cut to {x['layers']} layers at full width "
+            f"(d_model {x['d_model']}), fp32 compute and scan, 1 x "
+            f"{x['tokens']} tokens, the same weights: card against CPU, "
+            f"forward logits {x['forward_gap']:.3g} and prefill-then-decode "
+            f"logits {x['step_gap']:.3g} of the largest |logit| (limit "
+            f"{XDEV_TOL}); aux {x['aux'][0]:.6g} / {x['aux'][1]:.6g}; "
+            f"{x['routes']} MoE routings equal" for x in r["rows"]]
+        return lines + [f"[12] (c) {r['seconds']:.1f} s"]
+    lines = []
+    for x in r["rows"]:
+        peak = "not measured" if x["peak"] is None else \
+            f"{x['peak'] / 1e9:.2f} GB"
+        cap = (f", captured {x['captured_ms']:.2f} ms, "
+               + ("bit for bit" if x["bitwise"] else
+                  f"logits within {x['captured_gap']:.3g}")
+               + " of eager, tokens equal") if x["served"] else \
+            " (not served by the engine: eager only)"
+        kern = {k: n for k, n in x["launches"].items() if n}
+        lines.append(
+            f"[12] (d) {x['name']}: {x['layers']} layers, d_model "
+            f"{x['d_model']}, {x['n_params']:,} parameters, peak {peak}; "
+            f"prefill {x['prefill_ms']:.1f} ms, decode eager "
+            f"{x['eager_ms']:.2f} ms a step{cap}; logits finite; "
+            f"prefill-then-decode vs the longer prefill "
+            f"{x['decode_gap'][0]:.3g} of the largest (limit {LOGIT_TOL}); "
+            f"kernel launches {kern or 'none'} [{card}]")
+    return lines + [f"[12] (d) {r['seconds']:.1f} s"]
+
+
 def watch_engines():
     """Record every ``TorchCompactionEngine`` built from now on: returns
     the list they are appended to and the patch (``stop()`` ends it)."""
@@ -5314,10 +5950,31 @@ def main(argv: list[str]) -> int:
         f"{k} {p11['launches'][k]}" for k in KERNELS))
     log(no_launch_retries(built, 11))
     log(f"[11] {time.perf_counter() - t0:.1f} s")
+    free_card(dev)
+
+    log("[12] the attention, MoE and encoder-decoder archs on the card: "
+        f"{GEMMA} and {GRANITE_MOE} served at full width and depth, the "
+        "ring wrap, card against CPU at fp32, every other arch once, a "
+        f"{GEMMA} session through the store; random weights from a seed, "
+        "bf16 compute")
+    built, watching = watch_engines()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    t0 = time.perf_counter()
+    try:
+        p12 = archs_phase(work, dev, report=lambda part, r: log(
+            "\n".join(archs_part_lines(part, r, card))))
+    finally:
+        watching.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[12] launches (d), (e): " + ", ".join(
+        f"{k} {p12['launches'].get(k, 0)}" for k in KERNELS))
+    log(no_launch_retries(built, 12))
+    log(f"[12] {time.perf_counter() - t0:.1f} s")
 
     # the main paths: phase 3's store (with phase 4's device sort and
-    # phase 5's prefill), phase 9's async stores, phase 10's faults and
-    # phase 11's instrumented stores
+    # phase 5's prefill), phase 9's async stores, phase 10's faults,
+    # phase 11's instrumented stores and phase 12's archs
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -5327,11 +5984,13 @@ def main(argv: list[str]) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(path_launches[entry] + p9["launches"][entry] +
-                      p10["launches"][entry] + p11["launches"][entry]),
+                      p10["launches"][entry] + p11["launches"][entry] +
+                      p12["launches"].get(entry, 0)),
             launches_by_path={"store": path_launches[entry],
                               "async": p9["launches"][entry],
                               "faults": p10["launches"][entry],
-                              "obs": p11["launches"][entry]},
+                              "obs": p11["launches"][entry],
+                              "archs": p12["launches"].get(entry, 0)},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

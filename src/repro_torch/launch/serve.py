@@ -5,7 +5,10 @@
         [--smoke] --batch 4 --prompt-len 12 --max-new 16 \
         [--page-dir /tmp/pages] [--device cpu]
 
-The session ``(cache, pos)`` is paged out to an ``LsmDB`` at 4 KiB values
+Every arch whose prompts are tokens alone is served; whisper-medium
+(``frames``) and internvl2-26b (``patches``) are refused before the model
+is built, as JAX's launcher fails on them at ``generate``.  The session
+``(cache, pos)`` is paged out to an ``LsmDB`` at 4 KiB values
 and 32 KiB blocks.  With no ``--device`` it runs on ``cuda`` (the model
 and the store) and fails where CUDA is absent.
 """
@@ -21,7 +24,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.formats import SSTGeometry
 from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.models import model
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, check_servable
 
 
 def main(argv=None) -> None:
@@ -40,6 +43,7 @@ def main(argv=None) -> None:
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
+    check_servable(cfg)
     params = model.init(args.seed, cfg, device=args.device)
     page_dir = args.page_dir or tempfile.mkdtemp(prefix="kv-pages-")
     store = LsmDB(page_dir, DBConfig(

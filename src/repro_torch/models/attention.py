@@ -1,0 +1,231 @@
+"""Attention: GQA/MQA, RoPE, qk-norm, sliding windows, the chunked
+online softmax, KV caches with ring buffers for windowed layers (the JAX
+package's ``repro.models.attention``).
+
+Masking is position-based everywhere: a KV slot carries its absolute
+position (or -1 when empty), and visibility is
+``0 <= kv_pos <= q_pos`` (+ ``kv_pos > q_pos - window`` for local layers).
+This makes full caches, ring buffers and prefill share one code path.
+The mask is additive with ``NEG = -1e30``, as in JAX, so a fully masked
+row softmaxes to a uniform row, not to NaN.  Query head ``h`` belongs to
+KV head ``h // (H // Hkv)`` (kv-major).
+
+Plain PyTorch products and softmax, as JAX's ``jnp`` code: no finished
+attention kernel, so the masking and the fp32 accumulation are JAX's.
+JAX's ``constrain`` sharding hints are the identity on one card and are
+left out.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG = -1e30
+
+#: Leaves that every use casts to the compute dtype (the norms' scales are
+#: used in fp32).
+COMPUTE_DTYPE_LEAVES = ("wq", "wk", "wv", "wo")
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {
+        "wq": layers.dense_init(gen, d, cfg.n_heads * hd),
+        "wk": layers.dense_init(gen, d, cfg.kv_heads * hd),
+        "wv": layers.dense_init(gen, d, cfg.kv_heads * hd),
+        "wo": layers.dense_init(gen, cfg.n_heads * hd, d),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rmsnorm_init(hd, gen.device)
+        p["k_norm"] = layers.rmsnorm_init(hd, gen.device)
+    return p
+
+
+def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+    """``x``: ``[B, S, d]`` -> q ``[B, S, H, Dh]``, k/v ``[B, S, Hkv, Dh]``
+    (normed per head, then roped)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+    q = torch.matmul(x, params["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+    k = torch.matmul(x, params["wk"].to(dt)).reshape(b, s, cfg.kv_heads, hd)
+    v = torch.matmul(x, params["wv"].to(dt)).reshape(b, s, cfg.kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = layers.rope(q, positions, cfg.rope_theta)
+    k = layers.rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask_bias(q_pos, kv_pos, *, causal: bool, window: int | None):
+    """``[B, Sq, Skv]`` fp32 additive bias from absolute positions."""
+    qp = q_pos[:, :, None]
+    kp = kv_pos[:, None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return torch.where(ok, 0.0, NEG).to(torch.float32)
+
+
+def mha(q, k, v, q_pos, kv_pos, *, causal: bool = True, window=None,
+        chunk_kv: int | None = None) -> torch.Tensor:
+    """Grouped-query attention.  q ``[B, Sq, H, Dh]``; k/v
+    ``[B, Skv, Hkv, Dh]``.  Returns ``[B, Sq, H, Dh]``.  With ``chunk_kv``
+    below ``Skv``, JAX's flash-style route: an online softmax over KV
+    chunks (a Python loop here, a ``lax.scan`` there), in fp32."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, hd)
+    scale = hd ** -0.5
+
+    if chunk_kv is None or k.shape[1] <= chunk_kv:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+        s = s * scale + _mask_bias(q_pos, kv_pos, causal=causal,
+                                   window=window)[:, None, None]
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+        return o.reshape(b, sq, h, hd)
+
+    skv = k.shape[1]
+    if skv % chunk_kv:
+        raise ValueError(f"{skv} keys do not split into chunks of "
+                         f"{chunk_kv}")
+    m = torch.full((b, hkv, g, sq), NEG, dtype=torch.float32,
+                   device=q.device)
+    l_ = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32,
+                    device=q.device)
+    for c0 in range(0, skv, chunk_kv):
+        kc, vc = k[:, c0:c0 + chunk_kv], v[:, c0:c0 + chunk_kv]
+        pc = kv_pos[:, c0:c0 + chunk_kv]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc).to(torch.float32)
+        s = s * scale + _mask_bias(q_pos, pc, causal=causal,
+                                   window=window)[:, None, None]
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_ = l_ * corr + p.sum(-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), vc)
+        o = o * corr[..., None] + pv.to(torch.float32)
+        m = m_new
+    o = o / torch.clamp_min(l_, 1e-30)[..., None]
+    # [b,hkv,g,sq,hd] -> [b,sq,hkv,g,hd] -> [b,sq,h,hd] (kv-major heads, as
+    # the q reshape has them)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                   positions, *, causal: bool = True, window=None):
+    """Full-sequence path (no cache)."""
+    q, k, v = project_qkv(params, x, cfg, positions)
+    chunk = cfg.attn_chunk_kv if x.shape[1] >= cfg.attn_chunk_min_seq \
+        else None
+    o = mha(q, k, v, positions, positions, causal=causal, window=window,
+            chunk_kv=chunk)
+    b, s, _ = x.shape
+    return torch.matmul(o.reshape(b, s, -1), params["wo"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# KV cache (full or ring buffer)
+# ---------------------------------------------------------------------------
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int,
+               window: int | None, dtype: torch.dtype, device) -> dict:
+    slots = min(max_len, window) if window else max_len
+    hd = cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, slots, cfg.kv_heads, hd), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, slots, cfg.kv_heads, hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_insert(cache: dict, k, v, positions) -> dict:
+    """A new cache with the S rows written at ``positions % slots`` (ring
+    semantics; for a full cache slots == max_len, so the modulo is the
+    identity).  ``cache`` itself is not written.
+
+    Raises ``ValueError`` when S exceeds the slots: the prompt's later
+    rows would overwrite keys that its own earlier queries need.  (JAX
+    inserts them all before it attends, and returns wrong logits there.)"""
+    slots = cache["k"].shape[1]
+    if positions.shape[1] > slots:
+        raise ValueError(
+            f"{positions.shape[1]} positions inserted at once into a cache "
+            f"of {slots} slots: a prefill may not be longer than a windowed "
+            "layer's ring buffer (or than max_len)")
+    idx = (positions % slots).to(torch.int64)          # [B, S]
+    rows = idx[:, :, None, None].expand(-1, -1, *k.shape[2:])
+    return {"k": cache["k"].scatter(1, rows, k),
+            "v": cache["v"].scatter(1, rows, v),
+            "pos": cache["pos"].scatter(1, idx,
+                                        positions.to(torch.int32))}
+
+
+def attend_cache(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 cache: dict, positions, *, window=None):
+    """Self-attention against a cache, after inserting ``x``'s K/V.  ``x``:
+    ``[B, S, d]`` (S = 1 decode, S = the prompt in prefill).  Returns
+    ``(out, cache)``; raises as ``cache_insert`` does."""
+    q, k, v = project_qkv(params, x, cfg, positions)
+    cache = cache_insert(cache, k, v, positions)
+    chunk = cfg.attn_chunk_kv \
+        if cache["k"].shape[1] >= cfg.attn_chunk_min_seq else None
+    o = mha(q, cache["k"], cache["v"], positions, cache["pos"],
+            causal=True, window=window, chunk_kv=chunk)
+    b, s, _ = x.shape
+    out = torch.matmul(o.reshape(b, s, -1), params["wo"].to(x.dtype))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(params: dict, x: torch.Tensor, enc_kv,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """``x``: ``[B, Sq, d]``; ``enc_kv``: a dict with precomputed k/v
+    ``[B, Senc, Hkv, Dh]`` and pos ``[B, Senc]``, or the raw encoder
+    output ``[B, Senc, d]`` (projected here with this layer's wk/wv).  The
+    queries sit at position 0 and see every encoder position (no mask, no
+    rope)."""
+    if not isinstance(enc_kv, dict):
+        enc_kv = encoder_kv(params, enc_kv, cfg)
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    dt = x.dtype
+    q = torch.matmul(x, params["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    o = mha(q, enc_kv["k"], enc_kv["v"], qpos, enc_kv["pos"], causal=False)
+    return torch.matmul(o.reshape(b, s, -1), params["wo"].to(dt))
+
+
+def encoder_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
+               ) -> dict:
+    """Cross-attention K/V from the encoder output."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    dt = enc_out.dtype
+    k = torch.matmul(enc_out, params["wk"].to(dt)).reshape(
+        b, s, cfg.kv_heads, hd)
+    v = torch.matmul(enc_out, params["wv"].to(dt)).reshape(
+        b, s, cfg.kv_heads, hd)
+    if cfg.qk_norm:
+        k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    pos = torch.arange(s, dtype=torch.int32, device=enc_out.device)
+    return {"k": k, "v": v, "pos": pos[None].expand(b, s)}

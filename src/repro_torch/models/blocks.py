@@ -1,20 +1,41 @@
-"""One block: mixer + FFN, pre-norm residual wiring (the JAX package's
-``repro.models.blocks``):
+"""One decoder/encoder block: mixer (attention or mamba) + FFN (dense or
+MoE), pre-norm residual wiring (the JAX package's
+``repro.models.blocks``).  Uniform across the zoo:
 
     x = x + mixer(norm1(x))
     x = x + ffn(norm2(x))      # skipped when the arch has no FFN (mamba-1)
 
-The port runs Mamba blocks without an FFN (falcon-mamba).  Attention
-mixers, dense and MoE FFNs and cross attention raise
-``NotImplementedError``: they wait for the next model slice (ROADMAP A12).
+Enc-dec decoder blocks add ``x = x + cross_attn(norm_cross(x), enc)``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers, mamba
+from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ModelConfig
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, *,
+               cross: bool = False) -> dict:
+    kind = cfg.pattern[pos % cfg.period]
+    dev = gen.device
+    p = {"norm1": layers.rmsnorm_init(cfg.d_model, dev)}
+    if kind == "attn":
+        p["mixer"] = attention.attn_init(gen, cfg)
+    else:
+        p["mixer"] = mamba.mamba_init(gen, cfg)
+    if cross:
+        p["norm_cross"] = layers.rmsnorm_init(cfg.d_model, dev)
+        p["cross"] = attention.attn_init(gen, cfg)
+    if _has_ffn(cfg, pos):
+        p["norm2"] = layers.rmsnorm_init(cfg.d_model, dev)
+        if _is_moe(cfg, pos):
+            p["ffn"] = moe.moe_init(gen, cfg)
+        else:
+            p["ffn"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.gated_mlp)
+    return p
 
 
 def _is_moe(cfg: ModelConfig, pos: int) -> bool:
@@ -26,52 +47,67 @@ def _has_ffn(cfg: ModelConfig, pos: int) -> bool:
     return _is_moe(cfg, pos) or cfg.d_ff > 0
 
 
-def check_supported(cfg: ModelConfig, pos: int, *, cross: bool = False):
-    """Raise ``NotImplementedError`` for a block the port cannot run yet."""
-    kind = cfg.pattern[pos % cfg.period]
-    missing = []
-    if kind != "mamba":
-        missing.append(f"{kind!r} mixers")
-    if _has_ffn(cfg, pos):
-        missing.append("MoE FFNs" if _is_moe(cfg, pos) else "dense FFNs")
-    if cross:
-        missing.append("cross attention")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet (ROADMAP "
-            "A12); the port runs Mamba blocks without an FFN")
+def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int):
+    """Returns ``(y, aux)``; ``y`` is None for a block without an FFN
+    (JAX adds zeros there)."""
+    if not _has_ffn(cfg, pos):
+        return None, 0.0
+    h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if _is_moe(cfg, pos):
+        return moe.moe_ffn(params["ffn"], h, cfg)
+    return layers.mlp(params["ffn"], h, cfg), 0.0
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, pos: int, *,
-               cross: bool = False) -> dict:
-    check_supported(cfg, pos, cross=cross)
-    return {"norm1": layers.rmsnorm_init(cfg.d_model, gen.device),
-            "mixer": mamba.mamba_init(gen, cfg)}
+def _cross_and_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                   pos: int, enc_kv):
+    if enc_kv is not None:
+        hc = layers.rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+        x = x + attention.cross_attention(params["cross"], hc, enc_kv, cfg)
+    y, aux = _ffn(params, x, cfg, pos)
+    return (x if y is None else x + y), aux
 
 
 def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
-                  positions):
-    """Full-sequence path.  Returns ``(x, aux_loss)``."""
-    check_supported(cfg, pos)
+                  positions, *, causal: bool = True, enc_kv=None):
+    """Full-sequence (encode or forward) path.  Returns ``(x,
+    aux_loss)``."""
+    kind = cfg.pattern[pos % cfg.period]
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    return x + mamba.mamba_forward(params["mixer"], h, cfg), 0.0
+    if kind == "attn":
+        mix = attention.self_attention(
+            params["mixer"], h, cfg, positions, causal=causal,
+            window=cfg.windows[pos % cfg.period])
+    else:
+        mix = mamba.mamba_forward(params["mixer"], h, cfg)
+    return _cross_and_ffn(params, x + mix, cfg, pos, enc_kv)
 
 
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, max_len: int,
                      dtype: torch.dtype, device) -> dict:
-    check_supported(cfg, pos)
+    """An attention layer's KV cache (a ring buffer of ``window`` slots
+    for a windowed layer) or a mamba layer's state."""
+    kind = cfg.pattern[pos % cfg.period]
+    if kind == "attn":
+        return attention.cache_init(cfg, batch, max_len,
+                                    cfg.windows[pos % cfg.period], dtype,
+                                    device)
     return mamba.mamba_state_init(cfg, batch, dtype, device)
 
 
 def block_step(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
-               positions, cache: dict):
+               positions, cache: dict, *, enc_kv=None):
     """Cached path (decode step or prefill into the cache).  Returns
     ``(x, new_cache)``."""
-    check_supported(cfg, pos)
+    kind = cfg.pattern[pos % cfg.period]
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    if x.shape[1] == 1:
+    if kind == "attn":
+        mix, cache = attention.attend_cache(
+            params["mixer"], h, cfg, cache, positions,
+            window=cfg.windows[pos % cfg.period])
+    elif x.shape[1] == 1:
         mix, cache = mamba.mamba_step(params["mixer"], h, cfg, cache)
     else:   # prefill: the full scan, keeping the final state
         mix, cache = mamba.mamba_forward(params["mixer"], h, cfg,
                                          return_state=True)
-    return x + mix, cache
+    x, _ = _cross_and_ffn(params, x + mix, cfg, pos, enc_kv)
+    return x, cache

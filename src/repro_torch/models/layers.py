@@ -1,16 +1,18 @@
-"""Base layers: norms, embeddings and logits (the JAX package's
-``repro.models.layers``).
+"""Base layers: norms, MLPs, embeddings, logits and rotary embeddings
+(the JAX package's ``repro.models.layers``).
 
 Parameters are plain dicts of tensors; every apply function casts to the
 compute dtype at the point of use, as the JAX package does (params are
 kept in fp32).  JAX's ``constrain`` sharding hints are left out: on one
-card they are the identity.  ``mlp`` and ``rope`` wait for the attention
-archs (ROADMAP A12).
+card they are the identity.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 
@@ -43,6 +45,46 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# MLP (gated silu / plain gelu)
+# ---------------------------------------------------------------------------
+
+#: Leaves of an MLP (and of a MoE FFN's experts) that every use casts to
+#: the compute dtype.
+MLP_LEAVES = ("wi", "wo", "wg")
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, gated: bool) -> dict:
+    p = {"wi": dense_init(gen, d, ff), "wo": dense_init(gen, ff, d)}
+    if gated:
+        p["wg"] = dense_init(gen, d, ff)
+    return p
+
+
+def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = torch.matmul(x, params["wi"].to(dt))
+    if cfg.gated_mlp:
+        g = torch.matmul(x, params["wg"].to(dt))
+        h = _act(cfg.act)(g) * h
+    else:
+        h = _act(cfg.act)(h)
+    return torch.matmul(h, params["wo"].to(dt))
+
+
+def _act(name: str):
+    # jax.nn.gelu is the tanh form by default (approximate=True); the erf
+    # form differs by up to 4e-4 on [-3, 3]
+    return {"silu": F.silu,
+            "gelu": functools.partial(F.gelu, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------------------
+# embedding / logits
+# ---------------------------------------------------------------------------
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int) -> dict:
     return {"table": torch.randn((vocab, d), generator=gen,
                                  dtype=torch.float32, device=gen.device)
@@ -69,3 +111,23 @@ def logits(params_head: torch.Tensor, x: torch.Tensor,
         c = cfg.logit_softcap
         out = torch.tanh(out / c) * c
     return out
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """The half-split form.  ``x``: ``[B, S, H, D]``; ``positions``: int
+    ``[B, S]`` (absolute).  The angles are fp32; cos and sin are cast to
+    ``x``'s dtype before the products, as in the JAX package."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs   # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

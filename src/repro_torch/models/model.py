@@ -1,13 +1,13 @@
-"""The language model: init / forward / prefill / decode (the JAX package's
-``repro.models.model``).
+"""The language model: init / forward / prefill / decode over any zoo
+config (the JAX package's ``repro.models.model``).
 
 Params and caches keep the JAX package's tree layout: ``{"blocks": {"p0":
 <tree with a leading n_periods dim>, ...}, "tail": [...]}`` plus the
-embedding, final norm and head.  JAX's ``lax.scan`` over periods is a
-Python loop over the leading dim here.  The port runs the archs whose
-blocks ``blocks.check_supported`` accepts (falcon-mamba); the others
-resolve as configs and raise here.  ``lm_loss`` waits for the training
-slice (ROADMAP A14), encoder-decoder and frontend archs for A12.
+embedding, final norm and head (and, for the encoder-decoder arch,
+``enc_blocks``, ``enc_tail``, ``enc_norm``; for the frontend archs,
+``frontend.proj``).  JAX's ``lax.scan`` over periods is a Python loop over
+the leading dim here.  ``lm_loss`` waits for the training slice (ROADMAP
+A14).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, layers, mamba
+from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_map
 
@@ -26,15 +26,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // VOCAB_PAD) * VOCAB_PAD
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend archs are not ported "
-            "yet (ROADMAP A12)")
-    for pos in range(cfg.period):
-        blocks.check_supported(cfg, pos)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -43,9 +34,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 def init(seed: int, cfg: ModelConfig, *, device=None) -> dict:
     """fp32 params from a ``torch.Generator`` seeded with ``seed``, with the
     JAX package's scales (dense ``1/sqrt(d_in)``, embeddings 0.02,
-    ``A_log = log(1..ds)``, ``D = 1``).  ``device`` None means ``cuda``."""
+    ``A_log = log(1..ds)``, ``D = 1``, norms 1).  ``device`` None means
+    ``cuda``."""
     dev = resolve_device(device)
-    _check_supported(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     vp = padded_vocab(cfg)
@@ -53,13 +44,27 @@ def init(seed: int, cfg: ModelConfig, *, device=None) -> dict:
               "final_norm": layers.rmsnorm_init(cfg.d_model, dev)}
     if not cfg.tie_embeddings:
         params["head"] = layers.embed_init(gen, vp, cfg.d_model)["table"]
-    params["blocks"] = _stack_init(gen, cfg, cfg.n_periods)
+    cross = cfg.enc_dec
+    params["blocks"] = _stack_init(gen, cfg, cfg.n_periods, cross=cross)
     params["tail"] = [blocks.block_init(gen, cfg, cfg.n_periods * cfg.period
-                                        + i) for i in range(cfg.n_tail)]
+                                        + i, cross=cross)
+                      for i in range(cfg.n_tail)]
+    if cfg.enc_dec:
+        n_enc_p = cfg.n_enc_layers // cfg.period
+        n_enc_tail = cfg.n_enc_layers - n_enc_p * cfg.period
+        params["enc_blocks"] = _stack_init(gen, cfg, n_enc_p, cross=False)
+        params["enc_tail"] = [blocks.block_init(gen, cfg, n_enc_p *
+                                                cfg.period + i)
+                              for i in range(n_enc_tail)]
+        params["enc_norm"] = layers.rmsnorm_init(cfg.d_model, dev)
+    if cfg.frontend is not None:
+        params["frontend"] = {"proj": layers.dense_init(gen, cfg.d_model,
+                                                        cfg.d_model)}
     return params
 
 
-def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
+def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int, *,
+                cross: bool = False) -> dict:
     """``{"p0": stacked block tree, "p1": ...}`` with leading dim ``n``,
     filled one layer at a time (a full copy of the stack is never held
     twice)."""
@@ -68,35 +73,57 @@ def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int) -> dict:
         if n == 0:
             out[f"p{pos}"] = None
             continue
-        first = blocks.block_init(gen, cfg, pos)
+        first = blocks.block_init(gen, cfg, pos, cross=cross)
         stack = tree_map(lambda a: torch.empty((n, *a.shape), dtype=a.dtype,
                                                device=a.device), first)
         tree_map(lambda s, a: s[0].copy_(a), stack, first)
         for j in range(1, n):
             tree_map(lambda s, a, j=j: s[j].copy_(a), stack,
-                     blocks.block_init(gen, cfg, pos))
+                     blocks.block_init(gen, cfg, pos, cross=cross))
         out[f"p{pos}"] = stack
     return out
 
 
+#: Per block part, the leaves that every use casts to the compute dtype.
+#: The rest are used in fp32: the norms' scales (the q/k norms' too), the
+#: router, and mamba's ``A_log``, ``D`` and ``dt_b``.
+_COMPUTE_DTYPE_LEAVES = {
+    "mixer": attention.COMPUTE_DTYPE_LEAVES + mamba.COMPUTE_DTYPE_LEAVES,
+    "cross": attention.COMPUTE_DTYPE_LEAVES,
+    "ffn": layers.MLP_LEAVES,
+}
+
+
 def cast_params(params: dict, cfg: ModelConfig) -> dict:
     """``params`` with the leaves that every use casts to the compute dtype
-    (the mixers' matrices and the embedding table) cast once; the leaves
-    used in fp32 (norms, ``A_log``, ``D``, ``dt_b``, the lm head) stay.
-    The model gives the same results with either tree."""
+    (the mixers', cross attention's, the FFNs' and the experts' matrices,
+    the frontend projection and the embedding table) cast once; the leaves
+    used in fp32 (norms, the router, ``A_log``, ``D``, ``dt_b``, the lm
+    head) stay.  The model gives the same results with either tree."""
     dt = layers.cdtype(cfg)
 
-    def mixer_cast(block):
-        return dict(block, mixer={k: (v.to(dt) if k in
-                                      mamba.COMPUTE_DTYPE_LEAVES else v)
-                                  for k, v in block["mixer"].items()})
+    def block_cast(block):
+        out = dict(block)
+        for part, names in _COMPUTE_DTYPE_LEAVES.items():
+            if part in block:
+                out[part] = {k: (v.to(dt) if k in names else v)
+                             for k, v in block[part].items()}
+        return out
+
+    def stack_cast(stack):
+        return {k: None if v is None else block_cast(v)
+                for k, v in stack.items()}
 
     out = dict(params)
     if not cfg.tie_embeddings:   # a tied table is also the fp32 head
         out["embed"] = {"table": params["embed"]["table"].to(dt)}
-    out["blocks"] = {k: None if v is None else mixer_cast(v)
-                     for k, v in params["blocks"].items()}
-    out["tail"] = [mixer_cast(b) for b in params["tail"]]
+    out["blocks"] = stack_cast(params["blocks"])
+    out["tail"] = [block_cast(b) for b in params["tail"]]
+    if "enc_blocks" in params:
+        out["enc_blocks"] = stack_cast(params["enc_blocks"])
+        out["enc_tail"] = [block_cast(b) for b in params["enc_tail"]]
+    if "frontend" in params:
+        out["frontend"] = {"proj": params["frontend"]["proj"].to(dt)}
     return out
 
 
@@ -113,10 +140,46 @@ def _stacked(trees: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _run_stack(stack: dict, tail: list, x: torch.Tensor, cfg: ModelConfig,
+               positions, *, causal: bool = True, enc_kv=None):
+    """The stacked periods, then the tail.  Returns ``(x, aux)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    first = stack.get("p0") if stack else None
+    n = 0 if first is None else first["norm1"]["scale"].shape[0]
+    for j in range(n):
+        for pos in range(cfg.period):
+            x, a = blocks.block_forward(_layer(stack[f"p{pos}"], j), x, cfg,
+                                        pos, positions, causal=causal,
+                                        enc_kv=enc_kv)
+            aux = aux + a
+    for i, lp in enumerate(tail):
+        x, a = blocks.block_forward(lp, x, cfg, i, positions, causal=causal,
+                                    enc_kv=enc_kv)
+        aux = aux + a
+    return x, aux
+
+
+def _encode(params: dict, enc_input: torch.Tensor, cfg: ModelConfig):
+    """Encoder over the stub frontend's embeddings ``[B, S_enc, d]``.
+    Returns ``(enc_out, aux)``."""
+    x = enc_input.to(layers.cdtype(cfg))
+    x = torch.matmul(x, params["frontend"]["proj"].to(x.dtype))
+    b, s, _ = x.shape
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
+        .expand(b, s)
+    x, aux = _run_stack(params["enc_blocks"], params["enc_tail"], x, cfg,
+                        pos, causal=False)
+    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps), aux
+
+
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
-    """Token embedding.  Returns ``(x, positions)``."""
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens, cfg)
+    """Token (+ vision prefix) embedding.  Returns ``(x, positions)``."""
+    x = layers.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.frontend == "vision":
+        patches = batch["patches"].to(x.dtype)             # [B, P, d]
+        patches = torch.matmul(patches,
+                               params["frontend"]["proj"].to(x.dtype))
+        x = torch.cat([patches, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
@@ -130,25 +193,23 @@ def _head(params: dict) -> torch.Tensor:
 def forward_hidden(params: dict, batch: dict, cfg: ModelConfig):
     """Backbone forward to the final normed hidden states.  Returns
     ``(x [B, S, d], aux_loss)``."""
-    _check_supported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    stack = params["blocks"]
-    for j in range(cfg.n_periods):
-        for pos in range(cfg.period):
-            lp = _layer(stack[f"p{pos}"], j)
-            x, a = blocks.block_forward(lp, x, cfg, pos, positions)
-            aux = aux + a
-    for i, lp in enumerate(params["tail"]):
-        x, a = blocks.block_forward(lp, x, cfg, i, positions)
-        aux = aux + a
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out, aux_e = _encode(params, batch["frames"], cfg)
+        aux = aux + aux_e
+    x, aux_d = _run_stack(params["blocks"], params["tail"], x, cfg,
+                          positions, causal=True, enc_kv=enc_out)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux
+    return x, aux + aux_d
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig):
-    """Full forward.  ``batch``: ``{"tokens": [B, S] int}``.  Returns
-    ``(logits [B, S, vocab_padded], aux_loss)``."""
+    """Full forward.  ``batch``: ``{"tokens": [B, S] int}`` plus
+    ``"frames"`` ``[B, S, d]`` (audio enc-dec) or ``"patches"``
+    ``[B, P, d]`` (vision).  Returns ``(logits [B, S, vocab_padded],
+    aux_loss)``."""
     x, aux = forward_hidden(params, batch, cfg)
     return layers.logits(_head(params), x, cfg), aux
 
@@ -182,8 +243,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _run_cached(params: dict, cache: dict, x: torch.Tensor, positions,
-                cfg: ModelConfig):
-    """Every block's cached path, in order.  Returns ``(x, new_cache)``."""
+                cfg: ModelConfig, enc_out=None):
+    """Every block's cached path, in order.  Returns ``(x, new_cache)``.
+    The new stacked cache is restacked from the layers' new caches: a
+    step copies the whole cache once more (JAX's scan writes it as the
+    scan output)."""
     new_stack = cache["blocks"]
     if cfg.n_periods > 0:
         per_layer = []
@@ -192,36 +256,44 @@ def _run_cached(params: dict, cache: dict, x: torch.Tensor, positions,
             for pos in range(cfg.period):
                 x, c = blocks.block_step(
                     _layer(params["blocks"][f"p{pos}"], j), x, cfg, pos,
-                    positions, _layer(cache["blocks"][f"p{pos}"], j))
+                    positions, _layer(cache["blocks"][f"p{pos}"], j),
+                    enc_kv=enc_out)
                 new_caches[f"p{pos}"] = c
             per_layer.append(new_caches)
         new_stack = _stacked(per_layer)
     new_tail = []
     for i, lp in enumerate(params["tail"]):
-        x, c = blocks.block_step(lp, x, cfg, i, positions, cache["tail"][i])
+        x, c = blocks.block_step(lp, x, cfg, i, positions, cache["tail"][i],
+                                 enc_kv=enc_out)
         new_tail.append(c)
     return x, {"blocks": new_stack, "tail": new_tail}
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: ModelConfig):
+                pos: torch.Tensor, cfg: ModelConfig, *, enc_out=None):
     """One decode step.  ``tokens`` ``[B, 1]``; ``pos`` ``[B, 1]`` int32
-    absolute.  Returns ``(logits [B, 1, vocab], new_cache)``."""
-    _check_supported(cfg)
+    absolute; ``enc_out`` the encoder output (``_encode``) for the
+    encoder-decoder arch.  Returns ``(logits [B, 1, vocab], new_cache)``;
+    ``cache`` itself is not written."""
     x = layers.embed(params["embed"], tokens, cfg)
-    x, new_cache = _run_cached(params, cache, x, pos, cfg)
+    x, new_cache = _run_cached(params, cache, x, pos, cfg, enc_out)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return layers.logits(_head(params), x, cfg), new_cache
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int):
-    """Run the prompt through the stack, building the cache.  Returns
-    ``(last_logits [B, vocab], cache, next_pos [B, 1])``."""
-    _check_supported(cfg)
+    """Run the prompt (``batch`` as ``forward`` takes it) through the
+    stack, building the cache.  Returns ``(last_logits [B, vocab], cache,
+    next_pos [B, 1])``.  Raises ``ValueError`` when the prompt (with a
+    vision prefix) is longer than a windowed layer's ring buffer or than
+    ``max_len`` (``attention.cache_insert``)."""
     x, positions = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out, _ = _encode(params, batch["frames"], cfg)
     cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
-    x, cache = _run_cached(params, cache, x, positions, cfg)
+    x, cache = _run_cached(params, cache, x, positions, cfg, enc_out)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logit = layers.logits(_head(params), x[:, -1:], cfg)
     next_pos = torch.full((b, 1), s, dtype=torch.int32, device=x.device)

@@ -19,6 +19,12 @@ session store's background workers launch on the card (an async
 copies and synchronizations on other threads neither fail nor end up in
 the graph; a capture that fails raises.
 
+``generate`` takes token prompts only, as JAX's does: the
+encoder-decoder arch (whisper: ``frames``) and the vision arch (internvl2:
+``patches``) run through ``model.prefill`` and ``model.decode_step``, and
+``generate`` raises for them (``check_servable``) where JAX's fails on the
+missing input.
+
 Metrics and tracing, as in JAX: the histograms
 ``serve.op.latency_us{op=generate|page_out|page_in|page_in_many}`` and
 the spans ``serve.generate``, ``serve.page_out``, ``serve.page_in`` and
@@ -41,6 +47,18 @@ from repro_torch.models.convert import tree_map
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.session_store import LsmSessionStore
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an arch that needs more than tokens (the
+    encoder's ``frames``, the vision prefix's ``patches``): ``generate``
+    cannot feed it."""
+    if cfg.enc_dec or cfg.frontend is not None:
+        need = "frames" if cfg.enc_dec else "patches"
+        raise ValueError(
+            f"{cfg.name}: ServeEngine.generate takes token prompts only, and "
+            f"this arch also needs {need!r} (run model.prefill and "
+            "model.decode_step with them)")
 
 
 def _load(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -186,6 +204,7 @@ class ServeEngine:
         return out
 
     def _generate_inner(self, prompts, max_new: int):
+        check_servable(self.cfg)
         prompts = torch.as_tensor(prompts, dtype=torch.int32,
                                   device=self.device)
         logit, cache, pos = model.prefill(

@@ -1097,3 +1097,107 @@ def test_no_span_recorded_in_a_graph_replay(falcon4):
     assert [e[1] for e in raw] == ["serve.generate"] * 2
     ident, c0, c1 = wins[0]
     assert not [e for e in raw if e[4] == ident and c0 <= e[2] < c1]
+
+
+# ---------------------------------------------------------------------------
+# the model zoo on the card (ROADMAP A12)
+# ---------------------------------------------------------------------------
+
+ZOO = ("falcon-mamba-7b", "gemma3-4b", "granite-20b", "granite-moe-3b-a800m",
+       "internvl2-26b", "jamba-1.5-large-398b", "phi3.5-moe-42b-a6.6b",
+       "qwen3-14b", "whisper-medium", "yi-34b")
+
+
+def zoo_inputs(cfg, s, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, s)).astype(np.int32))}
+    if cfg.frontend == "vision":
+        out["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 20, cfg.d_model)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_on_the_card_as_on_the_cpu(dev, arch):
+    """``chip_smoke.py`` phase 12 (c), small: every arch's smoke config at
+    fp32 compute and scan, the same weights on both devices: ``forward``
+    and a prefill of 12 tokens followed by 8 decode steps (gemma3's
+    windows of 16 wrap) within 1e-4 of the largest |logit| of the CPU's, the MoE
+    routings equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model, moe
+    cfg = get_smoke_config(arch).with_(dtype="float32",
+                                       ssm_scan_dtype="float32")
+    params = model.init(0, cfg, device="cpu")
+    out = {}
+    route = moe._route
+    for d in ("cpu", dev):
+        p = chip_smoke.tree_map(lambda a, d=d: a.to(d), params)
+        batch = {k: v.to(d) for k, v in zoo_inputs(cfg, 12).items()}
+        routes = []
+
+        def watch(rp, xt, c, routes=routes):
+            r = route(rp, xt, c)
+            routes.append(r[1].cpu())
+            return r
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(moe, "_route", watch)
+            logits = [model.forward(p, batch, cfg)[0]]
+            last, cache, pos = model.prefill(p, batch, cfg, 32 + (
+                cfg.frontend_len if cfg.frontend == "vision" else 0))
+            enc = model._encode(p, batch["frames"], cfg)[0] \
+                if cfg.enc_dec else None
+            tok = last.argmax(-1)[:, None].to(torch.int32)
+            logits.append(last)
+            for _ in range(8):
+                step, cache = model.decode_step(p, cache, tok, pos, cfg,
+                                                enc_out=enc)
+                logits.append(step[:, 0])
+                # teacher-forced, the same tokens on both devices
+                tok = zoo_inputs(cfg, 1, seed=len(logits))["tokens"].to(d)
+                pos = pos + 1
+        out[str(d)] = ([x.cpu() for x in logits], routes)
+    (got, got_routes), (want, want_routes) = out[str(dev)], out["cpu"]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert len(got_routes) == len(want_routes)
+    assert all(torch.equal(a, b) for a, b in zip(got_routes, want_routes))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m",
+                                  "jamba-1.5-large-398b"])
+def test_zoo_captured_decode_equals_eager(dev, arch):
+    """The engine's captured step over attention caches (gemma3's rings
+    wrapping past 16 slots), the MoE dispatch (argsort, searchsorted, the
+    capacity buffer, the slot-order combine) and jamba's mix: the greedy
+    tokens of 20 steps equal, the last logits and cache bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServeEngine
+    cfg = get_smoke_config(arch)
+    eng = ServeEngine(cfg, model.init(0, cfg, device=dev), max_len=32,
+                      device=dev)
+    toks = zoo_inputs(cfg, 10)["tokens"].to(dev)
+    logit, cache0, pos0 = model.prefill(eng.params, {"tokens": toks}, cfg,
+                                        eng.max_len)
+    runs = []
+    for step in (lambda c, t, p: model.decode_step(eng.params, c, t, p,
+                                                   cfg),
+                 lambda c, t, p: eng._decode(eng.params, c, t, p)):
+        c, p = cache0, pos0
+        tok = logit.argmax(-1)[:, None].to(torch.int32)
+        outs = []
+        for _ in range(20):
+            logits, c = step(c, tok, p)
+            tok = logits[:, 0].argmax(-1)[:, None].to(torch.int32)
+            outs.append(tok)
+            p = p + 1
+        runs.append((torch.cat(outs, 1), logits, c))
+    (te, le, ce), (tc, lc, cc) = runs
+    assert torch.equal(te, tc)
+    assert chip_smoke.same_state((lc, cc), (le, ce))

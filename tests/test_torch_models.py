@@ -36,7 +36,7 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import mamba as jmamba
 from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
-from repro_torch.models import blocks, convert, mamba, model
+from repro_torch.models import convert, mamba, model
 
 ARCH_NAMES = sorted(JAX_ARCHS)
 FALCON = "falcon-mamba-7b"
@@ -108,19 +108,26 @@ def test_falcon_is_served_at_full_width():
     assert 6.9e9 < cfg.param_count() < 7.4e9
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_NAMES if a != FALCON])
-def test_archs_the_port_cannot_run_raise(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        model.init(0, cfg, device="cpu")
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_every_arch_builds_with_the_jax_tree_layout(arch):
+    """Every arch of the zoo builds in the port (attention, MoE, dense
+    FFNs, cross attention, the encoder and the frontends): the JAX
+    package's tree, leaf for leaf in shape, in fp32."""
+    jcfg, tcfg = jax_smoke(arch), tconfigs.get_smoke_config(arch)
+    want = jax.eval_shape(lambda: jmodel.init(jax.random.key(0), jcfg))
+    got = model.init(0, tcfg, device="cpu")
+    assert jax.tree.structure(jax.tree.map(lambda a: 0, want)) == \
+        jax.tree.structure(convert.tree_map(lambda a: 0, got))
+    for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+    assert sum(a.numel() for a in jax.tree.leaves(got)) == \
+        sum(int(np.prod(w.shape)) for w in jax.tree.leaves(want))
 
 
 def test_training_waits():
     cfg = tconfigs.get_smoke_config(FALCON)
     with pytest.raises(NotImplementedError, match="A14"):
         model.lm_loss({}, {}, cfg)
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        blocks.block_init(torch.Generator(), cfg, 0, cross=True)
 
 
 # ---------------------------------------------------------------------------
