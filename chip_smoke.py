@@ -164,12 +164,32 @@ Phases, any fault exits non-zero:
    through the store as phase 7 pages falcon's, loaded bit for bit and
    resumed as an uninterrupted run.
 
-Phases 3-9, 11 and 12 fail if a compaction engine built in them retried
-a launch: no engine failpoint is armed outside phase 10.
+13. training on the card (``repro_torch.training``, the checkpoint store
+   ``repro_torch.checkpoint.store`` on the LUDA store, bf16 compute with
+   fp32 master weights and moments): the selective-scan backward kernel
+   against the plain backward (autograd through the plain scan) at 4 x
+   512 and 1 x 4,096, timed; (a) falcon-mamba-7b at full width cut to 4
+   layers, 6 ``train_step``s of 4 x 512 ``BigramStream`` tokens timed by
+   CUDA events beside the step's bound, the loss falling and the gradient
+   norm finite, the scan launched twice a layer a step (the forward and
+   remat's recompute) and its backward once, the last step's last-layer
+   backward held against the plain one on its kept inputs and rerun bit
+   for bit; (b) the same model cut to 2 layers and d_model 64 (the vocab
+   kept) through ``Trainer`` with checkpoints every 3 of 8 steps, once
+   uninterrupted and once under ``Supervisor`` with a failure at step 5:
+   the resumed losses equal the uninterrupted ones bit for bit, the last
+   restore equals the saved state, ``steps()`` is ``[6, 8]``, the
+   compactions dropped records that ``gc``'s tombstones shadowed, kept
+   jobs and flushes are byte-identical on the plain versions, and a cpu
+   store writes the same SST files; (c) ``python -m
+   repro_torch.launch.train --smoke --fail-at 5`` prints ``restarts=1``.
+
+Phases 3-9, 11, 12 and 13 fail if a compaction engine built in them
+retried a launch: no engine failpoint is armed outside phase 10.
 
 The line before the last is a JSON ``kernels`` record (each kernel's
-``launches`` sums phase 3's paths, phase 9's, phase 10's, phase 11's and
-phase 12's, split in ``launches_by_path``); the last line is
+``launches`` sums phase 3's paths, phase 9's, phase 10's, phase 11's,
+phase 12's and phase 13's, split in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
     python3 chip_smoke.py --kernels
@@ -272,6 +292,12 @@ KERNELS = {
     "selective_scan": ("selective_scan", "selective_scan/4x512",
                        "src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:31"),
+    # no Pallas kernel: JAX takes this gradient by autodiff through the
+    # associative scan of its training path
+    "selective_scan_bwd": ("selective_scan_bwd", "selective_scan_bwd/4x512",
+                           "src/repro_torch/kernels/csrc/"
+                           "selective_scan_bwd.cu",
+                           "src/repro/models/mamba.py:77"),
 }
 # kernels of the write path (flush, compaction) and of multi_get, which
 # phase 3 drives; the bitonic sort runs in phase 4 (sort_mode="device"),
@@ -298,6 +324,7 @@ SCAN_SHAPES = ((SERVE_BATCH, SERVE_PROMPT), (1, 4096))
 # largest |y| (and of the largest |h_last|): both scan in fp32, and differ
 # in expf's last bits and the order of the h . C sum
 SCAN_TOL = 1e-4
+BF16_ULP = 2.0 ** -7   # a bf16 ulp is at most this share of the value
 # last logits of two routes through the bf16 model (prefill-then-decode
 # against prefill; kernel scan against plain scan): max abs difference <=
 # LOGIT_TOL of the largest |logit|.  The routes round bf16 activations at
@@ -2063,31 +2090,42 @@ def check_state(got, want, what: str) -> None:
                              "saved one")
 
 
-def keep_jobs(engine, keep_dir: str | None = None) -> list[dict]:
+def keep_jobs(engine, keep_dir: str | None = None, *,
+              first: int | None = None) -> list[dict]:
     """Wrap ``engine.compact_paths`` (what a store's compaction calls) so
     that each job records its input count ``n``, its ``merge_runs``
-    launches, its ``"sort"`` span (as phase 3 counts them) and its host
-    interval; given ``keep_dir``, also its input files (hard links: the
-    store deletes them once the job is installed) and a copy of its output
-    image (the engine's may lie in staging that the next job reuses), for
-    ``check_jobs``."""
+    launches, its ``"sort"`` span (as phase 3 counts them), its host
+    interval and the records it dropped; given ``keep_dir``, also its
+    input files (hard links: the store deletes them once the job is
+    installed) and a copy of its output image (the engine's may lie in
+    staging that the next job reuses), for ``check_jobs``.  Given
+    ``first`` (a checkpoint store's jobs are too many and too large to
+    keep each one), only the first ``first`` jobs and every job that
+    dropped records are kept; the others' links are removed."""
     kept: list[dict] = []
+    seen = [0]
     compact_paths = engine.compact_paths
 
     def watch_job(paths, *, bottom_level=False):
         job = dict(n=len(paths), bottom_level=bottom_level)
         if keep_dir is not None:
-            d = os.path.join(keep_dir, str(len(kept)))
+            d = os.path.join(keep_dir, str(seen[0]))
             os.makedirs(d)
             job["paths"] = [os.path.join(d, os.path.basename(p))
                             for p in paths]
             for p, q in zip(paths, job["paths"]):
                 os.link(p, q)
+        seen[0] += 1
         t0 = time.perf_counter()
         before = ops.launch_counts()["merge_runs"]
         out, es = compact_paths(paths, bottom_level=bottom_level)
         job.update(span=(t0, time.perf_counter()), sort_s=es.sort_seconds,
-                   merge_launches=ops.launch_counts()["merge_runs"] - before)
+                   merge_launches=ops.launch_counts()["merge_runs"] - before,
+                   dropped=es.n_dropped)
+        if first is not None and len(kept) >= first and not es.n_dropped:
+            if keep_dir is not None:
+                shutil.rmtree(d)
+            return out, es
         if keep_dir is not None:
             job["out"] = formats.SSTImage(*(np.array(x) for x in out))
         kept.append(job)
@@ -5607,6 +5645,611 @@ def archs_part_lines(part: str, r: dict, card: str) -> list[str]:
     return lines + [f"[12] (d) {r['seconds']:.1f} s"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+# (a): falcon-mamba-7b at full width cut to 4 of 64 layers (its fp32
+# params, grads and two AdamW moments whole would take ~116 GB), bf16
+# compute with fp32 master weights and moments, remat as the config says;
+# 4 x 512 tokens of BigramStream a step, 6 steps
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4, 512, 6
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)
+# the backward kernel against the plain backward on the kept inputs: max
+# abs error <= SCAN_TOL of each gradient's largest magnitude (both fp32;
+# ex2.approx against exp, and other summation orders)
+SCAN_GRADS = ("du", "ddt", "db", "dc", "da_log", "dd_skip", "dh0")
+# (b): the same model cut to 2 layers and d_model 64, the vocab kept
+# (~8.5 M parameters, a 0.1 GB TrainState, ~25,400 records a save): a
+# save at (a)'s size would be ~11.5 GB, ~2.9 M puts, and at d_model 128
+# (0.2 GB, 51,058 puts) the six saves took 89 s of the card run at
+# 10-21 MB/s; 8 steps of 4 x 128, a checkpoint every 3 steps, 2 kept, a
+# failure at step 5
+CKPT_D_MODEL, CKPT_LAYERS = 64, 2
+CKPT_LOOP = dict(steps=8, batch=4, seq=128, ckpt_every=3, keep_ckpts=2,
+                 log_every=100)
+CKPT_FAIL = 5
+KEPT_CKPT_FLUSHES = 2      # (b): flushes a store rebuilt on the plain versions
+KEPT_CKPT_JOBS = 3         # (b): jobs a store rebuilt on the plain versions,
+#                            besides every job that dropped records
+TWIN_STEPS = 4             # (b): saves of the trimmed state into a cuda and
+#                            a cpu store
+# (c): the launcher on the card, as a user would run it
+LAUNCH_ARGS = ("--arch", FALCON, "--smoke", "--steps", "8", "--ckpt-every",
+               "3", "--fail-at", "5")
+LAUNCH_TIMEOUT = 300
+# the card's peak rates for the step's bound (NVIDIA H100 SXM data sheet):
+# bf16 products on the tensor cores; fp32 products outside them
+BF16_FLOPS_PER_S = 989e12
+
+
+def train_configs() -> dict:
+    """Phase 13's configurations: (a) full width cut in depth, (b) the
+    checkpoint run's cut."""
+    full = get_config(FALCON)
+    return {"full": full.with_(n_layers=TRAIN_LAYERS),
+            "ckpt": full.with_(n_layers=CKPT_LAYERS, d_model=CKPT_D_MODEL)}
+
+
+def train_step_bound(cfg, batch: int, seq: int, n_params: int) -> dict:
+    """The step's least time on the card (ms), part by part, each the
+    larger of its FLOPs over the rate for its dtype and its bytes over the
+    HBM rate: the layers' products (bf16; forward, remat's recompute and
+    the two backward products), the fp32 head (JAX's ``layers.logits``
+    computes in fp32; the loss chunk's forward, its recompute and two
+    backward products) and AdamW with the gradients (fp32 params read and
+    written, the gradient read, m and v read and written: 28 B a
+    parameter)."""
+    d, di, ds, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    tokens, pred = batch * seq, batch * (seq - 1)
+    vocab = lm.padded_vocab(cfg)
+    passes = 4 if cfg.remat else 3
+    macs = d * 2 * di + di * (dr + 2 * ds) + dr * di + di * d
+    layer_flops = 2 * tokens * macs * cfg.n_layers * passes
+    layer_bytes = 2 * macs * cfg.n_layers * passes   # bf16 weights a pass
+    head_flops = 2 * pred * vocab * d * 4
+    head_bytes = 4 * (vocab * d + pred * vocab) * 4  # fp32 head, logits
+    parts = {
+        "layers": (layer_flops, max(layer_flops / BF16_FLOPS_PER_S,
+                                    layer_bytes / HBM_BYTES_PER_S) * 1e3),
+        "head": (head_flops, max(head_flops / SCALAR_OPS_PER_S,
+                                 head_bytes / HBM_BYTES_PER_S) * 1e3),
+        "optimizer": (28 * n_params, 28 * n_params / HBM_BYTES_PER_S * 1e3)}
+    return dict(parts=parts, ms=sum(ms for _, ms in parts.values()))
+
+
+@contextlib.contextmanager
+def keep_scan_bwd(dev, kept: list):
+    """Record the inputs of the first scan backward call made inside (on
+    the card the kernel's wrapper, on the CPU the plain one, as ``ops``
+    dispatches), cloned, into ``kept``: ``(*args, dy, dh_last)``."""
+    from repro_torch.kernels import selective_scan as scan_kernel
+    owner = scan_kernel if torch.device(dev).type == "cuda" else ref
+    real = owner.selective_scan_bwd
+
+    def watch(*args):
+        if not kept:
+            kept.append(tuple(None if a is None else a.detach().clone()
+                              for a in args))
+        return real(*args)
+
+    with mock.patch.object(owner, "selective_scan_bwd", watch):
+        yield kept
+
+
+@contextlib.contextmanager
+def count_plain_scan_calls():
+    """Count the plain scan's calls as ``ops`` dispatches them on the CPU,
+    where the wrappers launch nothing: yields ``{"selective_scan":
+    forwards, "selective_scan_bwd": backwards}``, the backward's own
+    recompute of the forward not counted.  On the card the launch counts
+    say the same."""
+    counts = {"selective_scan": 0, "selective_scan_bwd": 0}
+    inside = [0]
+    fwd, bwd = ref.selective_scan, ref.selective_scan_bwd
+
+    def forward(*a, **kw):
+        counts["selective_scan"] += not inside[0]
+        return fwd(*a, **kw)
+
+    def backward(*a, **kw):
+        counts["selective_scan_bwd"] += 1
+        inside[0] += 1
+        try:
+            return bwd(*a, **kw)
+        finally:
+            inside[0] -= 1
+
+    with mock.patch.multiple(ref, selective_scan=forward,
+                             selective_scan_bwd=backward):
+        yield counts
+
+
+def check_scan_bwd_call(dev, call) -> tuple[dict, float | None]:
+    """The backward on ``call``'s inputs (the kernel on the card, as the
+    training path ran it) twice, and the plain backward once: raise unless
+    the two runs are equal bit for bit and each gradient is within
+    ``SCAN_TOL`` of the plain one's largest magnitude; a bf16 ``du`` (both
+    sides round their fp32 sums once) also within one bf16 ulp of the
+    plain value, ``BF16_ULP`` of it.  Returns the max abs errors by
+    gradient, and the plain call's ms by CUDA events (None on the CPU)."""
+    from repro_torch.kernels import selective_scan as scan_kernel
+    on_card = torch.device(dev).type == "cuda"
+    fn = scan_kernel.selective_scan_bwd if on_card \
+        else ref.selective_scan_bwd
+    got, again = fn(*call), fn(*call)
+    if on_card:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    want = ref.selective_scan_bwd(*call)
+    plain_ms = None
+    if on_card:
+        ev[1].record()
+        ev[1].synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
+    errs = {}
+    for name, g, a, w in zip(SCAN_GRADS, got, again, want):
+        if w is None:
+            continue
+        if not torch.equal(bits(g), bits(a)):
+            raise AssertionError(f"selective_scan_bwd {name}: two runs on "
+                                 "the same inputs differ")
+        if g.dtype != w.dtype:
+            raise AssertionError(f"selective_scan_bwd {name}: {g.dtype}, "
+                                 f"the plain backward's {w.dtype}")
+        err, w = (g.float() - w.float()).abs(), w.float()
+        errs[name] = float(err.max())
+        ulp = BF16_ULP if g.dtype == torch.bfloat16 else 0.0
+        if not bool((err <= SCAN_TOL * float(w.abs().max())
+                     + ulp * w.abs()).all()):
+            raise AssertionError(
+                f"selective_scan_bwd {name} at {tuple(call[0].shape)} differs "
+                f"from the plain backward: max abs err {errs[name]:.3g} "
+                f"(limit {SCAN_TOL} of {float(w.abs().max()):.3g}"
+                + (f" plus {ulp} of each value)" if ulp else ")"))
+    return errs, plain_ms
+
+
+def train_full(cfg, dev, *, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+               steps: int = TRAIN_STEPS, opt: dict | None = None) -> dict:
+    """(a): ``steps`` train steps of ``cfg`` from ``init_state(0)`` on
+    ``BigramStream`` batches, each timed by CUDA events; the launches of
+    the steps counted from 0; the last step's first scan backward (the
+    last layer's) kept and held against the plain backward."""
+    from repro_torch.data.tokens import BigramStream, make_train_batch
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training import train_step as ts
+    on_card = torch.device(dev).type == "cuda"
+    free_card(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    opt_cfg = optim.AdamWConfig(total_steps=steps, **(opt or TRAIN_OPT))
+    t0 = time.perf_counter()
+    state = ts.init_state(0, cfg, opt_cfg, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in tree_leaves(state.params))
+    stream = BigramStream(cfg.vocab, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                make_train_batch(cfg, stream, s, batch, seq).items()}
+               for s in range(steps)]
+    losses, gnorms, step_ms, kept = [], [], [], []
+    ops.reset_launch_counts()
+    with contextlib.nullcontext(None) if on_card else \
+            count_plain_scan_calls() as calls:
+        for s, b in enumerate(batches):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(2)] if on_card else None
+            with keep_scan_bwd(dev, kept) if s == steps - 1 \
+                    else contextlib.nullcontext():
+                if ev:
+                    ev[0].record()
+                state, m = ts.train_step(state, b, cfg=cfg, opt_cfg=opt_cfg)
+                if ev:
+                    ev[1].record()
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            if ev:
+                step_ms.append(ev[0].elapsed_time(ev[1]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    passes = 2 if cfg.remat else 1
+    want = {"selective_scan": passes * cfg.n_layers * steps,
+            "selective_scan_bwd": cfg.n_layers * steps}
+    got = {k: launches[k] for k in want}
+    if (got if on_card else calls) != want:
+        raise AssertionError(f"[13] (a) scan launches {got}, plain calls "
+                             f"{calls}, expected {want} (a layer's forward, "
+                             "its remat recompute if any, and its backward, "
+                             "each step)")
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"[13] (a) losses {losses}, grad norms {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[13] (a) the loss did not fall: {losses}")
+    errs, _ = check_scan_bwd_call(dev, kept[0])
+    del state, batches
+    free_card(dev)
+    timed = step_ms[1:] if step_ms else []
+    mean_ms = statistics.mean(timed) if timed else None
+    return dict(cfg=cfg, n_params=n_params, init_s=init_s, losses=losses,
+                grad_norms=gnorms, step_ms=step_ms,
+                mean_ms=mean_ms, peak=peak, batch=batch, seq=seq,
+                tokens_per_s=(batch * seq / mean_ms * 1e3) if mean_ms
+                else None, launches=got,
+                calls=None if calls is None else dict(calls),
+                bound=train_step_bound(cfg, batch, seq, n_params),
+                kept_shape=tuple(kept[0][0].shape), bwd_err=errs)
+
+
+def bwd_cases(rng, dev, shapes=SCAN_SHAPES, di: int = 8192, ds: int = 16,
+              u_dtype=torch.bfloat16):
+    """Row 9b's cases: (name, (args, dy, None), bytes, exponentials, other
+    fp32 operations) at the scan's shapes: the forward's inputs as
+    ``scan_cases`` makes them (no ``h0``) and a normal ``dy``.  Bytes count the
+    inputs (u, dt, B, C, A_log, D, dy) read once and the gradients
+    written once (du in u's dtype; ddt, dB, dC, dA_log and dD fp32); the
+    exponentials are one per (b, t, i, s) and one per A entry; the other
+    operations about 12 per (b, t, i, s)."""
+    out = []
+    for (name, args, _, n_exp, _), (b, s) in zip(
+            scan_cases(rng, dev, shapes, di, ds, u_dtype), shapes):
+        dy = torch.from_numpy(rng.standard_normal((b, s, di)).astype(
+            np.float32)).to(dev)
+        ins = sum(a.numel() * a.element_size() for a in args[:6]) \
+            + dy.numel() * 4
+        outs = args[0].element_size() * b * s * di \
+            + 4 * (b * s * di + 2 * b * s * ds + di * ds + di)
+        out.append((name.replace("selective_scan", "selective_scan_bwd"),
+                    ((*args, None), dy, None), ins + outs, n_exp,
+                    12 * b * s * di * ds))
+    return out
+
+
+def check_scan_bwd(dev, card: str, clock_hz: float, cases) -> dict:
+    """Row 9b: the backward kernel against the plain backward at each
+    case (``check_scan_bwd_call``), timed as phase 2 times the kernels:
+    CUPTI device time over 20 calls, CUDA events around one call.  The
+    plain backward (autograd through the plain scan, a Python loop over
+    the steps: ~10**5 small kernels at 1 x 4,096, paced by the host) is
+    timed once, by CUDA events around its call."""
+    from repro_torch.kernels import selective_scan as scan_kernel
+    results = {}
+    sfu_per_s = SFU_PER_CLOCK_PER_SM * H100_SMS * clock_hz
+    for name, (args, dy, dh), nbytes, n_exp, n_ops in cases:
+        call = (*args, dy, dh)
+        errs, plain_ms = check_scan_bwd_call(dev, call)
+        times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "exponentials": n_exp / sfu_per_s * 1e3,
+                 "fp32 operations": n_ops / SCALAR_OPS_PER_S * 1e3}
+        worst = max(times, key=times.get)
+
+        def kern(c=call):
+            return scan_kernel.selective_scan_bwd(*c)
+
+        res = dict(max_abs_err=max(errs.values()), errs=errs,
+                   ms=device_ms(kern, 20), plain_ms=plain_ms,
+                   bound_ms=times[worst],
+                   bound_by="bytes" if worst == "bytes" else "operations",
+                   library_ms=None, call_ms=call_ms(kern, 20),
+                   plain_call_ms=plain_ms)
+        log(f"  {name:26s} u {tuple(args[0].shape)}: max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (limit {SCAN_TOL} of each largest), two runs equal bit for "
+            f"bit; device time kernel {res['ms']:.4f} ms (two kernels: the "
+            f"scan and the ordered sums), plain {res['plain_ms']:.4f} ms "
+            f"(one call, CUDA events); "
+            f"bound {res['bound_ms']:.4f} ms by {worst} (bytes "
+            f"{times['bytes']:.4f}, exponentials {times['exponentials']:.4f} "
+            f"at {clock_hz / 1e6:.0f} MHz, fp32 operations "
+            f"{times['fp32 operations']:.4f}); one call {res['call_ms']:.4f} "
+            f"ms; library: none ({NO_LIBRARY}) [{card}]")
+        results[name] = res
+    return results
+
+
+@contextlib.contextmanager
+def watch_checkpoint_stores(keep_dir: str):
+    """For every ``CheckpointStore`` opened inside, record its engine's
+    kept jobs (``keep_jobs`` with ``first``) and first flushes (``keep_flushes``),
+    its ``DBStats`` when it closes, and each save's and restore's seconds,
+    bytes and records.  Yields ``{"jobs", "flushes", "stats", "save_s",
+    "saved", "records", "restore_s", "restored"}``."""
+    from repro_torch.checkpoint import store as ckpt
+    seen = dict(jobs=[], flushes=[], stats=[], save_s=[], saved=[],
+                records=[], restore_s=[], restored=[])
+    real = {k: getattr(ckpt.CheckpointStore, k)
+            for k in ("__init__", "close", "save", "restore")}
+
+    def init(self, *a, **kw):
+        real["__init__"](self, *a, **kw)
+        d = os.path.join(keep_dir, str(len(seen["stats"])) + "-" +
+                         str(time.perf_counter_ns()))
+        os.makedirs(d)
+        self._kept = (keep_jobs(self.db.engine, d, first=KEPT_CKPT_JOBS),
+                      keep_flushes(self.db.engine, KEPT_CKPT_FLUSHES))
+
+    def close(self):
+        seen["stats"].append(self.db.stats)
+        seen["jobs"].extend(self._kept[0])
+        seen["flushes"].extend(self._kept[1])
+        real["close"](self)
+
+    def save(self, step, tree):
+        t0 = time.perf_counter()
+        out = real["save"](self, step, tree)
+        seen["save_s"].append(time.perf_counter() - t0)
+        seen["saved"].append(sum(t["bytes"] for t in out["tensors"]))
+        seen["records"].append(self.db.stats.puts)
+        return out
+
+    def restore(self, step, like=None):
+        t0 = time.perf_counter()
+        out = real["restore"](self, step, like)
+        sync(self.device)
+        seen["restore_s"].append(time.perf_counter() - t0)
+        seen["restored"].append(sum(a.numel() * a.element_size()
+                                    for a in tree_leaves(out)))
+        return out
+
+    with mock.patch.multiple(ckpt.CheckpointStore, __init__=init,
+                             close=close, save=save, restore=restore):
+        yield seen
+
+
+def trimmed(state):
+    """A training state without its vocab-sized leaves (the embedding
+    table, the head and their moments): the tree the cpu twin store
+    takes, whose plain-version flushes and compactions on the CPU would
+    otherwise take minutes."""
+    def keep(tree):
+        return {k: v for k, v in tree.items() if k not in ("embed", "head")}
+    return type(state)(keep(state.params), type(state.opt)(
+        keep(state.opt.m), keep(state.opt.v), state.opt.step))
+
+
+def train_ckpt(work: str, dev, cfg, *, loop_kw: dict | None = None) -> dict:
+    """(b): the same ``Trainer`` run uninterrupted and under ``Supervisor``
+    with a failure at ``CKPT_FAIL``, both checkpointing through the port's
+    LSM store on ``dev``; the resumed run's losses equal the
+    uninterrupted run's bit for bit after the resume, the last step's
+    restore equals the saved state bit for bit, ``steps()`` keeps the
+    newest ``keep_ckpts``, the store's compactions on the card dropped
+    records that ``gc``'s tombstones shadowed, the kept jobs and flushes
+    (``watch_checkpoint_stores``) rebuilt byte-identical on the plain
+    versions, and a ``cpu`` store given the same trees writes the same
+    SST files."""
+    from repro_torch.checkpoint import store as ckpt
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.distributed.fault_tolerance import Supervisor
+    from repro_torch.training.train_loop import Trainer, TrainLoopConfig
+    loop = TrainLoopConfig(**(loop_kw or CKPT_LOOP))
+    keep = os.path.join(work, "kept")
+    ops.reset_launch_counts()
+    with watch_checkpoint_stores(keep) as seen:
+        plain_dir = os.path.join(work, "uninterrupted")
+        first = Trainer(cfg, loop, plain_dir, device=dev)
+        plain = first.run()
+        made = []
+        fail_dir = os.path.join(work, "failed")
+
+        def make_trainer(attempt):
+            made.append(Trainer(cfg, loop, fail_dir, device=dev,
+                                fail_at_step=CKPT_FAIL if attempt == 0
+                                else None))
+            return made[-1]
+
+        failed = Supervisor(make_trainer).run()
+        store = CheckpointStore(fail_dir, device=dev)
+        steps = store.steps()
+        last = store.restore(steps[-1], like=made[-1].state_struct)
+        store.close()
+    launches = ops.launch_counts()
+    resumed = [s for s, _ in failed.losses]
+    if failed.restarts != 1 or \
+            resumed[0] != CKPT_FAIL // loop.ckpt_every * loop.ckpt_every:
+        raise AssertionError(f"[13] (b) restarts {failed.restarts}, resumed "
+                             f"at {resumed[0]}")
+    before = dict(plain.losses)
+    for s, loss in failed.losses:
+        if loss != before[s]:
+            raise AssertionError(f"[13] (b) step {s}: resumed loss {loss!r} "
+                                 f"!= uninterrupted {before[s]!r}")
+    if not same_state(last, made[-1].state) or \
+            not same_state(first.state, made[-1].state):
+        raise AssertionError("[13] (b) the restored last step differs from "
+                             "the saved state")
+    saved = {*range(loop.ckpt_every, loop.steps + 1, loop.ckpt_every),
+             loop.steps}
+    if steps != sorted(saved)[-loop.keep_ckpts:]:
+        raise AssertionError(f"[13] (b) steps() {steps} after saves at "
+                             f"{sorted(saved)}")
+    deletes = sum(st.deletes for st in seen["stats"])
+    dropped = sum(st.compact_entries_dropped for st in seen["stats"])
+    if not (deletes and dropped):
+        raise AssertionError(f"[13] (b) gc deleted {deletes} records, the "
+                             f"compactions dropped {dropped}")
+    t1 = time.perf_counter()
+    db_cfg = ckpt.checkpoint_db_config()
+    geom = db_cfg.geom
+    jobs = check_jobs(seen["jobs"], geom, dev)
+    flushed = check_flushes(seen["flushes"], geom, dev)
+    check_s = time.perf_counter() - t1
+    # the same trees through a store on the card and one on the CPU: the
+    # same SST files
+    t1 = time.perf_counter()
+    twin = trimmed(last)
+    digests = []
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        d = os.path.join(work, f"twin-{name}")
+        st = CheckpointStore(d, device=device)
+        for k in range(1, TWIN_STEPS + 1):
+            st.save(k, tree_map(lambda a, k=k: a + k if a.is_floating_point()
+                                else a, twin))
+            st.gc(st.steps()[-2:])
+        digests.append(sst_digests(d))
+        st.close()
+    if digests[0] != digests[1]:
+        raise AssertionError("[13] (b) a cpu store given the same trees "
+                             "wrote other SST files")
+    twin_s = time.perf_counter() - t1
+    return dict(
+        cfg=cfg, loop=loop, geom=geom, memtable=db_cfg.memtable_bytes,
+        n_params=sum(a.numel() for a in tree_leaves(last.params)),
+        plain=plain.losses, resumed=failed.losses, restarts=failed.restarts,
+        steps=steps, saves=seen["save_s"], saved=seen["saved"],
+        records=seen["records"], restores=seen["restore_s"],
+        restored=seen["restored"], stores=len(seen["stats"]),
+        flushes=sum(st.flushes for st in seen["stats"]),
+        compactions=sum(st.compactions for st in seen["stats"]),
+        puts=sum(st.puts for st in seen["stats"]), deletes=deletes,
+        dropped=dropped, jobs=jobs, flushes_checked=flushed,
+        launches={k: n for k, n in launches.items() if n},
+        check_s=check_s, twin_s=twin_s, twin_files=len(digests[0]),
+        twin_bytes=sum(a.numel() * a.element_size()
+                       for a in tree_leaves(twin)))
+
+
+def launcher_run(work: str, dev, args=LAUNCH_ARGS) -> dict:
+    """(c): ``python -m repro_torch.launch.train`` as a user runs it (on
+    the card unless ``dev`` is the CPU): it must print ``restarts=1`` and
+    a finite final loss."""
+    ckpt = os.path.join(work, "launcher")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *args,
+           "--ckpt", ckpt]
+    if torch.device(dev).type == "cpu":
+        cmd += ["--device", "cpu"]
+    src = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=LAUNCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"[13] (c) the launcher exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    fields = dict(f.split("=", 1) for f in last.split()[1:])
+    loss = float(fields["final-loss"])
+    if not (last.startswith("finished:") and fields["restarts"] == "1"
+            and np.isfinite(loss)):
+        raise AssertionError(f"[13] (c) the launcher printed {last!r}")
+    return dict(cmd=" ".join(["python", "-m", "repro_torch.launch.train",
+                              *args]), line=last, seconds=seconds,
+                restarts=int(fields["restarts"]), loss=loss,
+                supervisor=[line for line in out.stdout.splitlines()
+                            if line.startswith("[supervisor]")])
+
+
+def train_phase(work: str, dev, *, configs: dict | None = None,
+                full_sizes: dict | None = None,
+                ckpt_loop: dict | None = None, launcher_args=LAUNCH_ARGS,
+                report=None) -> dict:
+    """Phase 13: (a) ``train_full``, (b) ``train_ckpt``, (c)
+    ``launcher_run``; ``report(part, result)`` as each part ends.
+    ``launches`` sums the kernel launches of (a) and (b), each counted
+    from 0 around its path.  (``configs``, the sizes, the loop and the
+    launcher's arguments scale the phase down for a rehearsal.)"""
+    configs = configs or train_configs()
+    report = report or (lambda part, r: None)
+    out = {}
+    t0 = time.perf_counter()
+    out["a"] = train_full(configs["full"], dev, **(full_sizes or {}))
+    out["a"]["seconds"] = time.perf_counter() - t0
+    report("a", out["a"])
+    t0 = time.perf_counter()
+    out["b"] = train_ckpt(work, dev, configs["ckpt"], loop_kw=ckpt_loop)
+    out["b"]["seconds"] = time.perf_counter() - t0
+    report("b", out["b"])
+    out["c"] = launcher_run(work, dev, launcher_args)
+    report("c", out["c"])
+    launches = collections.Counter(out["a"]["launches"])
+    launches.update(out["b"]["launches"])
+    out["launches"] = dict(launches)
+    return out
+
+
+def train_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The phase-13 report of (a), (b) or (c)."""
+    if part == "a":
+        cfg, bound = r["cfg"], r["bound"]
+        timed = (f"{r['mean_ms']:.2f} ms a step (CUDA events, mean of steps "
+                 f"2-{len(r['step_ms'])}; each "
+                 + ", ".join(f"{t:.2f}" for t in r["step_ms"]) + "), "
+                 f"{r['tokens_per_s']:.1f} tokens/s"
+                 if r["mean_ms"] else "no device time on the CPU")
+        peak = f"{r['peak'] / 1e9:.2f} GB" if r["peak"] else "not measured"
+        parts = "; ".join(
+            f"{k} {ms:.3f} ms (" + (f"{n / 1e9:.3g} GB" if k == "optimizer"
+                                    else f"{n / 1e12:.3g} TFLOP") + ")"
+            for k, (n, ms) in bound["parts"].items())
+        return [
+            f"[13] (a) {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, d_inner {cfg.d_inner}, vocab {cfg.vocab} padded "
+            f"to {lm.padded_vocab(cfg)}, {r['n_params']:,} parameters; "
+            f"{cfg.dtype} compute, fp32 master weights and moments, remat "
+            f"{cfg.remat}; {r['batch']} x {r['seq']} tokens a step, "
+            f"{len(r['losses'])} steps; built in {r['init_s']:.1f} s",
+            f"[13] (a) step: {timed}; peak allocated {peak} [{card}]",
+            f"[13] (a) the step's bound {bound['ms']:.3f} ms: {parts}; the "
+            + (f"step is {r['mean_ms'] / bound['ms']:.2f} x its bound"
+               if r["mean_ms"] else "step is not timed on the CPU"),
+            f"[13] (a) loss " + ", ".join(f"{x:.4f}" for x in r["losses"])
+            + "; grad_norm " + ", ".join(f"{x:.4g}" for x in
+                                        r["grad_norms"]),
+            f"[13] (a) launches {r['launches']} ({cfg.n_layers} layers x "
+            f"{len(r['losses'])} steps, the forward "
+            f"{'twice (remat) ' if cfg.remat else ''}and the backward once "
+            f"a layer); the last step's last-layer backward (u "
+            f"{r['kept_shape']}) again on its kept inputs: two runs equal "
+            "bit for bit, max abs err against the plain backward "
+            + ", ".join(f"{k} {v:.3g}" for k, v in r["bwd_err"].items())
+            + f" (limit {SCAN_TOL} of each largest)",
+            f"[13] (a) {r['seconds']:.1f} s"]
+    if part == "b":
+        cfg, loop = r["cfg"], r["loop"]
+        mb = [b / 1e6 for b in r["saved"]]
+        rates = ", ".join(f"{s:.2f} s ({b / s:.1f} MB/s)"
+                          for s, b in zip(r["saves"], mb))
+        rrates = ", ".join(f"{s:.2f} s ({b / 1e6 / s:.1f} MB/s)"
+                           for s, b in zip(r["restores"], r["restored"]))
+        return [
+            f"[13] (b) {cfg.name} cut to {cfg.n_layers} layers and d_model "
+            f"{cfg.d_model} (vocab {cfg.vocab} kept), {r['n_params']:,} "
+            f"parameters: Trainer, {loop.steps} steps of {loop.batch} x "
+            f"{loop.seq}, a checkpoint every {loop.ckpt_every}, "
+            f"{loop.keep_ckpts} kept, through CheckpointStore on the card "
+            f"({r['geom'].value_bytes:,} B values, "
+            f"{r['geom'].block_bytes // 1024} KiB blocks, "
+            f"{r['memtable'] // 1024} KiB memtables)",
+            f"[13] (b) uninterrupted losses "
+            + ", ".join(f"{s}: {x!r}" for s, x in r["plain"]),
+            f"[13] (b) under Supervisor with a failure at step {CKPT_FAIL}: "
+            f"{r['restarts']} restart, resumed at step {r['resumed'][0][0]}; "
+            f"every loss after the resume equal to the uninterrupted run's "
+            f"bit for bit; the restored step {r['steps'][-1]} equals the "
+            f"saved state bit for bit; steps() {r['steps']}",
+            f"[13] (b) saves ({len(r['saves'])}, "
+            f"{mb[0]:.1f} MB each, records {r['records']}): {rates}; "
+            f"restores: {rrates} [{card}]",
+            f"[13] (b) {r['stores']} store opens: {r['puts']} puts, "
+            f"{r['deletes']} gc deletes, {r['flushes']} flushes, "
+            f"{r['compactions']} compactions, which dropped {r['dropped']} "
+            f"records shadowed by gc's tombstones; {len(r['jobs'])} jobs "
+            f"(each store's first {KEPT_CKPT_JOBS} and every one that "
+            f"dropped records) and {len(r['flushes_checked'])} flushes "
+            f"byte-identical to their reruns on the plain versions "
+            f"({r['check_s']:.1f} s)",
+            f"[13] (b) the last state without its vocab-sized leaves "
+            f"({r['twin_bytes'] / 1e6:.1f} MB) saved {TWIN_STEPS} times with "
+            f"gc into a store on the card and one on the CPU: the same "
+            f"{r['twin_files']} SST files ({r['twin_s']:.1f} s)",
+            f"[13] (b) launches {r['launches']}",
+            f"[13] (b) {r['seconds']:.1f} s"]
+    return [f"[13] (c) {r['cmd']}: {' / '.join(r['supervisor'])}; "
+            f"{r['line']} ({r['seconds']:.1f} s)"]
+
+
 def watch_engines():
     """Record every ``TorchCompactionEngine`` built from now on: returns
     the list they are appended to and the patch (``stop()`` ends it)."""
@@ -5971,26 +6614,54 @@ def main(argv: list[str]) -> int:
         f"{k} {p12['launches'].get(k, 0)}" for k in KERNELS))
     log(no_launch_retries(built, 12))
     log(f"[12] {time.perf_counter() - t0:.1f} s")
+    free_card(dev)
+
+    log(f"[13] training on the card: {FALCON} at full width cut to "
+        f"{TRAIN_LAYERS} layers, then cut to {CKPT_LAYERS} layers and "
+        f"d_model {CKPT_D_MODEL} through the LUDA checkpoint store with a "
+        "failure and a restart, then the launcher; the selective-scan "
+        "backward kernel against the plain backward")
+    t0 = time.perf_counter()
+    checks.update(check_scan_bwd(dev, card, clock_hz, bwd_cases(
+        np.random.default_rng(2030), dev, di=cfg.d_inner,
+        ds=cfg.ssm_state)))
+    built, watching = watch_engines()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        ROOT, "build"))
+    try:
+        p13 = train_phase(work, dev, report=lambda part, r: log(
+            "\n".join(train_part_lines(part, r, card))))
+    finally:
+        watching.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    idle = [k for k in WRITE_PATH + ("selective_scan", "selective_scan_bwd")
+            if not p13["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"kernels not launched in phase 13: {idle}")
+    log(f"[13] launches (a), (b): " + ", ".join(
+        f"{k} {p13['launches'].get(k, 0)}" for k in KERNELS))
+    log(no_launch_retries(built, 13))
+    log(f"[13] {time.perf_counter() - t0:.1f} s")
 
     # the main paths: phase 3's store (with phase 4's device sort and
     # phase 5's prefill), phase 9's async stores, phase 10's faults,
-    # phase 11's instrumented stores and phase 12's archs
+    # phase 11's instrumented stores, phase 12's archs and phase 13's
+    # training
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
     kernels = []
     for name, (entry, case, source, replaces) in KERNELS.items():
         r = checks[case]
+        by_path = {"store": path_launches.get(entry, 0),
+                   "async": p9["launches"].get(entry, 0),
+                   "faults": p10["launches"].get(entry, 0),
+                   "obs": p11["launches"].get(entry, 0),
+                   "archs": p12["launches"].get(entry, 0),
+                   "train": p13["launches"].get(entry, 0)}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(path_launches[entry] + p9["launches"][entry] +
-                      p10["launches"][entry] + p11["launches"][entry] +
-                      p12["launches"].get(entry, 0)),
-            launches_by_path={"store": path_launches[entry],
-                              "async": p9["launches"][entry],
-                              "faults": p10["launches"][entry],
-                              "obs": p11["launches"][entry],
-                              "archs": p12["launches"].get(entry, 0)},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -5998,7 +6669,7 @@ def main(argv: list[str]) -> int:
     for case in ("merge_runs/262144", f"merge_runs/{BATCH_JOBS}x65536",
                  f"prefix_encode/wire{BATCH_JOBS}", "bitonic_sort/262144",
                  "bloom_multi_probe/1024", "lookup_blocks/1024",
-                 "selective_scan/1x4096"):
+                 "selective_scan/1x4096", "selective_scan_bwd/1x4096"):
         big = checks[case]
         log(f"{case}: device time kernel {big['ms']:.4f} ms, plain "
             f"{big['plain_ms']:.4f} ms, bound {big['bound_ms']:.4f} ms; one "

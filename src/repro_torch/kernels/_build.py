@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("crc32.cu", "merge_path.cu", "prefix.cu", "bloom.cu", "lookup.cu",
-           "bitonic.cu", "selective_scan.cu")
+           "bitonic.cu", "selective_scan.cu", "selective_scan_bwd.cu")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -53,6 +53,7 @@ SIGNATURES = {
                      _P),
     "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P),
+    "selective_scan_bwd": (_P, _I) + (_P,) * 19 + (_I, _I, _I, _I, _P),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

@@ -179,13 +179,49 @@ def merge_runs(rows: torch.Tensor, run_lens=None) -> torch.Tensor:
     return ref.merge_runs(rows, run_lens)
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """The scan with its gradient: the forward as :func:`selective_scan`
+    without gradients, the backward ``selective_scan_bwd`` on the card and
+    ``ref.selective_scan_bwd`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, u, dt, b, c, a_log, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, b, c, a_log, d_skip, h0)
+        if _on_card(u):
+            return _scan.selective_scan(u, dt, b, c, a_log, d_skip, h0)
+        return ref.selective_scan(u, dt, b, c, a_log, d_skip, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        u, dt, b, c, a_log, d_skip, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+        bwd = _scan.selective_scan_bwd if _on_card(u) else \
+            ref.selective_scan_bwd
+        du, ddt, db, dc, da_log, dd_skip, dh0 = bwd(
+            u, dt, b, c, a_log, d_skip, h0, dy, dh_last)
+        return (du, ddt.to(dt.dtype), db.to(b.dtype),
+                dc.to(c.dtype), da_log.to(a_log.dtype),
+                dd_skip.to(d_skip.dtype),
+                None if dh0 is None else dh0.to(h0.dtype))
+
+
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, a_log: torch.Tensor, d_skip: torch.Tensor,
                    h0: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The Mamba-1 forward recurrence in fp32: ``(y [B, S, di],
     h_last [B, di, ds])``, ``y`` with the ``D * u`` skip added; ``h0`` is
-    a carried state (None: zeros).  Contract as ``ref.selective_scan``."""
+    a carried state (None: zeros).  Contract as ``ref.selective_scan``.
+    When an input requires a gradient (and gradients are on), the call is
+    differentiable: its backward is ``selective_scan_bwd`` on the card,
+    ``ref.selective_scan_bwd`` on the CPU; otherwise it is the forward
+    alone and saves nothing."""
+    args = (u, dt, b, c, a_log, d_skip, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args)
     if _on_card(u):
-        return _scan.selective_scan(u, dt, b, c, a_log, d_skip, h0)
-    return ref.selective_scan(u, dt, b, c, a_log, d_skip, h0)
+        return _scan.selective_scan(*args)
+    return ref.selective_scan(*args)

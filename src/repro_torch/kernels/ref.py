@@ -13,7 +13,8 @@ below widen words to ``int64`` holding the unsigned value
 (:func:`u32`), do their arithmetic there, mask back to 32 bits after each
 ``+``, ``*`` and ``<<``, and return ``int32`` bit patterns
 (:func:`as_i32`).  Unsigned order is the order of the widened values.
-The selective scan (:func:`selective_scan`) works on floats and is held
+The selective scan (:func:`selective_scan`, and its gradient
+:func:`selective_scan_bwd`) works on floats and is held
 against the JAX oracle within a stated tolerance instead.
 """
 
@@ -445,3 +446,29 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         h = da * h + dbu
         y[:, t] = (h * c[:, t, None, :]).sum(-1) + d_skip * u[:, t]
     return y, h
+
+
+def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a_log: torch.Tensor,
+                       d_skip: torch.Tensor, h0: torch.Tensor | None,
+                       dy: torch.Tensor, dh_last: torch.Tensor | None = None
+                       ) -> tuple:
+    """The gradient of :func:`selective_scan`: autograd through it, the
+    forward recomputed under ``torch.enable_grad``.  Returns ``(du, ddt,
+    db, dc, da_log, dd_skip, dh0)``: ``du`` in ``u``'s dtype (the gradient
+    taken in fp32, as the scan reads ``u``, then rounded once), the rest
+    fp32, ``dh0`` None when ``h0`` is None; ``dh_last`` None means no
+    gradient reaches ``h_last``."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        ins = [x.detach().to(f32).requires_grad_()
+               for x in (u, dt, b, c, a_log, d_skip)]
+        h = None if h0 is None else h0.detach().to(f32).requires_grad_()
+        y, h_last = selective_scan(*ins, h)
+        outs, grads = [y], [dy.to(f32)]
+        if dh_last is not None:
+            outs.append(h_last)
+            grads.append(dh_last.to(f32))
+        wrt = ins + ([] if h is None else [h])
+        got = torch.autograd.grad(outs, wrt, grads)
+    return (got[0].to(u.dtype), *got[1:6], None if h is None else got[6])

@@ -5,7 +5,8 @@ A tree is nested dicts, lists and tuples whose leaves are arrays (or
 None), the layout of the JAX package's pytrees.  ``params_from_numpy``
 takes such a tree with numpy leaves -- the JAX side makes it with
 ``jax.tree.map(np.asarray, params)`` -- and returns the port's tree of
-tensors.  This module imports neither ``jax`` nor ``repro``.
+tensors; ``train_state_from_numpy`` does the same for a whole training
+state.  This module imports neither ``jax`` nor ``repro``.
 """
 
 from __future__ import annotations
@@ -16,13 +17,16 @@ import torch
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and the leaves at the same place
-    in each tree of ``rest``), keeping the structure; None stays None."""
+    in each tree of ``rest``), keeping the structure (named tuples too);
+    None stays None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -53,3 +57,17 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
     """The JAX package's params (or cache, or state), as nested dicts and
     lists of numpy arrays, as the port's tree of tensors on ``device``."""
     return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)
+
+
+def train_state_from_numpy(state, device):
+    """The JAX package's ``TrainState`` (``(params, (m, v, step))`` with
+    numpy leaves, ``jax.tree.map(np.asarray, state)``) as the port's
+    ``training.train_step.TrainState`` on ``device``, dtypes kept (bf16
+    moments too), so that both packages step from the same state."""
+    from repro_torch.training.optimizer import OptState
+    from repro_torch.training.train_step import TrainState
+    params, (m, v, step) = state
+    return TrainState(params=params_from_numpy(params, device),
+                      opt=OptState(m=params_from_numpy(m, device),
+                                   v=params_from_numpy(v, device),
+                                   step=tensor_from_numpy(step, device)))

@@ -6,18 +6,20 @@ Params and caches keep the JAX package's tree layout: ``{"blocks": {"p0":
 embedding, final norm and head (and, for the encoder-decoder arch,
 ``enc_blocks``, ``enc_tail``, ``enc_norm``; for the frontend archs,
 ``frontend.proj``).  JAX's ``lax.scan`` over periods is a Python loop over
-the leading dim here.  ``lm_loss`` waits for the training slice (ROADMAP
-A14).
+the leading dim here.  ``lm_loss`` is the training loss; with ``cfg.remat``
+each layer of ``forward_hidden`` is recomputed in the backward, as JAX's
+``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as remat
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.convert import tree_map
+from repro_torch.models.convert import tree_leaves, tree_map
 
 VOCAB_PAD = 2048
 
@@ -131,6 +133,19 @@ def _layer(stack: dict, j: int) -> dict:
     return tree_map(lambda a: a[j], stack)
 
 
+def _layers(stack: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, one ``unbind`` a leaf: the
+    backward of ``n`` separate indexings would write ``n`` stack-sized
+    gradients (``_layer`` is kept for the cached paths, which run without
+    gradients)."""
+    parts = [a.unbind(0) for a in tree_leaves(stack)]
+    out = []
+    for j in range(n):
+        it = iter([p[j] for p in parts])
+        out.append(tree_map(lambda _: next(it), stack))
+    return out
+
+
 def _stacked(trees: list) -> dict:
     return tree_map(lambda *a: torch.stack(a), trees[0], *trees[1:])
 
@@ -142,19 +157,37 @@ def _stacked(trees: list) -> dict:
 
 def _run_stack(stack: dict, tail: list, x: torch.Tensor, cfg: ModelConfig,
                positions, *, causal: bool = True, enc_kv=None):
-    """The stacked periods, then the tail.  Returns ``(x, aux)``."""
+    """The stacked periods, then the tail.  Returns ``(x, aux)``.  With
+    ``cfg.remat`` and gradients on, each period (and each tail block) is
+    recomputed in the backward (``torch.utils.checkpoint``, non-reentrant),
+    as JAX's ``jax.checkpoint`` of its scan body and tail blocks."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     first = stack.get("p0") if stack else None
     n = 0 if first is None else first["norm1"]["scale"].shape[0]
-    for j in range(n):
+    recompute = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if recompute:
+            return remat.checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def period(x, lps):
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos in range(cfg.period):
-            x, a = blocks.block_forward(_layer(stack[f"p{pos}"], j), x, cfg,
-                                        pos, positions, causal=causal,
-                                        enc_kv=enc_kv)
-            aux = aux + a
+            x, a_pos = blocks.block_forward(lps[pos], x, cfg, pos,
+                                            positions, causal=causal,
+                                            enc_kv=enc_kv)
+            a = a + a_pos
+        return x, a
+
+    per_pos = [_layers(stack[f"p{pos}"], n) for pos in range(cfg.period)] \
+        if n else []
+    for j in range(n):
+        x, a = run(period, x, [layers_[j] for layers_ in per_pos])
+        aux = aux + a
     for i, lp in enumerate(tail):
-        x, a = blocks.block_forward(lp, x, cfg, i, positions, causal=causal,
-                                    enc_kv=enc_kv)
+        x, a = run(lambda x, lp=lp, i=i: blocks.block_forward(
+            lp, x, cfg, i, positions, causal=causal, enc_kv=enc_kv), x)
         aux = aux + a
     return x, aux
 
@@ -214,9 +247,49 @@ def forward(params: dict, batch: dict, cfg: ModelConfig):
     return layers.logits(_head(params), x, cfg), aux
 
 
-def lm_loss(params: dict, batch: dict, cfg: ModelConfig, **kw):
-    raise NotImplementedError("lm_loss waits for the training slice "
-                              "(ROADMAP A14); the port serves only")
+def _ce_chunk(head: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
+              cfg: ModelConfig):
+    """One chunk's summed next-token NLL and its count of labels >= 0."""
+    lg = layers.logits(head, xc, cfg)
+    mask = (lc >= 0).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
+            aux_weight: float = 0.01, loss_chunk: int = 1024):
+    """Next-token cross entropy (+ MoE aux).  Returns ``(loss, {"ce",
+    "aux"})``.
+
+    The CE is computed in sequence chunks of ``loss_chunk`` (the largest
+    divisor of the length at most that), each recomputed in the backward
+    (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint``), so only one
+    chunk of fp32 logits is held.  A vision arch's labels align right
+    (the hidden states cover the patch prefix too)."""
+    x, aux = forward_hidden(params, batch, cfg)
+    labels = batch["labels"]                      # [B, S_lab]
+    x = x[:, -labels.shape[1]:]
+    hx = x[:, :-1]
+    hl = labels[:, 1:]
+    head = _head(params)
+    s = hx.shape[1]
+    chunk = min(loss_chunk, s)
+    while s % chunk:
+        chunk -= 1
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for k in range(0, s, chunk):
+        xc, lc = hx[:, k:k + chunk], hl[:, k:k + chunk]
+        if torch.is_grad_enabled():
+            part, n = remat.checkpoint(_ce_chunk, head, xc, lc, cfg,
+                                       use_reentrant=False)
+        else:
+            part, n = _ce_chunk(head, xc, lc, cfg)
+        nll_sum = nll_sum + part
+        cnt = cnt + n
+    loss = nll_sum / torch.clamp(cnt, min=1.0)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -557,6 +557,108 @@ def test_selective_scan(dev, b, s, di, ds, u_dtype, with_h0):
         1e-4 * float(want_h.abs().max())
 
 
+SCAN_GRADS = ("du", "ddt", "db", "dc", "da_log", "dd_skip", "dh0")
+
+
+@pytest.mark.parametrize("b,s,di,ds,u_dtype,with_h0,with_dh", [
+    (4, 512, 8192, 16, torch.bfloat16, False, False),
+    # S not a multiple of the 16-step chunk, ds < 16, B = 1, S = 1, di not
+    # a multiple of a block's 32 channels
+    (2, 37, 70, 5, torch.float32, True, True),
+    (1, 17, 100, 16, torch.bfloat16, True, False),
+    (3, 1, 8192, 1, torch.bfloat16, False, True),
+    (1, 33, 4100, 3, torch.float32, False, False),
+    (2, 16, 64, 16, torch.float32, True, True)])
+def test_selective_scan_bwd(dev, b, s, di, ds, u_dtype, with_h0, with_dh):
+    """The backward kernel against the plain backward (autograd through
+    the plain scan): each gradient within 1e-4 of its largest magnitude
+    (both sum in fp32; ex2.approx against exp, and other summation
+    orders), ``du`` in ``u``'s dtype and the rest fp32; a bf16 ``du`` also
+    within one bf16 ulp of the plain value (2**-7 of it), as each side
+    rounds its own fp32 sum once; one launch, and a rerun equal bit for
+    bit (no float atomics)."""
+    rng = np.random.default_rng(s + ds)
+    args = scan_inputs(rng, b, s, di, ds, dev, u_dtype, with_h0)
+    dy = torch.from_numpy(rng.standard_normal((b, s, di)).astype(
+        np.float32)).to(dev)
+    dh = torch.from_numpy(rng.standard_normal((b, di, ds)).astype(
+        np.float32)).to(dev) if with_dh else None
+    from repro_torch.kernels import selective_scan as scan
+    got = one_launch("selective_scan_bwd",
+                     lambda: scan.selective_scan_bwd(*args, dy, dh))
+    again = scan.selective_scan_bwd(*args, dy, dh)
+    want = ref.selective_scan_bwd(*args, dy, dh)
+    torch.cuda.synchronize()
+    assert (got[6] is None) == (not with_h0)
+    for name, g, a, w in zip(SCAN_GRADS, got, again, want):
+        if w is None:
+            continue
+        dtype = u_dtype if name == "du" else torch.float32
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        g, w = g.float(), w.float()
+        lim = 1e-4 * float(w.abs().max())
+        if dtype == torch.bfloat16:
+            lim = lim + 2.0 ** -7 * w.abs()
+        assert bool(((g - w).abs() <= lim).all()), name
+
+
+def test_selective_scan_gradient_through_autograd_on_the_card(dev):
+    """``ops.selective_scan`` with inputs that need gradients: one forward
+    launch, and one ``selective_scan_bwd`` launch in the backward, whose
+    gradients (``du`` in ``u``'s bf16, as the kernel writes it) are the
+    kernel's."""
+    rng = np.random.default_rng(5)
+    args = [a.requires_grad_() for a in
+            scan_inputs(rng, 2, 40, 256, 16, dev, torch.bfloat16, True)]
+    before = ops.launch_counts()
+    y, h = ops.selective_scan(*args)
+    dy = torch.randn_like(y)
+    torch.autograd.backward([y], [dy])
+    after = ops.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]}\
+        == {"selective_scan": 1, "selective_scan_bwd": 1}
+    from repro_torch.kernels import selective_scan as scan
+    want = scan.selective_scan_bwd(*[a.detach() for a in args], dy)
+    assert args[0].grad.dtype == want[0].dtype == torch.bfloat16
+    assert torch.equal(args[0].grad, want[0])
+    for a, w in zip(args[1:], want[1:]):
+        assert torch.equal(a.grad, w)
+
+
+def test_train_step_on_the_card_as_on_the_cpu(dev):
+    """falcon-mamba-7b's smoke config at fp32 with remat: two
+    ``train_step``s on the card and on the CPU from the same state, losses
+    and params within 1e-4; each step launches the scan twice a layer (the
+    forward and remat's recompute) and its backward once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.convert import tree_leaves, tree_map
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training import train_step as ts
+    cfg = get_smoke_config("falcon-mamba-7b").with_(
+        dtype="float32", remat=True)
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=2)
+    cpu = ts.init_state(0, cfg, opt, device="cpu")
+    card = tree_map(lambda a: a.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    for _ in range(2):
+        before = ops.launch_counts()
+        card, mc = ts.train_step(card, {"tokens": toks.to(dev),
+                                        "labels": toks.to(dev)},
+                                 cfg=cfg, opt_cfg=opt)
+        after = ops.launch_counts()
+        assert after["selective_scan"] - before["selective_scan"] == \
+            2 * cfg.n_layers
+        assert after["selective_scan_bwd"] - before["selective_scan_bwd"] \
+            == cfg.n_layers
+        cpu, m = ts.train_step(cpu, {"tokens": toks, "labels": toks},
+                               cfg=cfg, opt_cfg=opt)
+        assert float(mc["loss"]) == pytest.approx(float(m["loss"]), rel=1e-4)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
 def test_falcon_prefill_then_decode_equals_prefill(dev):
     """falcon-mamba-7b at full width and 4 layers: prefilling 63 tokens and
     decoding the 64th gives the 64-token prefill's last logits within

@@ -124,12 +124,6 @@ def test_every_arch_builds_with_the_jax_tree_layout(arch):
         sum(int(np.prod(w.shape)) for w in jax.tree.leaves(want))
 
 
-def test_training_waits():
-    cfg = tconfigs.get_smoke_config(FALCON)
-    with pytest.raises(NotImplementedError, match="A14"):
-        model.lm_loss({}, {}, cfg)
-
-
 # ---------------------------------------------------------------------------
 # init: the JAX tree layout, the JAX scales
 # ---------------------------------------------------------------------------

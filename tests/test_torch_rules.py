@@ -24,12 +24,15 @@ from repro_torch.kernels import ops
 from repro_torch.data.ycsb import WorkloadSpec
 from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.lsm.sharded import ShardedDB
-from repro_torch.launch import serve, ycsb
+from repro_torch.launch import serve, train, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.session_store import MemorySessionStore
 from repro_torch.testing import crashmatrix
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.training import train_step
+from repro_torch.training.train_loop import Trainer, TrainLoopConfig
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -94,12 +97,19 @@ def no_cuda(monkeypatch):
     lambda tmp: ShardedDB.open(str(tmp / "db"), repair=True),
     lambda tmp: crashmatrix.run_cell("wal.append", "sync",
                                      workdir=str(tmp / "db")),
+    lambda tmp: train_step.init_state(0, get_smoke_config("falcon-mamba-7b")),
+    lambda tmp: CheckpointStore(str(tmp / "db")),
+    lambda tmp: Trainer(get_smoke_config("falcon-mamba-7b"),
+                        TrainLoopConfig(steps=1), str(tmp / "db")),
+    lambda tmp: train.main(["--arch", "falcon-mamba-7b", "--smoke",
+                            "--steps", "1", "--ckpt", str(tmp / "db")]),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
         "ycsb.run", "launch.ycsb", "MemorySessionStore",
         "ServeEngine-page_store", "ShardedDB", "ShardedDB-cpu-engine",
         "LsmDB.open-repair", "ShardedDB.open-repair",
-        "crashmatrix.run_cell"])
+        "crashmatrix.run_cell", "train_step.init_state", "CheckpointStore",
+        "Trainer", "launch.train"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
