@@ -183,13 +183,29 @@ Phases, any fault exits non-zero:
    jobs and flushes are byte-identical on the plain versions, and a cpu
    store writes the same SST files; (c) ``python -m
    repro_torch.launch.train --smoke --fail-at 5`` prints ``restarts=1``.
+14. the distributed layer on the card (``repro_torch.distributed``,
+   ``launch.mesh``, ``serving.serve_step``, ``offload.sharded_compact``):
+   (a) in a one-rank NCCL world on a (1, 1) mesh, ``shard_train_step`` on
+   phase 13 (a)'s model and batches for 3 steps against ``train_step``
+   (bit for bit or within the updates' bound, the scan's launches counted,
+   the step timed by CUDA events), falcon-mamba-7b whole through
+   ``shard_prefill`` / ``shard_decode_step`` (the greedy tokens equal
+   phase 5's), one job of 65,536 rows through ``sharded_compact``
+   (byte-identical to ``compaction.compact`` on cuda and on cpu); (b) four
+   ranks sharing the card over gloo: 4 range shards through
+   ``sharded_compact`` (each rank's shard as compacted alone, every kernel
+   of a device-sort compaction launched on each), the scan's DTensor
+   wrapper on a (2, 2) mesh against the whole scan (its partial ``dB`` /
+   ``dC`` reduced over "model"), EP MoE against the dense path, and the
+   int8 compressed mean; a rank that fails or dies ends the world.
 
 Phases 3-9, 11, 12 and 13 fail if a compaction engine built in them
 retried a launch: no engine failpoint is armed outside phase 10.
 
 The line before the last is a JSON ``kernels`` record (each kernel's
 ``launches`` sums phase 3's paths, phase 9's, phase 10's, phase 11's,
-phase 12's and phase 13's, split in ``launches_by_path``); the last line is
+phase 12's, phase 13's and phase 14's, split in ``launches_by_path``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 
     python3 chip_smoke.py --kernels
@@ -6250,6 +6266,591 @@ def train_part_lines(part: str, r: dict, card: str) -> list[str]:
             f"{r['line']} ({r['seconds']:.1f} s)"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distributed layer on the card
+# ---------------------------------------------------------------------------
+
+# (a): a world of this process alone over NCCL, a (1, 1) mesh from
+# make_host_mesh: shard_train_step on phase 13 (a)'s model and batches,
+# DIST_STEPS steps, held against train_step from the same seed; phase 5's
+# model whole through shard_prefill / shard_decode_step, held against phase
+# 5's ServeEngine.generate; one phase-3-shaped job (DIST_RUNS sorted runs of
+# DIST_RUN_ROWS rows over one key space at PAPER.geometry(256)) through
+# place_sharded / sharded_compact, held against compaction.compact on cuda
+# and on cpu
+DIST_STEPS = 3
+DIST_RUNS, DIST_RUN_ROWS = 4, 16_384
+# (b): four ranks sharing the card over gloo (NCCL refuses two ranks on one
+# device; the kernel library is built before they start): 4 range shards of
+# DIST_RUNS x DIST_RUN_ROWS rows through sharded_compact, each rank's held
+# against its shard compacted alone; the scan's DTensor wrapper at phase 5's
+# 4 x 512 on a (2, 2) mesh, forward and backward, held against the whole
+# scan (the kernel both ways); granite-moe-3b-a800m's expert-parallel FFN
+# (d_model 1536, 40 experts, top 8) on (2, 2) against the dense path, at a
+# capacity factor of experts / top-k, where neither path drops a token;
+# the int8 compressed mean over a line of 4.  The (2, 2) train step is not
+# run there: DTensor's all-gather (a Shard -> Replicate redistribution, the
+# functional all_gather_into_tensor) ends a gloo rank with SIGSEGV on CUDA
+# tensors in torch 2.11 (the plain all_gather_into_tensor works), and FSDP
+# gathers every weight; the CPU tests hold that step
+DIST_RANKS = 4
+DIST_TIMEOUT = 300
+DIST_MOE = "granite-moe-3b-a800m"
+DIST_MOE_TOKENS = (4, 512)
+MOE_FWD_TOL, MOE_GRAD_TOL = 2e-4, 2e-3   # JAX's EP test's tolerances
+
+
+def dist_train(cfg, dev, mesh, *, batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, steps: int = DIST_STEPS,
+               opt: dict | None = None) -> dict:
+    """(a): ``steps`` steps of ``train_step`` and then of
+    ``shard_train_step`` on ``mesh``, from ``init_state(0)`` on the same
+    ``BigramStream`` batches; the sharded steps timed by CUDA events and
+    their launches counted from 0; the losses and the final params held
+    against each other bit for bit (a one-rank mesh runs the same
+    kernels on the same whole tensors)."""
+    from repro_torch.data.tokens import BigramStream, make_train_batch
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training import train_step as ts
+    on_card = torch.device(dev).type == "cuda"
+    free_card(dev)
+    opt_cfg = optim.AdamWConfig(total_steps=steps, **(opt or TRAIN_OPT))
+    stream = BigramStream(cfg.vocab, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                make_train_batch(cfg, stream, s, batch, seq).items()}
+               for s in range(steps)]
+    state = ts.init_state(0, cfg, opt_cfg, device=dev)
+    plain, plain_ms = [], []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2)] if on_card else None
+        if ev:
+            ev[0].record()
+        state, m = ts.train_step(state, b, cfg=cfg, opt_cfg=opt_cfg)
+        if ev:
+            ev[1].record()
+            ev[1].synchronize()
+            plain_ms.append(ev[0].elapsed_time(ev[1]))
+        plain.append(float(m["loss"]))
+    want = state.params
+    del state
+    free_card(dev)
+    fn, _, _ = ts.shard_train_step(cfg, mesh, batch, seq, opt_cfg)
+    t0 = time.perf_counter()
+    state = ts.place_state(ts.init_state(0, cfg, opt_cfg, device=dev), cfg,
+                           mesh)
+    sync(dev)
+    place_s = time.perf_counter() - t0
+    losses, step_ms = [], []
+    ops.reset_launch_counts()
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2)] if on_card else None
+        if ev:
+            ev[0].record()
+        state, m = fn(state, b)
+        if ev:
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+    launches = ops.launch_counts()
+    passes = 2 if cfg.remat else 1
+    expect = {"selective_scan": passes * cfg.n_layers * steps,
+              "selective_scan_bwd": cfg.n_layers * steps}
+    got = {k: launches[k] for k in expect}
+    if on_card and got != expect:
+        raise AssertionError(f"[14] (a) scan launches {got}, expected "
+                             f"{expect}")
+    pairs = list(zip(tree_leaves(state.params), tree_leaves(want)))
+    bitwise = losses == plain and all(
+        torch.equal(bits(p.to_local()), bits(q)) for p, q in pairs)
+    if not (np.isfinite(losses).all() and bitwise):
+        gap = max(float((p.to_local().float() - q.float()).abs().max())
+                  for p, q in pairs)
+        raise AssertionError(f"[14] (a) sharded step not bit-equal to "
+                             f"train_step: losses {losses} against {plain}, "
+                             f"params off by {gap:.3g}")
+    n_params = sum(q.numel() for _, q in pairs)
+    del state, want, pairs, batches
+    free_card(dev)
+    timed = step_ms[1:]
+    return dict(cfg=cfg, n_params=n_params, losses=losses, plain=plain,
+                bitwise=bitwise,
+                place_s=place_s, step_ms=step_ms,
+                mean_ms=statistics.mean(timed) if timed else None,
+                plain_ms=statistics.mean(plain_ms[1:]) if timed else None,
+                launches=got, batch=batch, seq=seq)
+
+
+def dist_serve(cfg, dev, mesh, want_tokens, *, batch: int = SERVE_BATCH,
+               prompt_len: int = SERVE_PROMPT, max_new: int = SERVE_NEW,
+               seed: int = 0) -> dict:
+    """(a): ``cfg`` from ``seed`` (phase 5's build: ``model.init`` and the
+    engine's ``cast_params``) through ``shard_prefill`` and
+    ``max_new - 1`` steps of ``shard_decode_step`` on phase 5's prompts;
+    the greedy tokens held against ``want_tokens`` (phase 5's
+    ``generate``); the launches counted from 0 around the steps."""
+    from repro_torch.distributed import partition
+    from repro_torch.serving import serve_step
+    free_card(dev)
+    t0 = time.perf_counter()
+    params = lm.cast_params(lm.init(seed, cfg, device=dev), cfg)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    max_len = prompt_len + max_new
+    prefill, _, _ = serve_step.shard_prefill(cfg, mesh, batch, prompt_len,
+                                             max_len=max_len)
+    decode, *_ = serve_step.shard_decode_step(cfg, mesh, batch, max_len)
+    params = partition.place(params, prefill.param_shardings)
+    ops.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    nxt, cache, pos = prefill(params, {"tokens": prompts})
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    toks = [nxt.full_tensor()]
+    for _ in range(max_new - 1):
+        nxt, _, cache = decode(params, cache, nxt, pos)
+        pos = pos + 1
+        toks.append(nxt.full_tensor())
+    sync(dev)
+    gen_s = time.perf_counter() - t0
+    launches = ops.launch_counts()["selective_scan"]
+    got = torch.cat(toks, dim=1).cpu().numpy()
+    del params, cache
+    free_card(dev)
+    if torch.device(dev).type == "cuda" and launches != cfg.n_layers:
+        raise AssertionError(f"[14] (a) shard_prefill launched "
+                             f"selective_scan {launches} times, not once a "
+                             f"layer ({cfg.n_layers})")
+    agree = float((got == want_tokens).all(axis=1).mean())
+    if agree != 1.0:
+        raise AssertionError(f"[14] (a) sharded greedy tokens differ from "
+                             f"ServeEngine.generate's: {got[0].tolist()} "
+                             f"against {want_tokens[0].tolist()}")
+    return dict(cfg=cfg, init_s=init_s, prefill_ms=prefill_s * 1e3,
+                gen_s=gen_s, launches=launches, tokens=got, batch=batch,
+                prompt_len=prompt_len, max_new=max_new)
+
+
+def range_runs(seed: int, prefix: bytes, runs: int, rows: int,
+               geom: SSTGeometry, dev) -> list:
+    """``runs`` sorted runs of ``rows`` entries over one key space (keys
+    ``key_of(i)`` with their first bytes replaced by ``prefix``, i below
+    ``2 * rows``): later runs shadow earlier versions, a tenth are
+    tombstones; each packed by ``build_image`` (a memtable flush) on
+    ``dev``."""
+    from repro_torch.core import offload
+    rng = np.random.default_rng(seed)
+    space = [prefix + key_of(i)[len(prefix):] for i in range(2 * rows)]
+    images = []
+    for r in range(runs):
+        ids = rng.choice(len(space), rows, replace=False)
+        keys = sorted(space[i] for i in ids)
+        kw = np.stack([formats.pack_key_bytes(k, geom.key_bytes)
+                       for k in keys])
+        is_value = (rng.random(rows) >= 0.1).astype(np.uint32)
+        meta = (((np.arange(rows, dtype=np.uint32) + 1 + r * rows) << 1)
+                | is_value).astype(np.uint32)
+        vals = rng.integers(0, 2**32, (rows, geom.value_words),
+                            dtype=np.uint32)
+        k, m, v = formats.words_to_tensors([kw, meta, vals], dev)
+        images.append(offload.build_image(k, m, v, geom=geom))
+    return images
+
+
+def dist_compact(dev, mesh, *, geom: SSTGeometry = PAPER_GEOM,
+                 runs: int = DIST_RUNS, rows: int = DIST_RUN_ROWS) -> dict:
+    """(a): one job of ``runs`` runs through ``place_sharded`` and
+    ``sharded_compact(sort_mode="device")`` on ``mesh`` (one shard), its
+    launches counted from 0; the output held byte for byte against
+    ``compaction.compact`` of the same image on ``dev`` and on the CPU."""
+    from repro_torch.core import compaction, offload
+    img = formats.concat_images(range_runs(14, b"", runs, rows, geom, dev))
+    placed = offload.place_sharded(img, mesh, ("data",))
+    ops.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    out, stats = offload.sharded_compact(placed, mesh, ("data",), geom=geom,
+                                         sort_mode="device")
+    sync(dev)
+    sharded_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    got = formats.image_to_numpy(formats.SSTImage(
+        *(a.to_local() for a in out)))
+    alone, st = compaction.compact(img, geom=geom, sort_mode="device")
+    same_image(got, formats.image_to_numpy(alone),
+               "sharded_compact against compaction.compact on the card")
+    cpu, st_cpu = compaction.compact(
+        formats.SSTImage(*(a.cpu() for a in img)), geom=geom,
+        sort_mode="device")
+    same_image(got, formats.image_to_numpy(cpu),
+               "sharded_compact on the card against compaction.compact "
+               "on the cpu")
+    if [tuple(stats[0])] != [tuple(st)] or tuple(st) != tuple(st_cpu):
+        raise AssertionError(f"[14] (a) stats {stats} / {st} / {st_cpu}")
+    idle = [k for k in DIST_COMPACT_PATH if not launches[k]]
+    if torch.device(dev).type == "cuda" and idle:
+        raise AssertionError(f"[14] (a) sharded_compact launched no {idle}")
+    return dict(rows=runs * rows, stats=stats[0], sharded_s=sharded_s,
+                launches={k: launches[k] for k in DIST_COMPACT_PATH})
+
+
+# the kernels of a sort_mode="device" compaction: phase 1's CRC, phase 2's
+# sort, phase 3's prefix, CRC and filters
+DIST_COMPACT_PATH = ("crc32_sections", "bitonic_sort", "prefix_encode",
+                     "bloom_build")
+
+
+def _shard_slices(mesh, by_batch: bool, by_chan: bool, batch: int,
+                  chan: int):
+    """This rank's rows and channels of a region sharded by
+    ``annotate.local_placements`` on a ("data", "model") mesh."""
+    from repro_torch.distributed import partition
+    axes = partition.mesh_axes(mesh)
+    coord = dict(zip(axes, mesh.get_coordinate()))
+    n_data, n_model = axes["data"], axes["model"]
+    rb = batch // n_data if by_batch else batch
+    rc = chan // n_model if by_chan else chan
+    r0 = coord["data"] * rb if by_batch else 0
+    c0 = coord["model"] * rc if by_chan else 0
+    return slice(r0, r0 + rb), slice(c0, c0 + rc)
+
+
+def rank_scan(dev, mesh, *, batch: int = SERVE_BATCH,
+              seq: int = SERVE_PROMPT, di: int = 8192, ds: int = 16) -> dict:
+    """(b): the scan of DTensors (``ops._selective_scan_dtensor``) on the
+    (2, 2) ``mesh``, forward and backward of ``sum(y * dy) + sum(h *
+    dh)``, each input placed as the wrapper places it (rows over "data",
+    ``d_inner`` over "model"); held against the whole scan on this rank
+    (the kernel on the card), slice by slice: ``y``, ``h`` and the
+    gradients within ``SCAN_TOL`` of each largest, ``dB`` / ``dC`` /
+    ``dA_log`` / ``dD`` after their reduction (a partial sum each).
+    Returns the max abs errors, whether each equals bit for bit, and the
+    scan's launches in the sharded call."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import annotate
+    g = torch.Generator(device=dev)
+    g.manual_seed(2031)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    u = normal(batch, seq, di).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(normal(batch, seq, di) - 2.0)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=dev).repeat(di, 1)) \
+        + 0.1 * normal(di, ds)
+    args = [u, dt, normal(batch, seq, ds), normal(batch, seq, ds), a_log,
+            normal(di)]
+    dy, dh = normal(batch, seq, di), normal(batch, di, ds)
+    whole = [a.clone().requires_grad_() for a in args]
+    y, h = ops.selective_scan(*whole)
+    want = (y, h) + torch.autograd.grad(
+        (y.float() * dy).sum() + (h * dh).sum(), whole)
+    on = annotate.plan(mesh, batch, di)
+
+    def pl(*dims, **kw):
+        return annotate.local_placements(mesh, *on, *dims, **kw)
+
+    seq_pl, bc_pl, chan_pl, state_pl = pl(0, 2), pl(0, None), pl(None, 0), \
+        pl(0, 1)
+    placed = [distribute_tensor(a, mesh, p).requires_grad_() for a, p in
+              zip(args, (seq_pl, seq_pl, bc_pl, bc_pl, chan_pl, chan_pl))]
+    dy_d = distribute_tensor(dy, mesh, seq_pl)
+    dh_d = distribute_tensor(dh, mesh, state_pl)
+    ops.reset_launch_counts()
+    y_d, h_d = ops.selective_scan(*placed)
+    loss = ((y_d.float() * dy_d).sum() + (h_d * dh_d).sum()).redistribute(
+        mesh, pl(None, None))
+    grads = torch.autograd.grad(loss, placed)
+    launches = {k: ops.launch_counts()[k]
+                for k in ("selective_scan", "selective_scan_bwd")}
+    rows, chans = _shard_slices(mesh, *on, batch, di)
+    # (the sharded value, the whole one's slice), after each partial
+    # gradient's reduction: dB / dC over "model", dA_log / dD over "data"
+    got = [(y_d.to_local(), want[0][rows, :, chans]),
+           (h_d.to_local(), want[1][rows, chans]),
+           (grads[0].to_local(), want[2][rows, :, chans]),
+           (grads[1].to_local(), want[3][rows, :, chans]),
+           (grads[2].redistribute(mesh, bc_pl).to_local(), want[4][rows]),
+           (grads[3].redistribute(mesh, bc_pl).to_local(), want[5][rows]),
+           (grads[4].redistribute(mesh, chan_pl).to_local(),
+            want[6][chans]),
+           (grads[5].redistribute(mesh, chan_pl).to_local(),
+            want[7][chans])]
+    errs, equal = {}, {}
+    for name, (a, w) in zip(("y", "h") + SCAN_GRADS[:6], got):
+        a, w = a.detach(), w.detach()
+        err = float((a.float() - w.float()).abs().max())
+        errs[name], equal[name] = err, bool(torch.equal(bits(a), bits(w)))
+        lim = SCAN_TOL * float(w.float().abs().max())
+        if a.dtype == torch.bfloat16:
+            lim += BF16_ULP * float(w.float().abs().max())
+        if not err <= lim:
+            raise AssertionError(f"[14] (b) sharded scan {name}: max abs "
+                                 f"err {err:.3g}, limit {lim:.3g}")
+    return dict(errs=errs, equal=equal, launches=launches,
+                local=tuple(y_d.to_local().shape))
+
+
+def rank_moe(dev, mesh, *, tokens=DIST_MOE_TOKENS,
+             cfg_kw: dict | None = None) -> dict:
+    """(b): granite-moe-3b-a800m's MoE FFN at full width (fp32; a capacity
+    factor of experts / top-k, so neither path drops a token) through
+    ``moe_ffn`` under the (2, 2) mesh's annotations (the expert-parallel
+    path: two ``all_to_all_single`` over "model"), forward and the
+    gradient of ``sum(y ** 2)``, each input placed as the EP path places
+    it; held against ``_moe_ffn_dense`` of the whole inputs on this rank,
+    slice by slice, within JAX's EP test's tolerances."""
+    from torch.distributed.tensor import Partial, Replicate, \
+        distribute_tensor
+
+    from repro_torch.distributed import annotate
+    cfg = get_config(DIST_MOE).with_(**(cfg_kw or {}))
+    cfg = cfg.with_(dtype="float32",
+                    capacity_factor=cfg.moe_experts / cfg.moe_top_k)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2032)
+    params = moe.moe_init(g, cfg)
+    x = torch.randn((*tokens, cfg.d_model), generator=g, device=dev)
+    whole = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xw = x.clone().requires_grad_()
+    yw, _ = moe._moe_ffn_dense(whole, xw, cfg)
+    gw = torch.autograd.grad((yw ** 2).sum(), [xw, *whole.values()])
+    by_batch, _ = annotate.plan(mesh, tokens[0])
+    rows, _ = _shard_slices(mesh, by_batch, False, tokens[0], 1)
+    tp = mesh.mesh.shape[list(mesh.mesh_dim_names).index("model")]
+    e_loc = cfg.moe_experts // tp
+    experts = slice(mesh.get_local_rank("model") * e_loc,
+                    (mesh.get_local_rank("model") + 1) * e_loc)
+    x_pl = annotate.local_placements(mesh, by_batch, False, 0)
+    w_pl = annotate.local_placements(mesh, False, True, None, 0)
+    rep = (Replicate(),) * mesh.ndim
+    placed = {k: distribute_tensor(v, mesh, rep if k == "router" else w_pl)
+              .requires_grad_() for k, v in params.items()}
+    xd = distribute_tensor(x, mesh, x_pl).requires_grad_()
+    with annotate.mesh_annotations(mesh), annotate.replicate_plain_tensors():
+        y, aux = moe.moe_ffn(placed, xd, cfg)
+        loss = (y ** 2).sum().redistribute(mesh, rep)
+        grads = torch.autograd.grad(loss, [xd, *placed.values()])
+    # reduce each partial gradient, never gathering a shard
+    red = []
+    for gr, like in zip(grads, [xd, *placed.values()]):
+        tgt = tuple(Replicate() if isinstance(p, Partial) else p
+                    for p in gr.placements)
+        red.append(gr.redistribute(mesh, tgt).to_local())
+    got = [(y.to_local(), yw[rows], MOE_FWD_TOL),
+           (red[0], gw[0][rows], MOE_GRAD_TOL)]
+    for (k, _), r, w in zip(placed.items(), red[1:], gw[1:]):
+        got.append((r, w if k == "router" else w[experts], MOE_GRAD_TOL))
+    errs = {}
+    for name, (a, w, tol) in zip(["y", "dx"] + [f"d{k}" for k in placed],
+                                 got):
+        diff = (a - w).detach().abs()
+        errs[name] = float(diff.max())
+        if not bool((diff <= tol + tol * w.abs()).all()):
+            raise AssertionError(f"[14] (b) EP MoE {name}: max abs err "
+                                 f"{errs[name]:.3g} beyond {tol} + {tol} "
+                                 "x |dense|")
+    return dict(errs=errs, experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                d_model=cfg.d_model, tokens=tokens)
+
+
+def rank_compressed(dev, world: int, rank: int) -> dict:
+    """(b): the int8 compressed mean over a line of ``world`` ranks,
+    within 5 % of the true mean (JAX's test's bound)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import grad_compress
+    line = init_device_mesh(torch.device(dev).type, (world,),
+                            mesh_dim_names=("data",))
+    rng = np.random.default_rng(2033)
+    local = rng.standard_normal((world, 1 << 20)).astype(np.float32)
+    x = torch.from_numpy(local[rank]).to(dev)
+    mean, _ = grad_compress.compressed_grad_mean(
+        {"g": x}, grad_compress.init_error_state({"g": x}), line, "data")
+    true = local.mean(0)
+    rel = float(np.abs(mean["g"].cpu().numpy() - true).max()
+                / np.abs(true).max())
+    if not rel < 0.05:
+        raise AssertionError(f"[14] (b) compressed mean off by {rel:.3g}")
+    return dict(rel=rel, n=local.shape[1],
+                wire=(grad_compress.wire_bytes_fp32({"g": x}),
+                      grad_compress.wire_bytes_compressed({"g": x})))
+
+
+def dist_rank(rank: int, world: int, sizes: dict) -> dict:
+    """(b), on each rank of the gloo world sharing the card: the range
+    shards through ``sharded_compact``, then the scan, the EP MoE FFN and
+    the compressed mean (``sizes`` scales them down for a rehearsal)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import compaction, offload
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(sizes.get("device", "cuda"))
+    geom = sizes.get("geom", PAPER_GEOM)
+    runs, rows = sizes.get("runs", DIST_RUNS), sizes.get("rows",
+                                                          DIST_RUN_ROWS)
+    out = {}
+    line = init_device_mesh(dev.type, (world,), mesh_dim_names=("data",))
+    shards = [formats.concat_images(range_runs(
+        140 + s, b"%02d" % s, runs, rows, geom, dev)) for s in range(world)]
+    placed = offload.place_sharded(formats.concat_images(shards), line,
+                                   ("data",))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, stats = offload.sharded_compact(placed, line, ("data",), geom=geom,
+                                         sort_mode="device")
+    sync(dev)
+    out["compact_s"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    alone, st = compaction.compact(shards[rank], geom=geom,
+                                   sort_mode="device")
+    same_image(formats.image_to_numpy(formats.SSTImage(
+        *(a.to_local() for a in got))), formats.image_to_numpy(alone),
+        f"rank {rank}'s shard against the shard compacted alone")
+    if tuple(stats[rank]) != tuple(st):
+        raise AssertionError(f"[14] (b) rank {rank} stats {stats[rank]} "
+                             f"against {st}")
+    out["stats"] = [tuple(s) for s in stats]
+    mesh = make_host_mesh(device=dev.type)
+    out["scan"] = rank_scan(dev, mesh, **sizes.get("scan", {}))
+    launches = {k: launches[k] + out["scan"]["launches"].get(k, 0)
+                for k in launches}
+    out["moe"] = rank_moe(dev, mesh, **sizes.get("moe", {}))
+    out["compressed"] = rank_compressed(dev, world, rank)
+    out["launches"] = launches
+    return out
+
+
+def dist_phase(dev, want_tokens, *, configs: dict | None = None,
+               sizes: dict | None = None, report=None,
+               nice: int = 0) -> dict:
+    """Phase 14: (a) in a world of this process alone, ``dist_train``,
+    ``dist_serve`` and ``dist_compact`` on a (1, 1) mesh; (b)
+    ``dist_rank`` on each of ``DIST_RANKS`` ranks sharing the card over
+    gloo.  ``launches`` sums the kernel launches of (a)'s three paths and
+    of (b)'s ranks, each counted from 0 around its path.  (``configs`` and
+    ``sizes`` scale the phase down for a rehearsal, where ``nice`` lowers
+    the ranks' priority.)"""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.testing.world import one_rank_world, run_world
+    configs = configs or {"train": train_configs()["full"],
+                          "serve": get_config(FALCON)}
+    sizes = sizes or {}
+    report = report or (lambda part, r: None)
+    out = {}
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    with one_rank_world("nccl" if on_card else "gloo"):
+        mesh = make_host_mesh(device=torch.device(dev).type)
+        out["train"] = dist_train(configs["train"], dev, mesh,
+                                  **sizes.get("train", {}))
+        report("train", out["train"])
+        out["serve"] = dist_serve(configs["serve"], dev, mesh, want_tokens,
+                                  **sizes.get("serve", {}))
+        report("serve", out["serve"])
+        out["compact"] = dist_compact(dev, mesh, **sizes.get("compact", {}))
+        report("compact", out["compact"])
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_world(dist_rank, DIST_RANKS, dict(sizes.get("ranks", {}),
+                                                  device=str(dev)),
+                      timeout=DIST_TIMEOUT, nice=nice)
+    out["ranks"] = ranks
+    out["b_s"] = time.perf_counter() - t0
+    report("ranks", out)
+    launches = collections.Counter(out["train"]["launches"])
+    launches["selective_scan"] += out["serve"]["launches"]
+    launches.update(out["compact"]["launches"])
+    for r in ranks:
+        launches.update(r["launches"])
+    out["launches"] = dict(launches)
+    return out
+
+
+def dist_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The phase-14 report of (a)'s train, serve and compact parts, and of
+    (b)'s ranks."""
+    if part == "train":
+        cfg = r["cfg"]
+        timed = (f"{r['mean_ms']:.2f} ms a step (CUDA events, mean of steps "
+                 f"2-{len(r['step_ms'])}; each "
+                 + ", ".join(f"{t:.2f}" for t in r["step_ms"]) + "), "
+                 f"train_step's {r['plain_ms']:.2f} ms on the same batches"
+                 if r["mean_ms"] else "no device time on the CPU")
+        same = "bit for bit equal"   # dist_train raises otherwise
+        return [
+            f"[14] (a) shard_train_step on a (1, 1) mesh (one-rank NCCL "
+            f"world): {cfg.name}, {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {r['n_params']:,} parameters, {cfg.dtype} "
+            f"compute, {r['batch']} x {r['seq']} tokens, {len(r['losses'])} "
+            f"steps; placed in {r['place_s']:.2f} s",
+            f"[14] (a) step: {timed} [{card}]",
+            f"[14] (a) losses " + ", ".join(f"{x!r}" for x in r["losses"])
+            + f" against train_step's "
+            + ", ".join(f"{x!r}" for x in r["plain"]) + f": {same}; "
+            f"launches {r['launches']}"]
+    if part == "serve":
+        cfg = r["cfg"]
+        return [f"[14] (a) shard_prefill / shard_decode_step on (1, 1): "
+                f"{cfg.name} whole ({cfg.n_layers} layers), built in "
+                f"{r['init_s']:.1f} s; {r['batch']} x {r['prompt_len']} "
+                f"prompt tokens, {r['max_new']} new each: greedy tokens "
+                f"equal ServeEngine.generate's (phase 5); prefill "
+                f"{r['prefill_ms']:.1f} ms, prefill and decode "
+                f"{r['gen_s']:.2f} s (host clock after a synchronize) "
+                f"[{card}]; selective_scan launches {r['launches']}"]
+    if part == "compact":
+        st = r["stats"]
+        return [f"[14] (a) place_sharded / sharded_compact on (1, 1): "
+                f"{r['rows']:,} rows at PAPER.geometry(256), "
+                f"sort_mode='device' -> {st[1]:,} live ({st[2]:,} dropped): "
+                f"byte-identical to compaction.compact on cuda and on cpu; "
+                f"{r['sharded_s'] * 1e3:.1f} ms (host clock) [{card}]; "
+                f"launches {r['launches']}"]
+    ranks = r["ranks"]
+    first = ranks[0]
+    scan_err = {k: max(x["scan"]["errs"][k] for x in ranks)
+                for k in first["scan"]["errs"]}
+    scan_eq = [k for k in first["scan"]["equal"]
+               if all(x["scan"]["equal"][k] for x in ranks)]
+    moe_err = {k: max(x["moe"]["errs"][k] for x in ranks)
+               for k in first["moe"]["errs"]}
+    m = first["moe"]
+    lines = [
+        f"[14] (b) {len(ranks)} ranks sharing the card over gloo: "
+        f"sharded_compact of {len(ranks)} range shards "
+        f"(stats {first['stats']}): each rank's shard byte-identical to it "
+        f"compacted alone; " + ", ".join(
+            f"rank {i} {x['compact_s'] * 1e3:.1f} ms"
+            for i, x in enumerate(ranks)) + f" (host clock) [{card}]",
+        f"[14] (b) the scan's DTensor wrapper on (2, 2), local shard "
+        f"{first['scan']['local']}: max abs err against the whole scan "
+        + ", ".join(f"{k} {v:.3g}" for k, v in scan_err.items())
+        + f" (bit for bit: {', '.join(scan_eq) or 'none'}); launches a "
+        f"rank {first['scan']['launches']}",
+        f"[14] (b) EP MoE ({DIST_MOE}: d_model {m['d_model']}, "
+        f"{m['experts']} experts, top {m['top_k']}, {m['tokens']} tokens, "
+        f"fp32) on (2, 2) against the dense path: max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in moe_err.items()),
+        f"[14] (b) compressed mean of {first['compressed']['n']:,} fp32 "
+        f"over 4 ranks: max rel err "
+        f"{max(x['compressed']['rel'] for x in ranks):.4f} (limit 0.05); "
+        f"wire bytes fp32 / int8 {first['compressed']['wire']}",
+        f"[14] (b) launches by rank "
+        + "; ".join(", ".join(f"{k} {v}" for k, v in x["launches"].items()
+                              if v) for x in ranks),
+        f"[14] (a) {r['a_s']:.1f} s, (b) {r['b_s']:.1f} s"]
+    return lines
+
+
 def watch_engines():
     """Record every ``TorchCompactionEngine`` built from now on: returns
     the list they are appended to and the patch (``stop()`` ends it)."""
@@ -6507,6 +7108,7 @@ def main(argv: list[str]) -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     served = (sv["engine"], sv["prompts"])   # phases 9 (f), 11 (d) serve
+    served_tokens = sv["tokens"]             # phase 14 (a) serves again
     del sv
     log(session_lines(ss, xd, card))
     log(no_launch_retries(built, 7))
@@ -6642,11 +7244,33 @@ def main(argv: list[str]) -> int:
         f"{k} {p13['launches'].get(k, 0)}" for k in KERNELS))
     log(no_launch_retries(built, 13))
     log(f"[13] {time.perf_counter() - t0:.1f} s")
+    free_card(dev)
+
+    log(f"[14] the distributed layer on the card: (a) a one-rank NCCL "
+        f"world, (1, 1) mesh: shard_train_step on phase 13 (a)'s model, "
+        f"{FALCON} served by shard_prefill / shard_decode_step, one job "
+        f"through sharded_compact; (b) {DIST_RANKS} ranks sharing the card "
+        "over gloo: range-sharded compaction, the scan's DTensor wrapper, "
+        "EP MoE and the compressed mean on (2, 2) and a line of 4")
+    t0 = time.perf_counter()
+    p14 = dist_phase(dev, served_tokens, report=lambda part, r: log(
+        "\n".join(dist_part_lines(part, r, card))))
+    idle = [k for k in DIST_COMPACT_PATH + ("selective_scan",
+                                            "selective_scan_bwd")
+            if not p14["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"kernels not launched in phase 14: {idle}")
+    log(f"[14] (a) the sharded step {p14['train']['mean_ms']:.2f} ms "
+        f"against phase 13 (a)'s train_step {p13['a']['mean_ms']:.2f} ms "
+        f"(this run, CUDA events) [{card}]")
+    log(f"[14] launches (a), (b): " + ", ".join(
+        f"{k} {p14['launches'].get(k, 0)}" for k in KERNELS))
+    log(f"[14] {time.perf_counter() - t0:.1f} s")
 
     # the main paths: phase 3's store (with phase 4's device sort and
     # phase 5's prefill), phase 9's async stores, phase 10's faults,
-    # phase 11's instrumented stores, phase 12's archs and phase 13's
-    # training
+    # phase 11's instrumented stores, phase 12's archs, phase 13's
+    # training and phase 14's distributed layer
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -6658,7 +7282,8 @@ def main(argv: list[str]) -> int:
                    "faults": p10["launches"].get(entry, 0),
                    "obs": p11["launches"].get(entry, 0),
                    "archs": p12["launches"].get(entry, 0),
-                   "train": p13["launches"].get(entry, 0)}
+                   "train": p13["launches"].get(entry, 0),
+                   "distributed": p14["launches"].get(entry, 0)}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

@@ -16,6 +16,15 @@ dict keys (sorted) and list indices as they are, a named tuple's field as
 Checkpoint churn is the LSM pattern the paper targets: every step writes
 new records, ``gc()`` turns old steps into tombstones, and the store's
 compactions (the hand-written kernels on the card) reclaim them.
+
+Checkpoints are mesh-agnostic: a save writes whole tensors, and
+``restore(..., shardings=)`` places each onto any mesh (the elastic
+restart).  In a world of several ranks one rank owns the store: it opens
+it, reads and distributes each tensor, while the others call ``receive``
+with the same ``like`` and ``shardings`` and get their shards.  A save of
+DTensors is streamed the same way: the owner's ``save`` gathers one leaf
+at a time while the others ``send`` (join each gather and drop the whole
+tensor at once), so no rank holds more than one whole leaf.
 """
 
 from __future__ import annotations
@@ -25,10 +34,12 @@ import json
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.formats import SSTGeometry
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.lsm.db import DBConfig, LsmDB
+from repro_torch.models.convert import tree_map_with_path
 
 CHUNK_BYTES = 4000   # payload bytes per KV record
 
@@ -52,28 +63,43 @@ def _hash_path(path: str) -> bytes:
     return hashlib.blake2b(path.encode(), digest_size=8).digest()
 
 
-def _map_paths(fn, tree, prefix: tuple = ()):
-    """``fn(path, leaf)`` at each leaf, visited in JAX's flatten order
-    (dict keys sorted, a named tuple's fields and a list's items in
-    order), the structure kept; None is an empty subtree."""
-    if isinstance(tree, dict):
-        mapped = {k: _map_paths(fn, tree[k], prefix + (str(k),))
-                  for k in sorted(tree)}
-        return {k: mapped[k] for k in tree}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_paths(fn, v, prefix + (f".{f}",))
-                            for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_paths(fn, v, prefix + (str(i),))
-                          for i, v in enumerate(tree))
-    if tree is None:
-        return None
-    return fn("/".join(prefix), tree)
+def _placed(read, like, shardings):
+    """Each leaf of ``like`` read by ``read(path, leaf)`` and placed by its
+    ``partition.NamedSharding`` (rank 0's values distributed), in
+    JAX's flatten order on every rank."""
+    from repro_torch.distributed import partition
+    return tree_map_with_path(
+        lambda path, leaf, sh: partition.place(read(path, leaf), sh),
+        like, shardings)
+
+
+def receive(like, shardings, device=None):
+    """A non-owner rank's side of the owner's ``restore(step, like,
+    shardings)``: its shards of every tensor, distributed from the owner
+    (which must be rank 0).  ``device`` None means ``cuda``."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    return _placed(lambda path, leaf: torch.empty(
+        leaf.shape, dtype=leaf.dtype, device=dev), like, shardings)
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective that every rank of its
+    mesh joins); any other leaf as it is."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def send(tree):
+    """A non-owner rank's side of the owner's ``save(step, tree)`` of a
+    tree of DTensors: its part in each leaf's gather, in the owner's
+    order, the whole tensor dropped at once."""
+    for _, leaf in _tree_paths(tree):
+        _whole(leaf)
 
 
 def _tree_paths(tree) -> list[tuple[str, object]]:
     out = []
-    _map_paths(lambda path, leaf: out.append((path, leaf)), tree)
+    tree_map_with_path(lambda path, leaf: out.append((path, leaf)), tree)
     return out
 
 
@@ -110,9 +136,12 @@ class CheckpointStore:
 
     def save(self, step: int, tree) -> dict:
         """Write a tree of tensors (or numpy arrays) as one checkpoint: one
-        ``put`` a chunk, then the manifest, then a flush."""
+        ``put`` a chunk, then the manifest, then a flush.  A DTensor leaf
+        is gathered whole as its turn comes, while the other ranks of its
+        mesh ``send``."""
         manifest = {"step": step, "tensors": []}
         for path, leaf in _tree_paths(tree):
+            leaf = _whole(leaf)
             if isinstance(leaf, torch.Tensor):
                 dtype, shape, raw = _raw(leaf)
             else:
@@ -149,10 +178,13 @@ class CheckpointStore:
                        for c in range(int(nraw)))
         return json.loads(raw)
 
-    def restore(self, step: int, like=None):
+    def restore(self, step: int, like=None, shardings=None):
         """Rebuild the checkpoint of ``step`` as tensors on the store's
         device: a dict path -> tensor, or, given ``like`` (a tree of
-        tensors, ``meta`` ones too), a tree of its structure."""
+        tensors, ``meta`` ones too), a tree of its structure.  With
+        ``shardings`` (a matching tree of ``partition.NamedSharding``s,
+        any mesh) each tensor is placed as a DTensor: a collective, run by
+        rank 0 while the other ranks ``receive``."""
         manifest = self.load_manifest(step)
         if manifest is None:
             raise KeyError(f"no checkpoint for step {step}")
@@ -171,7 +203,9 @@ class CheckpointStore:
         if like is None:
             return {t["path"]: read_tensor(t["path"])
                     for t in manifest["tensors"]}
-        return _map_paths(read_tensor, like)
+        if shardings is not None:
+            return _placed(read_tensor, like, shardings)
+        return tree_map_with_path(read_tensor, like)
 
     def steps(self) -> list[int]:
         """All steps with a manifest."""

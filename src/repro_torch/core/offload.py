@@ -6,6 +6,11 @@ the sort mode, concatenates the input images, pads them to the requested
 block count and runs the pipeline, one job (``compact``) or a stack of
 same-shape jobs in one batched pipeline (``compact_many`` over
 ``compact_batch``).
+
+``sharded_compact`` scales the single-device pipeline to a mesh: a mesh
+axis carries disjoint key-range partitions (``place_sharded``) and each
+rank runs one pipeline on its shard -- compaction is embarrassingly
+parallel across ranges; the only cross-rank traffic is the stats.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core import compaction, formats
 from repro_torch.core.formats import SSTGeometry, SSTImage
@@ -217,3 +224,57 @@ def pad_image_blocks(img: SSTImage, n_blocks: int, geom: SSTGeometry,
     if run_lens is None:
         return padded
     return padded, tuple(run_lens) + (extra * geom.block_kvs,)
+
+
+def _block_placements(mesh, axes) -> list:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return [Shard(0) if n in axes else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def place_sharded(img: SSTImage, mesh, axes) -> SSTImage:
+    """``img`` (the same shapes on every rank; rank 0's values are taken)
+    as DTensors with the block axis sharded over ``axes`` of ``mesh``, one
+    a field.  A collective: every rank calls it."""
+    from torch.distributed.tensor import distribute_tensor
+    pl = _block_placements(mesh, axes)
+    return SSTImage(*(distribute_tensor(a, mesh, pl, src_data_rank=0)
+                      for a in img))
+
+
+def sharded_compact(img: SSTImage, mesh, axes, *, geom: SSTGeometry,
+                    bottom_level: bool = False, sort_mode: str = "device"):
+    """Range-partitioned compaction across ``axes`` of ``mesh``.
+
+    ``img`` holds ``n_shards`` concatenated per-range images along the
+    block axis, placed by ``place_sharded`` (the host partitions SSTs by
+    key range; ranges are disjoint, so no cross-shard merge is needed --
+    the paper's single-device pipeline, ``compaction.compact``, is the
+    per-shard unit, on each rank's device).  Returns the sharded output
+    image and the shards' ``CompactionStats``, in shard order, on every
+    rank.  A collective: every rank of the world calls it.
+
+    ``sort_mode="merge"`` raises ``ValueError``, as JAX's does: per-shard
+    run boundaries are not representable through its ``shard_map``'s
+    uniform specs, so shards re-sort (``"device"`` / ``"xla"``).
+    """
+    if sort_mode == "merge":
+        raise ValueError(
+            'sharded_compact does not support sort_mode="merge": per-shard '
+            "run boundaries are not representable through uniform shard "
+            'specs; use "device" or "xla"')
+    pl = _block_placements(mesh, axes)
+    local = SSTImage(*(a.redistribute(mesh, pl).to_local() for a in img))
+    out, stats = compaction.compact(local, geom=geom,
+                                    bottom_level=bottom_level,
+                                    sort_mode=sort_mode)
+    out = SSTImage(*(DTensor.from_local(a, mesh, pl, run_check=False)
+                     for a in out))
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i, p in enumerate(pl):   # row-major over the sharding mesh dims
+        if p.is_shard():
+            shard = shard * mesh.mesh.shape[i] + coord[i]
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, (shard, stats))
+    return out, [st for _, st in sorted(dict(gathered).items())]

@@ -1,2 +1,3 @@
-"""The port's failure supervision (the JAX package's ``repro.distributed``;
-its mesh and sharding modules are not ported yet)."""
+"""The port's distributed layer (the JAX package's ``repro.distributed``):
+sharding rules, annotations, compressed gradients, the pipeline and
+failure supervision, on ``torch.distributed`` meshes and DTensors."""

@@ -3,9 +3,9 @@
 
 ``Supervisor`` runs a trainer, catches a worker's failure and builds a new
 trainer from its factory, which restores the newest checkpoint and
-resumes.  A heartbeat file records liveness for an outside watchdog.  The
-port has no mesh yet (ROADMAP A15), so the factory's trainer runs on one
-device; JAX's may re-mesh on restart.
+resumes -- possibly on another mesh (the factory may build the new
+trainer over a different ``DeviceMesh``: the elastic restart).  A
+heartbeat file records liveness for an outside watchdog.
 """
 
 from __future__ import annotations

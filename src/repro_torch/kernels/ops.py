@@ -13,6 +13,7 @@ the selective scan works on floats.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import bitonic_sort as _bitonic
@@ -214,14 +215,52 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     """The Mamba-1 forward recurrence in fp32: ``(y [B, S, di],
     h_last [B, di, ds])``, ``y`` with the ``D * u`` skip added; ``h0`` is
     a carried state (None: zeros).  Contract as ``ref.selective_scan``.
+    DTensors on a mesh are scanned shard by shard
+    (:func:`_selective_scan_dtensor`).
     When an input requires a gradient (and gradients are on), the call is
     differentiable: its backward is ``selective_scan_bwd`` on the card,
     ``ref.selective_scan_bwd`` on the CPU; otherwise it is the forward
     alone and saves nothing."""
     args = (u, dt, b, c, a_log, d_skip, h0)
+    if isinstance(u, DTensor):
+        return _selective_scan_dtensor(*args)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in args):
         return _SelectiveScan.apply(*args)
     if _on_card(u):
         return _scan.selective_scan(*args)
     return ref.selective_scan(*args)
+
+
+def _selective_scan_dtensor(u, dt, b, c, a_log, d_skip, h0=None):
+    """The scan of DTensors on a ``("data", "model")``-style mesh: each
+    rank scans its own batch rows (over the data axes) and ``d_inner``
+    channels (over ``"model"``), with the kernel on the card and the plain
+    version on the CPU -- the forward is local per channel.  ``B`` and
+    ``C`` are replicated over ``"model"``, so their gradients, sums over
+    ``d_inner``, are partial sums there (``Partial()``, reduced by the
+    caller's redistribution); ``A_log``'s and ``D``'s gradients are
+    partial over the data axes for the same reason.  An axis that does not
+    divide its dim replicates.  Plain tensors count as replicated."""
+    from repro_torch.distributed import annotate
+    mesh = u.device_mesh
+    on = annotate.plan(mesh, u.shape[0], u.shape[2])
+
+    def pl(*dims, **kw):
+        return annotate.local_placements(mesh, *on, *dims, **kw)
+
+    seq = pl(0, 2)                       # u, dt, y: [B, S, di]
+    bc = pl(0, None)                     # B, C: [B, S, ds]
+    chan = pl(None, 0)                   # A_log [di, ds], D [di]
+    state = pl(0, 1)                     # h0, h: [B, di, ds]
+    spec = ((u, seq, seq), (dt, seq, seq),
+            (b, bc, pl(0, None, partial_chan=True)),
+            (c, bc, pl(0, None, partial_chan=True)),
+            (a_log, chan, pl(None, 0, partial_batch=True)),
+            (d_skip, chan, pl(None, 0, partial_batch=True)),
+            (h0, state, state))
+    local = [None if t is None else annotate.to_mesh(t, mesh).redistribute(
+        mesh, fwd).to_local(grad_placements=grad) for t, fwd, grad in spec]
+    y, h = selective_scan(*local)
+    return (DTensor.from_local(y, mesh, seq, run_check=False),
+            DTensor.from_local(h, mesh, state, run_check=False))

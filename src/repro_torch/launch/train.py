@@ -8,16 +8,30 @@ package's ``repro.launch.train``).
 Checkpoints go through the port's LSM store at ``--ckpt`` (a new temporary
 directory by default).  The supervisor restarts from the newest
 checkpoint on failure.  With no ``--device`` it runs on ``cuda`` (the
-model and the store) and fails where CUDA is absent.  ``--mesh-shape``
-waits for the distributed slice (ROADMAP A15).
+model and the store) and fails where CUDA is absent.
+
+``--mesh-shape DATA MODEL`` trains over a ``("data", "model")`` mesh of
+every rank of the world that a launcher set up in the environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``torchrun``
+sets them): ``nccl`` on the card, ``gloo`` with ``--device cpu``.  It
+raises when ``DATA x MODEL`` is not the world size.  Pass a different
+``--mesh-shape`` on resume for elastic re-meshing:
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --smoke --mesh-shape 1 1
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import tempfile
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import (
     Supervisor, SupervisorConfig)
 from repro_torch.training.optimizer import AdamWConfig
@@ -41,10 +55,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    mesh = None
+    started = False
     if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape trains over a device mesh: it waits for the "
-            "distributed slice (ROADMAP A15)")
+        mesh, started = _mesh(tuple(args.mesh_shape), args.device)
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
@@ -54,16 +68,51 @@ def main(argv=None):
         ckpt_every=args.ckpt_every,
         opt=AdamWConfig(lr=args.lr, total_steps=args.steps))
 
+    if mesh is not None:   # one directory for the world: rank 0's
+        box = [ckpt]
+        dist.broadcast_object_list(box, src=0)
+        ckpt = box[0]
+
     def make_trainer(attempt):
-        return Trainer(cfg, loop, ckpt, device=args.device,
+        return Trainer(cfg, loop, ckpt, device=args.device, mesh=mesh,
                        fail_at_step=args.fail_at if attempt == 0 else None)
 
-    result = Supervisor(make_trainer,
-                        SupervisorConfig(max_restarts=args.max_restarts)
-                        ).run()
-    print(f"finished: step={result.final_step} restarts={result.restarts} "
-          f"final-loss={result.losses[-1][1]:.4f} ckpt={ckpt}")
+    lead = mesh is None or dist.get_rank() == 0
+    try:
+        result = Supervisor(make_trainer,
+                            SupervisorConfig(max_restarts=args.max_restarts)
+                            ).run()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if lead:
+        print(f"finished: step={result.final_step} "
+              f"restarts={result.restarts} "
+              f"final-loss={result.losses[-1][1]:.4f} ckpt={ckpt}")
     return result
+
+
+def _mesh(shape: tuple[int, int], device):
+    """The ``("data", "model")`` mesh of ``shape`` over the launcher's
+    world (started here from the environment when it is not yet), and
+    whether this call started it."""
+    from repro_torch.launch.mesh import build_mesh
+    dev = resolve_device(device)
+    started = not dist.is_initialized()
+    if started:
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            torch.cuda.set_device(local)
+            dist.init_process_group(
+                "nccl", device_id=torch.device("cuda", local))
+        else:
+            dist.init_process_group("gloo")
+    try:
+        return build_mesh(shape, ("data", "model"), dev), started
+    except Exception:
+        if started:
+            dist.destroy_process_group()
+        raise
 
 
 if __name__ == "__main__":

@@ -12,14 +12,15 @@ KV head ``h // (H // Hkv)`` (kv-major).
 
 Plain PyTorch products and softmax, as JAX's ``jnp`` code: no finished
 attention kernel, so the masking and the fp32 accumulation are JAX's.
-JAX's ``constrain`` sharding hints are the identity on one card and are
-left out.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import annotate, partition
+from repro_torch.distributed.annotate import constrain
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -50,9 +51,18 @@ def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     dt = x.dtype
-    q = torch.matmul(x, params["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = torch.matmul(x, params["wk"].to(dt)).reshape(b, s, cfg.kv_heads, hd)
-    v = torch.matmul(x, params["wv"].to(dt)).reshape(b, s, cfg.kv_heads, hd)
+    q = torch.matmul(x, params["wq"].to(dt))
+    k = torch.matmul(x, params["wk"].to(dt))
+    v = torch.matmul(x, params["wv"].to(dt))
+    if cfg.n_heads % max(annotate.axis_size("tp"), 1) == 0:
+        hspec = ("dp", None, "tp", None)    # tensor-parallel heads
+    else:
+        # context parallelism fallback (e.g. gemma3: 8 heads, tp=16):
+        # shard query positions over the model axis instead
+        hspec = ("dp", "tp", None, None)
+    q = constrain(q.reshape(b, s, cfg.n_heads, hd), *hspec)
+    k = constrain(k.reshape(b, s, cfg.kv_heads, hd), "dp", None, "tp", None)
+    v = constrain(v.reshape(b, s, cfg.kv_heads, hd), "dp", None, "tp", None)
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -79,6 +89,9 @@ def mha(q, k, v, q_pos, kv_pos, *, causal: bool = True, window=None,
     ``[B, Skv, Hkv, Dh]``.  Returns ``[B, Sq, H, Dh]``.  With ``chunk_kv``
     below ``Skv``, JAX's flash-style route: an online softmax over KV
     chunks (a Python loop here, a ``lax.scan`` there), in fp32."""
+    if isinstance(q, DTensor):
+        return _mha_sharded(q, k, v, q_pos, kv_pos, causal=causal,
+                            window=window, chunk_kv=chunk_kv)
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -119,6 +132,26 @@ def mha(q, k, v, q_pos, kv_pos, *, causal: bool = True, window=None,
     # [b,hkv,g,sq,hd] -> [b,sq,hkv,g,hd] -> [b,sq,h,hd] (kv-major heads, as
     # the q reshape has them)
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _mha_sharded(q, k, v, q_pos, kv_pos, **kw):
+    """``mha`` of DTensors, on local shards: batch rows over the data axes
+    and heads over "model" when the query and the KV heads both divide it
+    (a rank's query heads are then the groups of its KV heads, kv-major),
+    else every head on each model rank.  Attention is independent across
+    rows and heads, so no gradient is partial."""
+    mesh = q.device_mesh
+    tp = partition.mesh_axes(mesh).get("model", 1)
+    by_batch, _ = annotate.plan(mesh, q.shape[0])
+    by_head = q.shape[2] % tp == 0 and k.shape[2] % tp == 0
+    heads = annotate.local_placements(mesh, by_batch, by_head, 0, 2)
+    rows = annotate.local_placements(mesh, by_batch, False, 0)
+    ql, kl, vl = (annotate.to_mesh(t, mesh).redistribute(mesh, heads)
+                  .to_local() for t in (q, k, v))
+    qp, kp = (annotate.to_mesh(t, mesh).redistribute(mesh, rows).to_local()
+              for t in (q_pos, kv_pos))
+    return DTensor.from_local(mha(ql, kl, vl, qp, kp, **kw), mesh, heads,
+                              run_check=False)
 
 
 def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,

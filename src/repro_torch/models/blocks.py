@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.annotate import constrain
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.config import ModelConfig
 
@@ -53,6 +54,7 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int):
     if not _has_ffn(cfg, pos):
         return None, 0.0
     h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps)
+    h = constrain(h, "dp", None, None)   # the sequence whole
     if _is_moe(cfg, pos):
         return moe.moe_ffn(params["ffn"], h, cfg)
     return layers.mlp(params["ffn"], h, cfg), 0.0
@@ -61,10 +63,20 @@ def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int):
 def _cross_and_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
                    pos: int, enc_kv):
     if enc_kv is not None:
-        hc = layers.rmsnorm(params["norm_cross"], x, cfg.norm_eps)
-        x = x + attention.cross_attention(params["cross"], hc, enc_kv, cfg)
+        hc = constrain(layers.rmsnorm(params["norm_cross"], x, cfg.norm_eps),
+                       "dp", None, None)
+        x = x + _whole_seq(attention.cross_attention(params["cross"], hc,
+                                                     enc_kv, cfg))
     y, aux = _ffn(params, x, cfg, pos)
-    return (x if y is None else x + y), aux
+    return (x if y is None else x + _whole_seq(y)), aux
+
+
+def _whole_seq(y):
+    """A sublayer's output with the sequence whole before it joins the
+    sequence-sharded residual stream: its gradient then reaches the
+    sublayer's products whole too (DTensor cannot flatten a
+    sequence-sharded gradient into a matmul's backward)."""
+    return constrain(y, "dp", None, None)
 
 
 def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
@@ -72,14 +84,21 @@ def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     """Full-sequence (encode or forward) path.  Returns ``(x,
     aux_loss)``."""
     kind = cfg.pattern[pos % cfg.period]
-    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    x = constrain(x, "dp", "tp" if cfg.seq_parallel else None, None)
+    # the residual stream is sequence-sharded (JAX's hint); each sublayer
+    # gathers the sequence of its normed input before its products (the
+    # all-gather of Megatron's sequence parallelism, which JAX's
+    # partitioner places itself and DTensor needs written out: it cannot
+    # flatten a sequence-sharded activation into a matmul)
+    h = constrain(layers.rmsnorm(params["norm1"], x, cfg.norm_eps),
+                  "dp", None, None)
     if kind == "attn":
         mix = attention.self_attention(
             params["mixer"], h, cfg, positions, causal=causal,
             window=cfg.windows[pos % cfg.period])
     else:
         mix = mamba.mamba_forward(params["mixer"], h, cfg)
-    return _cross_and_ffn(params, x + mix, cfg, pos, enc_kv)
+    return _cross_and_ffn(params, x + _whole_seq(mix), cfg, pos, enc_kv)
 
 
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, max_len: int,

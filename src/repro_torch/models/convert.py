@@ -15,21 +15,51 @@ import numpy as np
 import torch
 
 
-def tree_map(fn, tree, *rest):
+def tree_map(fn, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` (and the leaves at the same place
     in each tree of ``rest``), keeping the structure (named tuples too);
-    None stays None."""
+    None stays None, and a node for which ``is_leaf`` holds (a spec tuple,
+    say) is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [tree_map(fn, v, *(r[i] for r in rest))
+        out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                for i, v in enumerate(tree)]
         return type(tree)(*out) if hasattr(tree, "_fields") \
             else type(tree)(out)
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, *rest, is_leaf=None, prefix: tuple = ()):
+    """``fn(path, leaf, *rest_leaves)`` at each leaf, as ``tree_map``, but
+    visited in JAX's flatten order (a dict's keys sorted, a named tuple's
+    fields and a list's items in turn), so that every rank of a world
+    meets the leaves in one order.  ``path`` is JAX's key path string:
+    dict keys and list indices as they are, a named tuple's field as
+    ``.name``, joined by "/"."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn("/".join(prefix), tree, *rest)
+    if isinstance(tree, dict):
+        mapped = {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                        is_leaf=is_leaf,
+                                        prefix=prefix + (str(k),))
+                  for k in sorted(tree)}
+        return {k: mapped[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        named = getattr(tree, "_fields", None)
+        out = [tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                  is_leaf=is_leaf, prefix=prefix + (
+                                      f".{named[i]}" if named else str(i),))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if named else type(tree)(out)
+    if tree is None:
+        return None
+    return fn("/".join(prefix), tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -3,8 +3,8 @@
 
 Parameters are plain dicts of tensors; every apply function casts to the
 compute dtype at the point of use, as the JAX package does (params are
-kept in fp32).  JAX's ``constrain`` sharding hints are left out: on one
-card they are the identity.
+kept in fp32).  The ``constrain`` sharding hints sit at JAX's sites: they
+redistribute DTensors under a mesh and are the identity otherwise.
 """
 
 from __future__ import annotations
@@ -13,7 +13,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import annotate
+from repro_torch.distributed.annotate import constrain
 from repro_torch.models.config import ModelConfig
 
 
@@ -69,6 +72,7 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = _act(cfg.act)(g) * h
     else:
         h = _act(cfg.act)(h)
+    h = constrain(h, *(("dp",) + (None,) * (h.dim() - 2) + ("tp",)))
     return torch.matmul(h, params["wo"].to(dt))
 
 
@@ -95,7 +99,43 @@ def embed(params: dict, tokens: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the same values as JAX's cast-then-gather, without
     # casting the whole table on every call
-    return params["table"][tokens].to(cdtype(cfg))
+    table = params["table"]
+    if isinstance(table, DTensor):
+        out = _embed_sharded(table, tokens, cfg)
+    else:
+        out = table[tokens].to(cdtype(cfg))
+    return constrain(out, "dp", None, None)
+
+
+def _embed_sharded(table: DTensor, tokens, cfg: ModelConfig) -> DTensor:
+    """The gather from a vocab-sharded table, on local shards (DTensor has
+    no sharding rule for an index into a sharded dim): each ``"model"``
+    rank looks up the tokens of its vocab rows and writes zeros for the
+    rest, and the result is a partial sum over ``"model"`` (each token's
+    row comes from one rank).  The table's FSDP dim is gathered over the
+    data axes first (ZeRO-3's all-gather), and each data rank looks up its
+    own batch rows, so the table's gradient is partial there."""
+    mesh = table.device_mesh
+    on = annotate.plan(mesh, tokens.shape[0], table.shape[0])
+    local = table.redistribute(
+        mesh, annotate.local_placements(mesh, False, on[1], None, 0)
+    ).to_local(grad_placements=annotate.local_placements(
+        mesh, *on, None, 0, partial_batch=True))
+    rows_pl = annotate.local_placements(mesh, on[0], False, 0)
+    tok = annotate.to_mesh(tokens, mesh).redistribute(
+        mesh, rows_pl).to_local().long()
+    if on[1]:
+        rows = local.shape[0]
+        idx = tok - mesh.get_local_rank("model") * rows
+        hit = (idx >= 0) & (idx < rows)
+        got = local[idx.clamp(0, rows - 1)]
+        out = torch.where(hit[..., None], got, got.new_zeros(()))
+    else:
+        out = local[tok]
+    return DTensor.from_local(
+        out.to(cdtype(cfg)), mesh,
+        annotate.local_placements(mesh, *on, 0, partial_chan=True),
+        run_check=False)
 
 
 def logits(params_head: torch.Tensor, x: torch.Tensor,
@@ -105,12 +145,13 @@ def logits(params_head: torch.Tensor, x: torch.Tensor,
     in full fp32 (it is not a TF32 product unless the caller turns
     ``torch.backends.cuda.matmul.allow_tf32`` on, which the port never
     does)."""
+    x = constrain(x, *(("dp",) + (None,) * (x.dim() - 1)))
     out = torch.matmul(x.to(torch.float32),
                        params_head.to(torch.float32).t())
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         out = torch.tanh(out / c) * c
-    return out
+    return constrain(out, *(("dp",) + (None,) * (out.dim() - 2) + ("tp",)))
 
 
 # ---------------------------------------------------------------------------

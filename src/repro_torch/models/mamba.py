@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.annotate import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -50,7 +51,7 @@ def _ssm_inputs(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The input projection: returns ``(u, z)``, each ``[B, S, di]``."""
     xz = torch.matmul(x, params["in_proj"].to(x.dtype))
     u, z = xz.chunk(2, dim=-1)
-    return u, z
+    return constrain(u, "dp", None, "tp"), constrain(z, "dp", None, "tp")
 
 
 def _post_conv(params: dict, u: torch.Tensor, cfg: ModelConfig):

@@ -14,9 +14,12 @@ each layer of ``forward_hidden`` is recomputed in the backward, as JAX's
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 from torch.utils import checkpoint as remat
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import annotate, partition
+from repro_torch.distributed.annotate import constrain
 from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_leaves, tree_map
@@ -168,7 +171,9 @@ def _run_stack(stack: dict, tail: list, x: torch.Tensor, cfg: ModelConfig,
 
     def run(fn, *args):
         if recompute:
-            return remat.checkpoint(fn, *args, use_reentrant=False)
+            return remat.checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=annotate.checkpoint_contexts)
         return fn(*args)
 
     def period(x, lps):
@@ -252,9 +257,57 @@ def _ce_chunk(head: torch.Tensor, xc: torch.Tensor, lc: torch.Tensor,
     """One chunk's summed next-token NLL and its count of labels >= 0."""
     lg = layers.logits(head, xc, cfg)
     mask = (lc >= 0).to(torch.float32)
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = torch.gather(lg, -1, lc.clamp(min=0).long()[..., None])[..., 0]
-    return ((lse - picked) * mask).sum(), mask.sum()
+    if isinstance(lg, DTensor):
+        nll = _nll_sharded(lg, lc)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = torch.gather(lg, -1,
+                              lc.clamp(min=0).long()[..., None])[..., 0]
+        nll = lse - picked
+    return (nll * mask).sum(), mask.sum()
+
+
+def _nll_sharded(lg: DTensor, labels) -> DTensor:
+    """``logsumexp(lg) - lg[label]`` of vocab-sharded logits, on local
+    shards (DTensor's gather rule fails on the indexed result, and its
+    reductions would gather the logits): each "model" rank takes the max,
+    the sum of exponentials and the label's logit over its vocab columns
+    (zero where the label is another rank's), and the three combine over
+    "model" -- the max by an all-reduce, the sums as partial sums.  Each
+    data rank takes its own batch rows.  With the whole vocab on each
+    rank, ``torch.logsumexp`` and the gather as on one device."""
+    mesh = lg.device_mesh
+    by_batch, by_vocab = annotate.plan(mesh, lg.shape[0], lg.shape[-1])
+    by_vocab = by_vocab and partition.mesh_axes(mesh)["model"] > 1
+    rows = annotate.local_placements(mesh, by_batch, False, 0)
+    local = lg.redistribute(mesh, annotate.local_placements(
+        mesh, by_batch, by_vocab, 0, lg.dim() - 1)).to_local()
+    idx = annotate.to_mesh(labels, mesh).redistribute(
+        mesh, rows).to_local().clamp(min=0).long()
+    if not by_vocab:
+        nll = torch.logsumexp(local, dim=-1) - \
+            torch.gather(local, -1, idx[..., None])[..., 0]
+        return DTensor.from_local(nll, mesh, rows, run_check=False)
+
+    def combine(t, op):   # this rank's part, reduced over "model"
+        part = annotate.local_placements(mesh, by_batch, True, 0,
+                                         partial_chan=True)
+        if op != "sum":
+            part = tuple(Partial(op) if p.is_partial() else p
+                         for p in part)
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, rows)
+
+    cols = local.shape[-1]
+    idx = idx - mesh.get_local_rank("model") * cols
+    hit = (idx >= 0) & (idx < cols)
+    got = torch.gather(local, -1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+    picked = combine(torch.where(hit, got, got.new_zeros(())), "sum")
+    with torch.no_grad():   # any shift gives the same lse
+        m = combine(local.amax(-1), "max").to_local()
+    sumexp = combine(torch.exp(local - m[..., None]).sum(-1), "sum")
+    return DTensor.from_local(m, mesh, rows, run_check=False) + \
+        torch.log(sumexp) - picked
 
 
 def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
@@ -268,6 +321,7 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
     chunk of fp32 logits is held.  A vision arch's labels align right
     (the hidden states cover the patch prefix too)."""
     x, aux = forward_hidden(params, batch, cfg)
+    x = constrain(x, "dp", None, None)            # the sequence whole
     labels = batch["labels"]                      # [B, S_lab]
     x = x[:, -labels.shape[1]:]
     hx = x[:, :-1]
@@ -282,8 +336,9 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
     for k in range(0, s, chunk):
         xc, lc = hx[:, k:k + chunk], hl[:, k:k + chunk]
         if torch.is_grad_enabled():
-            part, n = remat.checkpoint(_ce_chunk, head, xc, lc, cfg,
-                                       use_reentrant=False)
+            part, n = remat.checkpoint(
+                _ce_chunk, head, xc, lc, cfg, use_reentrant=False,
+                context_fn=annotate.checkpoint_contexts)
         else:
             part, n = _ce_chunk(head, xc, lc, cfg)
         nll_sum = nll_sum + part

@@ -659,6 +659,43 @@ def test_train_step_on_the_card_as_on_the_cpu(dev):
         assert float((a.cpu() - b).abs().max()) <= 1e-4
 
 
+def test_sharded_step_on_a_one_rank_mesh_equals_train_step(dev):
+    """falcon-mamba-7b's smoke config at bf16 with remat, in a one-rank
+    NCCL world: two ``shard_train_step`` steps on the (1, 1) mesh equal
+    two ``train_step``s bit for bit, and launch the scan and its backward
+    as the one-device step does (on the card the backward runs on the
+    autograd engine's thread, and remat's recompute must still see the
+    mesh's annotations there)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.testing.world import one_rank_world
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training import train_step as ts
+    cfg = get_smoke_config("falcon-mamba-7b").with_(remat=True)
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=2)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    plain = ts.init_state(0, cfg, opt, device=dev)
+    with one_rank_world("nccl"):
+        fn, _, _ = ts.shard_train_step(cfg, make_host_mesh(), 2, 24, opt)
+        sharded = ts.init_state(0, cfg, opt, device=dev)
+        for _ in range(2):
+            plain, m = ts.train_step(plain, batch, cfg=cfg, opt_cfg=opt)
+            before = ops.launch_counts()
+            sharded, ms = fn(sharded, batch)
+            after = ops.launch_counts()
+            assert float(ms["loss"]) == float(m["loss"])
+            assert after["selective_scan"] - before["selective_scan"] == \
+                2 * cfg.n_layers
+            assert after["selective_scan_bwd"] - \
+                before["selective_scan_bwd"] == cfg.n_layers
+        for a, b in zip(tree_leaves(sharded.params),
+                        tree_leaves(plain.params)):
+            assert torch.equal(a.to_local(), b)
+
+
 def test_falcon_prefill_then_decode_equals_prefill(dev):
     """falcon-mamba-7b at full width and 4 layers: prefilling 63 tokens and
     decoding the 64th gives the 64-token prefill's last logits within

@@ -198,7 +198,7 @@ def test_bf16_optimizer_states_converge(tmp_path):
     assert any(leaf.dtype == torch.bfloat16 for leaf in m_leaves)
 
 
-def test_launcher_on_the_cpu(tmp_path, capsys):
+def test_launcher_on_the_cpu(tmp_path, capsys, monkeypatch):
     ckpt = str(tmp_path / "ck")
     result = launch_train.main([
         "--arch", "falcon-mamba-7b", "--smoke", "--steps", "3",
@@ -210,6 +210,17 @@ def test_launcher_on_the_cpu(tmp_path, capsys):
     assert last.endswith(f"ckpt={ckpt}")
     assert np.isfinite(float(last.split("final-loss=")[1].split()[0]))
     assert [s for s, _ in result.losses] == [2]
-    with pytest.raises(NotImplementedError, match="A15"):
-        launch_train.main(["--arch", "falcon-mamba-7b", "--smoke",
-                           "--mesh-shape", "1", "1", "--device", "cpu"])
+    # --mesh-shape 1 1: the sharded step in a world of this process alone,
+    # started by the launcher from the environment
+    from repro_torch.testing.world import free_port
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                 "MASTER_PORT": str(free_port())}.items():
+        monkeypatch.setenv(k, v)
+    ckpt2 = str(tmp_path / "ck2")
+    meshed = launch_train.main([
+        "--arch", "falcon-mamba-7b", "--smoke", "--steps", "3",
+        "--ckpt-every", "2", "--fail-at", "2", "--batch", "2", "--seq",
+        "16", "--ckpt", ckpt2, "--mesh-shape", "1", "1", "--device", "cpu"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("finished: step=3 restarts=1 final-loss=")
+    assert meshed.losses == result.losses

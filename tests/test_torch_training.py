@@ -379,5 +379,14 @@ def test_state_tree_and_abstract_state_are_jax_s():
     assert {k: (s, str(d).replace("torch.", "")) for k, (s, d) in
             struct.items()} == {k: (v.shape, str(v.dtype)) for k, v in
                                 jstruct.items()}
-    with pytest.raises(NotImplementedError, match="A15"):
-        ts.shard_train_step(tcfg, None, batch=4, seq=32)
+    # the sharded step's structs are these, on a (1, 1) mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.testing.world import one_rank_world
+    with one_rank_world():
+        fn, sstruct, bstruct = ts.shard_train_step(
+            tcfg, make_host_mesh(device="cpu"), batch=4, seq=32,
+            opt_cfg=topt)
+        assert bstruct == struct
+        assert {p: (tuple(a.shape), str(a.dtype).replace("torch.", ""))
+                for p, a in leaves_by_path(sstruct).items()} == want
+        assert callable(fn)
