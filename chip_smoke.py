@@ -168,10 +168,11 @@ Phases, any fault exits non-zero:
    ``repro_torch.checkpoint.store`` on the LUDA store, bf16 compute with
    fp32 master weights and moments): the selective-scan backward kernel
    against the plain backward (autograd through the plain scan) at 4 x
-   512 and 1 x 4,096, timed; (a) falcon-mamba-7b at full width cut to 4
-   layers, 6 ``train_step``s of 4 x 512 ``BigramStream`` tokens timed by
-   CUDA events beside the step's bound, the loss falling and the gradient
-   norm finite, the scan launched twice a layer a step (the forward and
+   512 and 1 x 4,096, timed, and at its segment, chunk and channel-block
+   edges (``SCAN_BWD_EDGES``), each rerun bit for bit; (a) falcon-mamba-7b
+   at full width cut to 4 layers, 6 ``train_step``s of 4 x 512
+   ``BigramStream`` tokens timed by CUDA events beside the step's bound,
+   the loss falling and the gradient norm finite, the scan launched twice a layer a step (the forward and
    remat's recompute) and its backward once, the last step's last-layer
    backward held against the plain one on its kept inputs and rerun bit
    for bit; (b) the same model cut to 2 layers and d_model 64 (the vocab
@@ -210,9 +211,10 @@ last line is
 
     python3 chip_smoke.py --kernels
 
-runs phases 1 and 2's timed cases only (no edge tables, no ``ok`` line),
-so that a copy of this script placed in another checkout times that
-checkout's kernels on the same cases.
+runs phases 1 and 2's timed cases and row 9b's two cases (the
+selective-scan backward at 4 x 512 and 1 x 4,096) only (no edge tables, no
+``ok`` line), so that a copy of this script placed in another checkout
+times that checkout's kernels on the same cases.
 """
 
 from __future__ import annotations
@@ -1430,7 +1432,11 @@ HAND_WRITTEN = {"crc32_sections_kernel": "crc32_sections",
                 "lookup_kernel": "lookup_blocks",
                 "sort_tile_kernel": "bitonic_sort",
                 "sort_level_kernel": "bitonic_sort",
-                "selective_scan_kernel": "selective_scan"}
+                "selective_scan_kernel": "selective_scan",
+                "ssb_sweep_kernel": "selective_scan_bwd",
+                "ssb_carry_kernel": "selective_scan_bwd",
+                "ssb_walk_kernel": "selective_scan_bwd",
+                "ssb_reduce_kernel": "selective_scan_bwd"}
 # the rest of a trace: copies and fills (Memcpy, Memset), PyTorch's kernels
 COPIES = "copies"
 PYTORCH = "PyTorch kernels"
@@ -5951,8 +5957,9 @@ def check_scan_bwd(dev, card: str, clock_hz: float, cases) -> dict:
         log(f"  {name:26s} u {tuple(args[0].shape)}: max abs err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
             + f" (limit {SCAN_TOL} of each largest), two runs equal bit for "
-            f"bit; device time kernel {res['ms']:.4f} ms (two kernels: the "
-            f"scan and the ordered sums), plain {res['plain_ms']:.4f} ms "
+            f"bit; device time kernel {res['ms']:.4f} ms (the sweep, the "
+            f"carry past one segment, the walk and the ordered sums), plain "
+            f"{res['plain_ms']:.4f} ms "
             f"(one call, CUDA events); "
             f"bound {res['bound_ms']:.4f} ms by {worst} (bytes "
             f"{times['bytes']:.4f}, exponentials {times['exponentials']:.4f} "
@@ -5961,6 +5968,70 @@ def check_scan_bwd(dev, card: str, clock_hz: float, cases) -> dict:
             f"ms; library: none ({NO_LIBRARY}) [{card}]")
         results[name] = res
     return results
+
+
+# The backward's edge cases, shared with the tests: (B, S, d_inner, ds, u
+# dtype, h0, dh_last).  With `selective_scan.bwd_plan`'s cut (8-step
+# chunks, 64-channel walk blocks): S = 1 (one step, one segment); 16 and 17
+# steps (segments of one chunk, the last of one step); 33 and 37 (five
+# one-chunk segments, the last ragged); 65 and 130 (segments of three
+# chunks, the last of 17 and 10 steps); 300 (four of ten chunks, the last
+# 20 steps short); 2 x 1,000 (two of 63 chunks); d_inner 64 (one block),
+# 70, 100 and 4,100 (off the block) and 8,192; ds 1, 3, 5, 7 and 16 (states
+# past ds padded); bf16 and fp32 u; h0 and dh_last on and off.
+SCAN_BWD_EDGES = [
+    (2, 37, 70, 5, torch.float32, True, True),
+    (1, 17, 100, 16, torch.bfloat16, True, False),
+    (3, 1, 8192, 1, torch.bfloat16, False, True),
+    (1, 33, 4100, 3, torch.float32, False, False),
+    (2, 16, 64, 16, torch.float32, True, True),
+    (1, 17, 8192, 16, torch.bfloat16, True, True),
+    (1, 65, 8192, 16, torch.float32, True, True),
+    (1, 300, 8192, 16, torch.bfloat16, True, True),
+    (1, 130, 4100, 16, torch.float32, False, True),
+    (2, 1000, 8192, 7, torch.bfloat16, False, True)]
+
+
+def scan_bwd_edge_call(case, dev) -> tuple:
+    """The backward's inputs ``(*args, dy, dh_last)`` of a
+    ``SCAN_BWD_EDGES`` case, seeded by the case: softplus ``dt``, ``A_log
+    = log(1..ds)`` plus noise, normal ``u``, ``B``, ``C``, ``D``, ``dy``
+    and (where the case says) ``h0`` and ``dh_last``."""
+    bsz, seq, di, ds, u_dtype, with_h0, with_dh = case
+    rng = np.random.default_rng(bsz * 7 + seq * 13 + di + ds)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    u = normal(bsz, seq, di).to(u_dtype)
+    dt = torch.nn.functional.softplus(normal(bsz, seq, di) - 2.0)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=dev).repeat(di, 1)) \
+        + 0.1 * normal(di, ds)
+    h0 = normal(bsz, di, ds) if with_h0 else None
+    dy = normal(bsz, seq, di)
+    dh = normal(bsz, di, ds) if with_dh else None
+    return (u, dt, normal(bsz, seq, ds), normal(bsz, seq, ds), a_log,
+            normal(di), h0, dy, dh)
+
+
+def check_scan_bwd_edges(dev) -> int:
+    """Row 9b at ``SCAN_BWD_EDGES``: each case through
+    ``check_scan_bwd_call`` (two runs bit-equal, each gradient within
+    ``SCAN_TOL`` of the plain backward's largest, a bf16 ``du`` within one
+    ulp more) in exactly two launches of the kernel and no other.  Returns
+    the cases checked."""
+    for case in SCAN_BWD_EDGES:
+        before = ops.launch_counts()
+        check_scan_bwd_call(dev, scan_bwd_edge_call(case, dev))
+        after = ops.launch_counts()
+        made = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        if made != {"selective_scan_bwd": 2}:
+            raise AssertionError(f"selective_scan_bwd at {case[:4]}: "
+                                 f"launches {made}, expected 2 (two runs)")
+    return len(SCAN_BWD_EDGES)
 
 
 @contextlib.contextmanager
@@ -6912,6 +6983,9 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     checks, sort_rows = check_kernels(dev, card)
     if kernels_only:
+        log("[2] row 9b: the selective-scan backward at its two cases")
+        check_scan_bwd(dev, card, sm_clock_hz(),
+                       bwd_cases(np.random.default_rng(2030), dev))
         return 0
     log(f"[2] the timed cases {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -7227,6 +7301,14 @@ def main(argv: list[str]) -> int:
     checks.update(check_scan_bwd(dev, card, clock_hz, bwd_cases(
         np.random.default_rng(2030), dev, di=cfg.d_inner,
         ds=cfg.ssm_state)))
+    t1 = time.perf_counter()
+    n = check_scan_bwd_edges(dev)
+    log(f"  selective_scan_bwd at its edges: {n} cases within {SCAN_TOL} of "
+        "each largest (a bf16 du one ulp more), two runs equal bit for bit, "
+        "one launch a call (S = 1 to 1,000: one-step and ragged last "
+        "segments, segments of 1 to 63 chunks; d_inner 64 to 8,192, off the "
+        "64-channel block; ds 1 to 16; bf16 and fp32 u; h0 and dh_last on "
+        f"and off) ({time.perf_counter() - t1:.1f} s)")
     built, watching = watch_engines()
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
         ROOT, "build"))

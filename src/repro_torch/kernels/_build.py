@@ -53,7 +53,7 @@ SIGNATURES = {
                      _P),
     "selective_scan": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P),
-    "selective_scan_bwd": (_P, _I) + (_P,) * 19 + (_I, _I, _I, _I, _P),
+    "selective_scan_bwd": (_P, _I) + (_P,) * 22 + (_I,) * 5 + (_P,),
 }
 
 #: Launches per kernel since the last :func:`reset_launch_counts`.

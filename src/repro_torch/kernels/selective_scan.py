@@ -8,18 +8,84 @@ kernel's registers for the whole sequence, so unlike the JAX wrapper this
 one does not chunk the sequence; a carried ``h0`` is still taken.  The
 backward (:func:`selective_scan_bwd`, plain version
 ``ref.selective_scan_bwd``) has no TPU counterpart: JAX trains through an
-``associative_scan``.
+``associative_scan``.  It cuts the sequence into segments that run in
+parallel (:func:`bwd_plan` picks their length from the shape alone, so the
+summation order, and with it every bit of the result, depends on nothing
+else).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 
 MAX_STATE = 16   # ds the kernel holds in registers (kMaxState)
-BWD_CHUNK = 16   # steps between the backward's stored states (kChunk)
-BWD_CHANNELS = 32   # channels a block of the backward (kChannels)
+BWD_CHUNK = 8    # steps a chunk of the backward: its history in shared
+#                  memory, and the spacing of the sweep's stored states
+BWD_CHANNELS = 64       # channels a block of the backward's walk
+BWD_SWEEP_CHANNELS = 64  # channels a block of its forward sweep
+BWD_BLOCKS = 512    # walk blocks the plan adds segments to reach
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How :func:`selective_scan_bwd` cuts a ``[B, S, di]`` problem: segments
+    of ``seg_len`` steps (a multiple of ``chunk``), ``n_seg`` of them, the
+    last ragged; the walk's grid ``(channel_blocks, n_seg, B)`` and the
+    sweep's ``(sweep_blocks, n_seg, B)``; and the fp32 scratch shapes, by
+    name, in the order the C entry point takes them (an empty shape where
+    one segment needs no carry)."""
+    chunk: int
+    seg_len: int
+    n_seg: int
+    n_chunks: int
+    channel_blocks: int
+    sweep_blocks: int
+    scratch: dict
+
+    @property
+    def walk_grid(self) -> tuple:
+        return (self.channel_blocks, self.n_seg,
+                self.scratch["da_part"][0])
+
+    @property
+    def sweep_grid(self) -> tuple:
+        return (self.sweep_blocks, self.n_seg, self.scratch["da_part"][0])
+
+
+def bwd_plan(bsz: int, seq: int, di: int, ds: int) -> BwdPlan:
+    """The backward's plan from the shape alone: one segment when ``B *
+    ceil(di / BWD_CHANNELS)`` walk blocks reach ``BWD_BLOCKS``, else as
+    many more as reach it (at most one a chunk), of equal length in whole
+    chunks.  Scratch: the sweep's chunk-start states ``hck`` and, past the
+    first segment, their transfers from the segment's start ``qck`` ([B,
+    chunks, di, 16]); the segments' transfers, end states and adjoints
+    ``summ`` [B, n_seg, 3, di, 16] and the carried start states and
+    adjoints ``carry`` [B, n_seg, 2, di, 16] (both empty for one segment);
+    the blocks' dB / dC ``part`` [channel blocks, B, S, 2, ds]; dA and dD
+    by batch row and segment, ``da_part`` [B, n_seg, di, ds] and
+    ``dd_part`` [B, n_seg, di]."""
+    chunk = BWD_CHUNK
+    n_chunks = -(-seq // chunk)
+    channel_blocks = -(-di // BWD_CHANNELS)
+    want = -(-BWD_BLOCKS // max(bsz * channel_blocks, 1))
+    n_seg = max(1, min(want, n_chunks))
+    seg_len = max(-(-n_chunks // n_seg), 1) * chunk
+    n_seg = max(1, -(-seq // seg_len))
+    many = n_seg > 1
+    st = (bsz, n_chunks, di, MAX_STATE)
+    scratch = {"hck": st, "qck": st if many else (0,),
+               "summ": (bsz, n_seg, 3, di, MAX_STATE) if many else (0,),
+               "carry": (bsz, n_seg, 2, di, MAX_STATE) if many else (0,),
+               "part": (channel_blocks, bsz, seq, 2, ds),
+               "da_part": (bsz, n_seg, di, ds), "dd_part": (bsz, n_seg, di)}
+    return BwdPlan(chunk=chunk, seg_len=seg_len, n_seg=n_seg,
+                   n_chunks=n_chunks, channel_blocks=channel_blocks,
+                   sweep_blocks=-(-di // BWD_SWEEP_CHANNELS),
+                   scratch=scratch)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -97,9 +163,10 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     S, di]`` and ``dh_last`` ``[B, di, ds]`` (or None: zeros), returns
     ``(du, ddt, db, dc, da_log, dd_skip, dh0)``: ``du`` in ``u``'s dtype
     (the kernel rounds its fp32 sum once), the rest fp32, ``dh0`` None
-    when ``h0`` is None.  One call, two kernels (the scan, then the ordered sums over
-    channel blocks and batch rows); no float atomics, so a rerun gives the
-    same bits."""
+    when ``h0`` is None.  One call (one counted launch), four kernels
+    (:func:`bwd_plan`'s segments swept forward, their carry, the walks
+    back, then the ordered sums over channel blocks, batch rows and
+    segments); no float atomics, so a rerun gives the same bits."""
     u, t = _check_scan_inputs("selective_scan_bwd", u, dt, b, c, a_log,
                               d_skip, h0=h0, dy=dy, dh_last=dh_last)
     bsz, seq, di = u.shape
@@ -112,16 +179,15 @@ def selective_scan_bwd(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ddt, db, dc = f32(bsz, seq, di), f32(bsz, seq, ds), f32(bsz, seq, ds)
     da_log, dd_skip = f32(di, ds), f32(di)
     dh0 = None if h0 is None else f32(bsz, di, ds)
-    hck = f32(bsz, -(-seq // BWD_CHUNK), di, MAX_STATE)
-    part = f32(-(-di // BWD_CHANNELS), bsz, seq, 2, ds)
-    da_part, dd_part = f32(bsz, di, ds), f32(bsz, di)
+    plan = bwd_plan(bsz, seq, di, ds)
+    scratch = [f32(*shape) for shape in plan.scratch.values()]
     _build.launch("selective_scan_bwd", u.data_ptr(),
                   int(u.dtype == torch.bfloat16), t["dt"].data_ptr(),
                   t["b"].data_ptr(), t["c"].data_ptr(), t["a_log"].data_ptr(),
                   t["d_skip"].data_ptr(), _ptr(t["h0"]), t["dy"].data_ptr(),
                   _ptr(t["dh_last"]), du.data_ptr(), ddt.data_ptr(),
                   db.data_ptr(), dc.data_ptr(), da_log.data_ptr(),
-                  dd_skip.data_ptr(), _ptr(dh0), hck.data_ptr(),
-                  part.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
-                  bsz, seq, di, ds, _build.stream_handle(du))
+                  dd_skip.data_ptr(), _ptr(dh0),
+                  *(x.data_ptr() for x in scratch),
+                  bsz, seq, di, ds, plan.seg_len, _build.stream_handle(du))
     return du, ddt, db, dc, da_log, dd_skip, dh0

@@ -51,6 +51,9 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 
 def make_host_mesh(model_axis: int | None = None, *, device=None):
-    """A ``("data", "model")`` mesh over every rank of the world."""
+    """A ``("data", "model")`` mesh over every rank of the world; the
+    device is resolved before the world is read, so without a card it
+    refuses as every other entry point does."""
+    dev = resolve_device(device)
     return build_mesh(host_mesh_shape(dist.get_world_size(), model_axis),
-                  ("data", "model"), device)
+                      ("data", "model"), dev)

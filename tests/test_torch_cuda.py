@@ -562,13 +562,12 @@ SCAN_GRADS = ("du", "ddt", "db", "dc", "da_log", "dd_skip", "dh0")
 
 @pytest.mark.parametrize("b,s,di,ds,u_dtype,with_h0,with_dh", [
     (4, 512, 8192, 16, torch.bfloat16, False, False),
-    # S not a multiple of the 16-step chunk, ds < 16, B = 1, S = 1, di not
-    # a multiple of a block's 32 channels
-    (2, 37, 70, 5, torch.float32, True, True),
-    (1, 17, 100, 16, torch.bfloat16, True, False),
-    (3, 1, 8192, 1, torch.bfloat16, False, True),
-    (1, 33, 4100, 3, torch.float32, False, False),
-    (2, 16, 64, 16, torch.float32, True, True)])
+    # the segment, chunk and channel-block edges of `bwd_plan`'s cut (S =
+    # 1, one-step and ragged last segments, segments of 1 to 63 chunks, di
+    # off the walk's 64-channel block, ds < 16), then B = 1 at 4,096 steps
+    # (four segments of 128 chunks, carried start states and adjoints)
+    *chip_smoke.SCAN_BWD_EDGES,
+    (1, 4096, 8192, 16, torch.bfloat16, True, True)])
 def test_selective_scan_bwd(dev, b, s, di, ds, u_dtype, with_h0, with_dh):
     """The backward kernel against the plain backward (autograd through
     the plain scan): each gradient within 1e-4 of its largest magnitude

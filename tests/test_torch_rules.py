@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.data.ycsb import WorkloadSpec
 from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.lsm.sharded import ShardedDB
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import serve, train, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
@@ -103,13 +104,20 @@ def no_cuda(monkeypatch):
                         TrainLoopConfig(steps=1), str(tmp / "db")),
     lambda tmp: train.main(["--arch", "falcon-mamba-7b", "--smoke",
                             "--steps", "1", "--ckpt", str(tmp / "db")]),
+    lambda tmp: launch_mesh.make_host_mesh(),
+    lambda tmp: launch_mesh.make_production_mesh(),
+    lambda tmp: launch_mesh.build_mesh((1,), ("data",)),
+    lambda tmp: train.main(["--arch", "falcon-mamba-7b", "--smoke",
+                            "--steps", "1", "--ckpt", str(tmp / "db"),
+                            "--mesh-shape", "1", "1"]),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
         "ycsb.run", "launch.ycsb", "MemorySessionStore",
         "ServeEngine-page_store", "ShardedDB", "ShardedDB-cpu-engine",
         "LsmDB.open-repair", "ShardedDB.open-repair",
         "crashmatrix.run_cell", "train_step.init_state", "CheckpointStore",
-        "Trainer", "launch.train"])
+        "Trainer", "launch.train", "make_host_mesh", "make_production_mesh",
+        "build_mesh", "launch.train-mesh"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
