@@ -253,7 +253,7 @@ from repro_torch.data.ycsb import (  # noqa: E402
     WorkloadSpec, YCSBWorkload, key_of)
 from repro_torch.kernels import _build, merge_path, ops, ref  # noqa: E402
 from repro_torch.kernels import bitonic_sort as sort_plan  # noqa: E402
-from repro_torch.launch import ycsb  # noqa: E402
+from repro_torch.launch import dryrun, ycsb  # noqa: E402
 from repro_torch.lsm import ReadOptions, sstable  # noqa: E402
 from repro_torch.lsm.cpu_engine import CpuCompactionEngine  # noqa: E402
 from repro_torch.lsm.db import DBConfig, LsmDB  # noqa: E402
@@ -262,6 +262,7 @@ from repro_torch.lsm.engine import (  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.convert import tree_leaves, tree_map  # noqa: E402
+from repro_torch.roofline import constants as h100  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.session_store import (  # noqa: E402
     LsmSessionStore, encode_state)
@@ -272,14 +273,14 @@ from repro_torch.serving.session_store import (  # noqa: E402
 PAPER_GEOM = PAPER.geometry(256)
 PAPER_SCHED = PAPER.scheduler()
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and the scalar (non-tensor-core)
-# 32-bit rate, used for integer and fp32 work; the special-function units
-# give 16 exponentials a clock per SM (compute capability 9.0), at the clock
-# nvidia-smi reports
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-SFU_PER_CLOCK_PER_SM = 16
-H100_SMS = 132
+# the card's rates (NVIDIA H100 SXM data sheet, repro_torch.roofline.
+# constants): HBM3, and the scalar (non-tensor-core) 32-bit rate, used for
+# integer and fp32 work; the special-function units give 16 exponentials a
+# clock per SM (compute capability 9.0), at the clock nvidia-smi reports
+HBM_BYTES_PER_S = h100.HBM_BW
+SCALAR_OPS_PER_S = h100.SCALAR_OPS_PER_S
+SFU_PER_CLOCK_PER_SM = h100.SFU_PER_CLOCK_PER_SM
+H100_SMS = h100.H100_SMS
 
 KERNELS = {
     # name: (C entry point, phase-2 case, source, the TPU kernel replaced)
@@ -5702,7 +5703,7 @@ LAUNCH_ARGS = ("--arch", FALCON, "--smoke", "--steps", "8", "--ckpt-every",
 LAUNCH_TIMEOUT = 300
 # the card's peak rates for the step's bound (NVIDIA H100 SXM data sheet):
 # bf16 products on the tensor cores; fp32 products outside them
-BF16_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = h100.PEAK_FLOPS_BF16
 
 
 def train_configs() -> dict:
@@ -6922,6 +6923,227 @@ def dist_part_lines(part: str, r: dict, card: str) -> list[str]:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run (launch/dryrun.py) against real steps on the card
+# ---------------------------------------------------------------------------
+
+DRY_BLOCKS = 2048                    # (c): blocks a shard
+DRY_CELL = (FALCON, "decode_32k", False)   # (d): one production cell
+DRY_PEAK_RATIO = (0.5, 2.0)          # (a), (b): traced over measured peak
+# the kernels of the path: (a)'s train steps, (b)'s prefill, (c)'s job
+DRY_PATH = ("selective_scan", "selective_scan_bwd", "crc32_sections",
+            "bitonic_sort", "prefix_encode", "bloom_build")
+
+
+def tree_nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def measured_step(fn, dev) -> dict:
+    """``fn()`` once with its products counted by
+    ``torch.utils.flop_counter.FlopCounterMode``, then once timed: CUDA
+    events around it and the card's peak allocation above what was
+    allocated before it (on the CPU the host clock, and no peak)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    sync(dev)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        ev[1].record()
+        ev[1].synchronize()
+    ms = ev[0].elapsed_time(ev[1]) if on_card else \
+        (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - before if on_card else None
+    del out
+    return dict(flops=fc.get_total_flops(), ms=ms, peak=peak)
+
+
+def dry_against(rec: dict, real: dict, arg_bytes: int, what: str) -> dict:
+    """Raise unless the dry run's dot FLOPs equal the real step's count and
+    its argument bytes the real arguments' bytes, exactly, and unless its
+    peak above the arguments lies within ``DRY_PEAK_RATIO`` of the card's
+    (where the card measured one).  Returns the comparison."""
+    flops = rec["cost"]["flops_per_device"]
+    if flops != real["flops"]:
+        raise AssertionError(f"[15] {what}: the dry run counts {flops:.6g} "
+                             f"dot FLOPs, FlopCounterMode {real['flops']:.6g}")
+    m = rec["memory"]
+    if m["argument_bytes"] != arg_bytes:
+        raise AssertionError(f"[15] {what}: the dry run's argument bytes "
+                             f"{m['argument_bytes']}, the real ones "
+                             f"{arg_bytes}")
+    ratio = None
+    if real["peak"] is not None:
+        ratio = (m["peak_estimate_bytes"] - m["argument_bytes"]) / \
+            real["peak"]
+        lo, hi = DRY_PEAK_RATIO
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"[15] {what}: the traced peak above the "
+                                 f"arguments is {ratio:.3f} x the card's")
+    return dict(rec=rec, real=real, arg_bytes=arg_bytes, ratio=ratio)
+
+
+def dry_train(cfg, dev, *, batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ) -> dict:
+    """(a): phase 13 (a)'s train step traced by the dry run on a one-rank
+    fake world's (1, 1) mesh, then run for real through ``train_step``
+    from ``init_state(0)`` on a ``BigramStream`` batch."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.tokens import BigramStream, make_train_batch
+    from repro_torch.training import optimizer as optim
+    from repro_torch.training import train_step as ts
+    rec = dryrun.lm_cell(cfg, ShapeSpec("phase-13a", "train", seq, batch),
+                         (1, 1), ("data", "model"), dev)
+    free_card(dev)
+    opt_cfg = optim.AdamWConfig()        # the dry run's: fp32 moments
+    state = ts.init_state(0, cfg, opt_cfg, device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in make_train_batch(
+        cfg, BigramStream(cfg.vocab, seed=0), 0, batch, seq).items()}
+    arg_bytes = tree_nbytes(state) + tree_nbytes(b)
+    real = measured_step(lambda: ts.train_step(state, b, cfg=cfg,
+                                               opt_cfg=opt_cfg), dev)
+    del state, b
+    free_card(dev)
+    return dry_against(rec, real, arg_bytes, "(a) the train step")
+
+
+def dry_prefill(cfg, dev, *, batch: int = SERVE_BATCH,
+                prompt_len: int = SERVE_PROMPT, seed: int = 0) -> dict:
+    """(b): phase 5's prefill traced by the dry run on a one-rank fake
+    world's (1, 1) mesh, then run for real through ``serve_prefill`` with
+    the serving params of ``serve_step.abstract_params`` (every fp32 leaf
+    of two or more dims in bf16) from ``model.init(seed)``."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.serving import serve_step
+    from repro_torch.training.train_step import working_copy
+    rec = dryrun.lm_cell(cfg, ShapeSpec("phase-5", "prefill", prompt_len,
+                                        batch),
+                         (1, 1), ("data", "model"), dev)
+    free_card(dev)
+    params = working_copy(lm.init(seed, cfg, device=dev), cfg)
+    free_card(dev)
+    rng = np.random.default_rng(seed)
+    b = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)}
+    arg_bytes = tree_nbytes(params) + tree_nbytes(b)
+    real = measured_step(lambda: serve_step.serve_prefill(
+        params, b, cfg=cfg, max_len=prompt_len), dev)
+    del params, b
+    free_card(dev)
+    return dry_against(rec, real, arg_bytes, "(b) the prefill")
+
+
+def dry_compaction(dev, *, blocks: int = DRY_BLOCKS) -> dict:
+    """(c): the compaction cell at ``blocks`` blocks a shard (one shard run
+    on ``dev``), its stats held against the plain versions' on the same
+    image (``ops._on_card`` patched to False: the plain versions on the
+    same device)."""
+    from repro_torch.core import compaction
+    rec = dryrun.run_compaction_cell(False, blocks, device=dev)
+    img = dryrun.compaction_image(blocks, PAPER_GEOM, 0, dev)
+    with mock.patch.object(ops, "_on_card", lambda t: False):
+        _, plain = compaction.compact(img, geom=PAPER_GEOM,
+                                      sort_mode="device")
+    if rec["stats"] != plain._asdict():
+        raise AssertionError(f"[15] (c) the cell's stats {rec['stats']}, "
+                             f"the plain versions' {plain._asdict()}")
+    return dict(rec=rec, plain=plain._asdict())
+
+
+def dry_phase(dev, *, configs: dict | None = None, sizes: dict | None = None,
+              cell=None, report=None) -> dict:
+    """Phase 15: (a) ``dry_train``, (b) ``dry_prefill``, (c)
+    ``dry_compaction``, (d) ``DRY_CELL``, one production cell of the dry
+    run on its 256-rank fake world.  ``launches`` counts the kernels from
+    0 around (a)-(c) ((d) launches none).  (``configs``, ``sizes`` and
+    ``cell``, a function giving (d)'s record, scale the phase down for a
+    rehearsal.)"""
+    configs = configs or {"train": train_configs()["full"],
+                          "serve": get_config(FALCON)}
+    sizes = sizes or {}
+    report = report or (lambda part, r: None)
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["train"] = dry_train(configs["train"], dev, **sizes.get("train", {}))
+    report("train", out["train"])
+    out["prefill"] = dry_prefill(configs["serve"], dev,
+                                 **sizes.get("prefill", {}))
+    report("prefill", out["prefill"])
+    out["compact"] = dry_compaction(dev, **sizes.get("compact", {}))
+    report("compact", out["compact"])
+    out["launches"] = ops.launch_counts()
+    t1 = time.perf_counter()
+    out["cell"] = cell() if cell else dict(
+        dryrun.run_lm_cell(*DRY_CELL, device=dev),
+        cell=dryrun.cell_name(*DRY_CELL))
+    out["cell_s"] = time.perf_counter() - t1
+    report("cell", out)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_terms(rec: dict) -> str:
+    r = rec["roofline"]
+    return (f"compute_s {r['compute_s'] * 1e3:.4f} ms, memory_s "
+            f"{r['memory_s'] * 1e3:.4f} ms, collective_s "
+            f"{r['collective_s'] * 1e3:.4f} ms (dominant "
+            f"{r['dominant']})")
+
+
+def dry_part_lines(part: str, r: dict, card: str) -> list[str]:
+    """The phase-15 report of each part."""
+    if part in ("train", "prefill"):
+        rec, real = r["rec"], r["real"]
+        m = rec["memory"]
+        tag = "(a) the train step" if part == "train" else "(b) the prefill"
+        on_card = real["peak"] is not None
+        ratio = f"{r['ratio']:.4f}" if on_card else "not measured (no card)"
+        return [
+            f"[15] {tag}: traced in {rec['compile_seconds']:.1f} s on a "
+            f"one-rank fake world's (1, 1) mesh; dot FLOPs "
+            f"{rec['cost']['flops_per_device']:.6g} = FlopCounterMode's "
+            f"count of the real step; argument bytes {m['argument_bytes']} "
+            f"= the real state's and batch's",
+            f"[15] {tag}: peak above the arguments traced "
+            f"{m['peak_estimate_bytes'] - m['argument_bytes']} B, on the "
+            f"card {real['peak']} B (max_memory_allocated less the bytes "
+            f"allocated before): ratio {ratio} (limit {DRY_PEAK_RATIO})",
+            f"[15] {tag}: {real['ms']:.2f} ms "
+            f"({'CUDA events' if on_card else 'host clock'}) beside the "
+            f"roofline's {roofline_terms(rec)}; traffic "
+            f"{rec['cost']['bytes_per_device']:.6g} B [{card}]"]
+    if part == "compact":
+        rec = r["rec"]
+        job_s = rec["job_seconds"]
+        nbytes = rec["cost"]["bytes_per_device"]
+        return [
+            f"[15] (c) the compaction cell ({rec['shape']}, one shard of "
+            f"{rec['mesh']['devices']}): stats {rec['stats']} = the plain "
+            f"versions'; {nbytes:.6g} B of traffic counted; the job run "
+            f"again uncounted {job_s * 1e3:.3f} ms (device clock) = "
+            f"{nbytes / job_s / 1e9:.2f} GB/s, beside memory_s "
+            f"{rec['roofline']['memory_s'] * 1e3:.4f} ms; collectives "
+            f"{rec['collectives']['total_bytes']} B; peak "
+            f"{rec['memory']['peak_estimate_bytes']} B [{card}]"]
+    cell = r["cell"]
+    if "error" in cell:
+        raise AssertionError(f"[15] (d) {cell['cell']}: {cell['error']}")
+    return [f"[15] (d) {cell['cell']}: traced in {r['cell_s']:.1f} s; "
+            f"fits {cell['memory']['fits']} (peak "
+            f"{cell['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB of "
+            f"{h100.HBM_PER_CHIP / 2**30:.2f}); dominant "
+            f"{cell['roofline']['dominant']}; {roofline_terms(cell)}"]
+
+
 def watch_engines():
     """Record every ``TorchCompactionEngine`` built from now on: returns
     the list they are appended to and the patch (``stop()`` ends it)."""
@@ -7348,11 +7570,26 @@ def main(argv: list[str]) -> int:
     log(f"[14] launches (a), (b): " + ", ".join(
         f"{k} {p14['launches'].get(k, 0)}" for k in KERNELS))
     log(f"[14] {time.perf_counter() - t0:.1f} s")
+    free_card(dev)
+
+    log(f"[15] the dry run (launch/dryrun.py) against real steps on the "
+        f"card: (a) phase 13 (a)'s train step and (b) phase 5's prefill, "
+        f"each traced on a one-rank fake world's (1, 1) mesh and run; (c) "
+        f"the compaction cell at {DRY_BLOCKS} blocks a shard; (d) "
+        f"{dryrun.cell_name(*DRY_CELL)} on its 256-rank fake world")
+    p15 = dry_phase(dev, report=lambda part, r: log(
+        "\n".join(dry_part_lines(part, r, card))))
+    idle = [k for k in DRY_PATH if not p15["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"kernels not launched in phase 15: {idle}")
+    log(f"[15] launches (a)-(c): " + ", ".join(
+        f"{k} {p15['launches'].get(k, 0)}" for k in KERNELS))
+    log(f"[15] {p15['seconds']:.1f} s")
 
     # the main paths: phase 3's store (with phase 4's device sort and
     # phase 5's prefill), phase 9's async stores, phase 10's faults,
     # phase 11's instrumented stores, phase 12's archs, phase 13's
-    # training and phase 14's distributed layer
+    # training, phase 14's distributed layer and phase 15's dry run
     path_launches = dict(st["launches"],
                          bitonic_sort=job_launches["bitonic_sort"],
                          selective_scan=n_scan)
@@ -7365,7 +7602,8 @@ def main(argv: list[str]) -> int:
                    "obs": p11["launches"].get(entry, 0),
                    "archs": p12["launches"].get(entry, 0),
                    "train": p13["launches"].get(entry, 0),
-                   "distributed": p14["launches"].get(entry, 0)}
+                   "distributed": p14["launches"].get(entry, 0),
+                   "dryrun": p15["launches"].get(entry, 0)}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,

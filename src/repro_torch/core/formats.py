@@ -120,6 +120,11 @@ HOST_DTYPES = SSTImage(keys=np.uint32, meta=np.uint32, vals=np.uint32,
                        bloom=np.uint32)
 
 
+# the meta word's low bit: a value, or a delete (a tombstone)
+VALUE_TYPE = 1
+DELETE_TYPE = 0
+
+
 def make_meta(seq: int, is_value: int) -> int:
     return ((seq << 1) | is_value) & MASK32
 

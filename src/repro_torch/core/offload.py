@@ -242,6 +242,21 @@ def place_sharded(img: SSTImage, mesh, axes) -> SSTImage:
                       for a in img))
 
 
+def shard_local(img: SSTImage, mesh, axes) -> SSTImage:
+    """This rank's range of an image of DTensors, its block axis sharded
+    over ``axes`` first (a placed image moves nothing)."""
+    pl = _block_placements(mesh, axes)
+    return SSTImage(*(a.redistribute(mesh, pl).to_local() for a in img))
+
+
+def shard_global(img: SSTImage, mesh, axes) -> SSTImage:
+    """This rank's output range as its part of an image of DTensors, the
+    block axis sharded over ``axes``."""
+    pl = _block_placements(mesh, axes)
+    return SSTImage(*(DTensor.from_local(a, mesh, pl, run_check=False)
+                      for a in img))
+
+
 def sharded_compact(img: SSTImage, mesh, axes, *, geom: SSTGeometry,
                     bottom_level: bool = False, sort_mode: str = "device"):
     """Range-partitioned compaction across ``axes`` of ``mesh``.
@@ -263,18 +278,17 @@ def sharded_compact(img: SSTImage, mesh, axes, *, geom: SSTGeometry,
             'sharded_compact does not support sort_mode="merge": per-shard '
             "run boundaries are not representable through uniform shard "
             'specs; use "device" or "xla"')
-    pl = _block_placements(mesh, axes)
-    local = SSTImage(*(a.redistribute(mesh, pl).to_local() for a in img))
+    local = shard_local(img, mesh, axes)
     out, stats = compaction.compact(local, geom=geom,
                                     bottom_level=bottom_level,
                                     sort_mode=sort_mode)
-    out = SSTImage(*(DTensor.from_local(a, mesh, pl, run_check=False)
-                     for a in out))
+    out = shard_global(out, mesh, axes)
+    pl = _block_placements(mesh, axes)
     coord = mesh.get_coordinate()
     shard = 0
     for i, p in enumerate(pl):   # row-major over the sharding mesh dims
         if p.is_shard():
-            shard = shard * mesh.mesh.shape[i] + coord[i]
+            shard = shard * mesh.size(i) + coord[i]
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, (shard, stats))
     return out, [st for _, st in sorted(dict(gathered).items())]

@@ -25,6 +25,7 @@ import threading
 
 import math
 
+import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed import partition
@@ -170,3 +171,42 @@ def to_mesh(t, mesh):
         return t
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def greedy(logits):
+    """``torch.argmax(logits, dim=-1)`` (the first index of the largest
+    value), for a DTensor whose last dim is sharded over one mesh dim as
+    a region on local shards: each rank takes its shard's largest value
+    and its global index, the pairs are gathered over that mesh dim (a
+    few bytes a row, as XLA's reduction of an argmax moves) and the first
+    largest wins.  DTensor's own argmax rule for a sharded dim reads its
+    shard offsets back to the host, which a fake-tensor trace (the dry
+    run's) cannot.  A plain tensor, or a DTensor whose last dim is whole,
+    takes ``torch.argmax``."""
+    last = logits.dim() - 1
+    if not isinstance(logits, DTensor):
+        return torch.argmax(logits, dim=-1)
+    pl = list(logits.placements)
+    on = [i for i, p in enumerate(pl) if p.is_shard(last)]
+    if len(on) != 1 or any(p.is_partial() for p in pl):
+        return torch.argmax(logits, dim=-1)
+    mesh, (i,) = logits.device_mesh, on
+    local = logits.to_local()
+    chunk = -(-logits.shape[-1] // mesh.size(i))
+    if local.shape[-1]:
+        idx = torch.argmax(local, dim=-1, keepdim=True)
+        val = torch.gather(local, -1, idx).float()
+    else:   # the shard past the end of an uneven split
+        idx = local.new_zeros(local.shape[:-1] + (1,), dtype=torch.int64)
+        val = local.new_full(local.shape[:-1] + (1,), float("-inf"),
+                             dtype=torch.float32)
+    idx = idx + mesh.get_coordinate()[i] * chunk
+    whole = list(pl)
+    whole[i] = Replicate()
+    gathered = [DTensor.from_local(t, mesh, pl, run_check=False).redistribute(
+        mesh, whole).to_local() for t in (val, idx)]
+    best = torch.argmax(gathered[0], dim=-1, keepdim=True)
+    pick = torch.gather(gathered[1], -1, best)[..., 0]
+    return DTensor.from_local(pick, mesh, [
+        Replicate() if j == i else p for j, p in enumerate(pl)],
+        run_check=False)

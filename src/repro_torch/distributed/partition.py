@@ -55,7 +55,9 @@ def mesh_axes(mesh) -> dict[str, int]:
     ``AbstractMesh``."""
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    # sizes, not ``mesh.mesh``: newer torch builds that tensor anew, which
+    # a fake-tensor trace (the dry run's) cannot take
+    return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
 def data_axes(mesh) -> tuple[str, ...]:

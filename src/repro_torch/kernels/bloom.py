@@ -77,3 +77,9 @@ def bloom_query(filters: torch.Tensor, keys: torch.Tensor, *,
                   lanes, filters.shape[1], n_probes, out.data_ptr(),
                   _build.stream_handle(out))
     return out
+
+
+#: JAX's name for :func:`bloom_multi_probe` (``repro.kernels.bloom.
+#: multi_probe``; its ``cand_tile`` and ``interpret`` belong to the Pallas
+#: kernel and have no counterpart here)
+multi_probe = bloom_multi_probe

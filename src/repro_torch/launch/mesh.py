@@ -8,6 +8,7 @@ type is ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch.distributed as dist
@@ -57,3 +58,19 @@ def make_host_mesh(model_axis: int | None = None, *, device=None):
     dev = resolve_device(device)
     return build_mesh(host_mesh_shape(dist.get_world_size(), model_axis),
                       ("data", "model"), dev)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A world of ``world`` ranks in this process alone, as its rank 0, for
+    the ``with`` block: torch's fake backend, whose collectives return at
+    once and move nothing (the dry run's world: what one rank of a
+    production mesh runs, with no other rank).  Any world already started
+    is an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

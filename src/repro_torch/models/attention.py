@@ -17,7 +17,7 @@ attention kernel, so the masking and the fp32 accumulation are JAX's.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed import annotate, partition
 from repro_torch.distributed.annotate import constrain
@@ -45,6 +45,32 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _heads(t: torch.Tensor, n: int, hd: int, *spec):
+    """``t`` ``[B, S, n * hd]`` as ``[B, S, n, hd]`` constrained to the
+    logical ``spec``.  Over a mesh the flat dim is placed first as the
+    head dim will be: sharded over "tp" only where ``n`` divides it (as
+    ``constrain`` rules), since DTensor does not split a sharded dim into
+    a head count its shards do not divide (JAX's partitioner regathers it
+    by itself)."""
+    b, s, _ = t.shape
+    heads = spec[2] if n % max(annotate.axis_size("tp"), 1) == 0 else None
+    t = constrain(t, spec[0], spec[1], heads)
+    return constrain(t.reshape(b, s, n, hd), *spec)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """``o`` ``[B, S, H, Dh]`` as ``[B, S, H * Dh]``, constrained over a
+    mesh to the heads' sharding ("tp" where ``H`` divides it, else whole)
+    with the sequence whole: the output product cannot flatten a
+    sequence-sharded activation (``_mha_sharded``'s query route gives
+    one), and the gradient comes back so placed, which DTensor can split
+    back into the heads (it cannot split a sharded dim into a head count
+    its shards do not divide)."""
+    b, s, h, hd = o.shape
+    tp = "tp" if h % max(annotate.axis_size("tp"), 1) == 0 else None
+    return constrain(o.reshape(b, s, h * hd), "dp", None, tp)
+
+
 def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions):
     """``x``: ``[B, S, d]`` -> q ``[B, S, H, Dh]``, k/v ``[B, S, Hkv, Dh]``
     (normed per head, then roped)."""
@@ -60,9 +86,9 @@ def project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig, positions):
         # context parallelism fallback (e.g. gemma3: 8 heads, tp=16):
         # shard query positions over the model axis instead
         hspec = ("dp", "tp", None, None)
-    q = constrain(q.reshape(b, s, cfg.n_heads, hd), *hspec)
-    k = constrain(k.reshape(b, s, cfg.kv_heads, hd), "dp", None, "tp", None)
-    v = constrain(v.reshape(b, s, cfg.kv_heads, hd), "dp", None, "tp", None)
+    q = _heads(q, cfg.n_heads, hd, *hspec)
+    k = _heads(k, cfg.kv_heads, hd, "dp", None, "tp", None)
+    v = _heads(v, cfg.kv_heads, hd, "dp", None, "tp", None)
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -136,21 +162,35 @@ def mha(q, k, v, q_pos, kv_pos, *, causal: bool = True, window=None,
 
 def _mha_sharded(q, k, v, q_pos, kv_pos, **kw):
     """``mha`` of DTensors, on local shards: batch rows over the data axes
-    and heads over "model" when the query and the KV heads both divide it
-    (a rank's query heads are then the groups of its KV heads, kv-major),
-    else every head on each model rank.  Attention is independent across
-    rows and heads, so no gradient is partial."""
+    and, over "model", the heads when the query and the KV heads both
+    divide it (a rank's query heads are then the groups of its KV heads,
+    kv-major), else the query positions when they divide it (JAX's
+    context-parallel fallback, ``project_qkv``'s: each rank attends its
+    queries to every key, so the keys' and values' gradients are partial
+    sums over "model"), else every head and position on each model rank.
+    Attention is independent across rows, heads and queries."""
     mesh = q.device_mesh
     tp = partition.mesh_axes(mesh).get("model", 1)
     by_batch, _ = annotate.plan(mesh, q.shape[0])
     by_head = q.shape[2] % tp == 0 and k.shape[2] % tp == 0
-    heads = annotate.local_placements(mesh, by_batch, by_head, 0, 2)
+    by_query = not by_head and q.shape[1] % tp == 0
     rows = annotate.local_placements(mesh, by_batch, False, 0)
-    ql, kl, vl = (annotate.to_mesh(t, mesh).redistribute(mesh, heads)
-                  .to_local() for t in (q, k, v))
-    qp, kp = (annotate.to_mesh(t, mesh).redistribute(mesh, rows).to_local()
-              for t in (q_pos, kv_pos))
-    return DTensor.from_local(mha(ql, kl, vl, qp, kp, **kw), mesh, heads,
+    if by_query:
+        qs = annotate.local_placements(mesh, by_batch, True, 0, 1)
+        kvs = rows
+        kv_grad = annotate.local_placements(mesh, by_batch, True, 0,
+                                            partial_chan=True)
+        qps = qs
+    else:
+        qs = kvs = kv_grad = annotate.local_placements(
+            mesh, by_batch, by_head, 0, 2)
+        qps = rows
+    ql = annotate.to_mesh(q, mesh).redistribute(mesh, qs).to_local()
+    kl, vl = (annotate.to_mesh(t, mesh).redistribute(mesh, kvs)
+              .to_local(grad_placements=kv_grad) for t in (k, v))
+    qp = annotate.to_mesh(q_pos, mesh).redistribute(mesh, qps).to_local()
+    kp = annotate.to_mesh(kv_pos, mesh).redistribute(mesh, rows).to_local()
+    return DTensor.from_local(mha(ql, kl, vl, qp, kp, **kw), mesh, qs,
                               run_check=False)
 
 
@@ -163,7 +203,7 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
     o = mha(q, k, v, positions, positions, causal=causal, window=window,
             chunk_kv=chunk)
     b, s, _ = x.shape
-    return torch.matmul(o.reshape(b, s, -1), params["wo"].to(x.dtype))
+    return torch.matmul(_merge_heads(o), params["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -171,18 +211,18 @@ def self_attention(params: dict, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+# each leaf's value in an empty cache: an empty slot's position is -1
+CACHE_FILL = {"k": 0, "v": 0, "pos": -1}
+
+
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
                window: int | None, dtype: torch.dtype, device) -> dict:
     slots = min(max_len, window) if window else max_len
-    hd = cfg.resolved_head_dim
-    return {
-        "k": torch.zeros((batch, slots, cfg.kv_heads, hd), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, slots, cfg.kv_heads, hd), dtype=dtype,
-                         device=device),
-        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
-                          device=device),
-    }
+    kv = ((batch, slots, cfg.kv_heads, cfg.resolved_head_dim), dtype)
+    leaves = {"k": kv, "v": kv, "pos": ((batch, slots), torch.int32)}
+    return {name: torch.full(shape, CACHE_FILL[name], dtype=dt,
+                             device=device)
+            for name, (shape, dt) in leaves.items()}
 
 
 def cache_insert(cache: dict, k, v, positions) -> dict:
@@ -199,12 +239,54 @@ def cache_insert(cache: dict, k, v, positions) -> dict:
             f"{positions.shape[1]} positions inserted at once into a cache "
             f"of {slots} slots: a prefill may not be longer than a windowed "
             "layer's ring buffer (or than max_len)")
+    if isinstance(cache["k"], DTensor):
+        return _cache_insert_sharded(cache, k, v, positions)
     idx = (positions % slots).to(torch.int64)          # [B, S]
     rows = idx[:, :, None, None].expand(-1, -1, *k.shape[2:])
     return {"k": cache["k"].scatter(1, rows, k),
             "v": cache["v"].scatter(1, rows, v),
             "pos": cache["pos"].scatter(1, idx,
                                         positions.to(torch.int32))}
+
+
+def _cache_insert_sharded(cache: dict, k, v, positions) -> dict:
+    """``cache_insert`` of a cache of DTensors, on local shards: each rank
+    writes the rows whose slots fall in its own range of the slot dim
+    (sharded as ``partition.cache_specs`` places it) into its shard, and
+    the cache stays placed as it was.  DTensor's rule for a scatter into a
+    sharded dim gathers the whole cache onto every rank."""
+    mesh = cache["k"].device_mesh
+    pl = tuple(cache["k"].placements)
+    slots = cache["k"].shape[1]
+    # the rank's first slot: the mesh dims sharding dim 1 split it in
+    # turn, each into chunks of the size rounded up (as DTensor does)
+    coord, size, lo = mesh.get_coordinate(), slots, 0
+    for i, p in enumerate(pl):
+        if p.is_shard(1):
+            chunk = -(-size // mesh.size(i))
+            lo += coord[i] * chunk
+            size = max(min(chunk, size - coord[i] * chunk), 0)
+    n_local = cache["k"].to_local().shape[1]
+    # the new rows: the cache's batch placement, every row on every rank
+    rows_pl = [p if p.is_shard(0) else Replicate() for p in pl]
+    kl, vl, pos = (annotate.to_mesh(t, mesh).redistribute(mesh, rows_pl)
+                   .to_local() for t in (k, v, positions))
+    idx = (pos % slots).to(torch.int64) - lo           # [B, S] local slots
+    # rows of other ranks go to a spare slot past the end, then dropped
+    idx = torch.where((idx >= 0) & (idx < n_local), idx, n_local)
+
+    def put(t, new, index):
+        spare = torch.cat([t, t[:, :1]], dim=1)
+        return spare.scatter(1, index, new)[:, :t.shape[1]]
+
+    rows = idx[:, :, None, None].expand(-1, -1, *kl.shape[2:])
+    out = {"k": put(cache["k"].to_local(), kl, rows),
+           "v": put(cache["v"].to_local(), vl, rows),
+           "pos": put(cache["pos"].to_local(), pos.to(torch.int32), idx)}
+    return {name: DTensor.from_local(t, mesh, cache[name].placements,
+                                     run_check=False, shape=cache[name].shape,
+                                     stride=cache[name].stride())
+            for name, t in out.items()}
 
 
 def attend_cache(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -219,7 +301,7 @@ def attend_cache(params: dict, x: torch.Tensor, cfg: ModelConfig,
     o = mha(q, cache["k"], cache["v"], positions, cache["pos"],
             causal=True, window=window, chunk_kv=chunk)
     b, s, _ = x.shape
-    out = torch.matmul(o.reshape(b, s, -1), params["wo"].to(x.dtype))
+    out = torch.matmul(_merge_heads(o), params["wo"].to(x.dtype))
     return out, cache
 
 
@@ -245,15 +327,18 @@ def cross_attention(params: dict, x: torch.Tensor, enc_kv,
         q = layers.rmsnorm(params["q_norm"], q, cfg.norm_eps)
     qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     o = mha(q, enc_kv["k"], enc_kv["v"], qpos, enc_kv["pos"], causal=False)
-    return torch.matmul(o.reshape(b, s, -1), params["wo"].to(dt))
+    return torch.matmul(_merge_heads(o), params["wo"].to(dt))
 
 
 def encoder_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig
                ) -> dict:
-    """Cross-attention K/V from the encoder output."""
+    """Cross-attention K/V from the encoder output (its sequence gathered
+    over a mesh first, as each block gathers its sublayers' input: DTensor
+    cannot flatten a sequence-sharded activation into a matmul)."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
     dt = enc_out.dtype
+    enc_out = constrain(enc_out, "dp", None, None)
     k = torch.matmul(enc_out, params["wk"].to(dt)).reshape(
         b, s, cfg.kv_heads, hd)
     v = torch.matmul(enc_out, params["wv"].to(dt)).reshape(

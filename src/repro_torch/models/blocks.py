@@ -101,6 +101,10 @@ def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, pos: int,
     return _cross_and_ffn(params, x + _whole_seq(mix), cfg, pos, enc_kv)
 
 
+# each cache leaf's value in an empty cache, by the leaf's name
+CACHE_FILL = {**attention.CACHE_FILL, **mamba.STATE_FILL}
+
+
 def block_cache_init(cfg: ModelConfig, pos: int, batch: int, max_len: int,
                      dtype: torch.dtype, device) -> dict:
     """An attention layer's KV cache (a ring buffer of ``window`` slots

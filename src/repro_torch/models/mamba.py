@@ -60,7 +60,12 @@ def _post_conv(params: dict, u: torch.Tensor, cfg: ModelConfig):
     dr, ds = cfg.dt_rank, cfg.ssm_state
     dt_ = u.dtype
     u = F.silu(u)
-    xdbc = torch.matmul(u, params["x_proj"].to(dt_))
+    # the product sums over d_inner, sharded over a mesh's model axis: its
+    # partial sums are reduced here, whole on every model rank (the scan
+    # takes B and C so), and the gradient comes back whole too, which
+    # DTensor can flatten into the product's backward
+    xdbc = constrain(torch.matmul(u, params["x_proj"].to(dt_)),
+                     "dp", None, None)
     dt_r, B, C = torch.split(xdbc, [dr, ds, ds], dim=-1)
     dt = F.softplus(torch.matmul(dt_r, params["dt_w"].to(dt_))
                     .to(torch.float32) + params["dt_b"])   # [B, S, di]
@@ -108,14 +113,17 @@ def mamba_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
+# each leaf's value in an empty state
+STATE_FILL = {"conv": 0, "ssm": 0}
+
+
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                      device) -> dict:
-    return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                           dtype=torch.float32, device=device),
-    }
+    leaves = {"conv": ((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype),
+              "ssm": ((batch, cfg.d_inner, cfg.ssm_state), torch.float32)}
+    return {name: torch.full(shape, STATE_FILL[name], dtype=dt,
+                             device=device)
+            for name, (shape, dt) in leaves.items()}
 
 
 def mamba_step(params: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -14,7 +14,8 @@ each layer of ``forward_hidden`` is recomputed in the backward, as JAX's
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import full as dtensor_full
 from torch.utils import checkpoint as remat
 
 from repro_torch.device import resolve_device
@@ -22,7 +23,8 @@ from repro_torch.distributed import annotate, partition
 from repro_torch.distributed.annotate import constrain
 from repro_torch.models import attention, blocks, layers, mamba
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.convert import tree_leaves, tree_map
+from repro_torch.models.convert import (tree_leaves, tree_map,
+                                        tree_map_with_path)
 
 VOCAB_PAD = 2048
 
@@ -149,8 +151,25 @@ def _layers(stack: dict, n: int) -> list[dict]:
     return out
 
 
+def _stack(*leaves):
+    """``torch.stack`` of the leaves; DTensors of one placement are
+    stacked shard by shard (each shard dim one further), where DTensor's
+    own rule may gather them whole."""
+    first = leaves[0]
+    if not (isinstance(first, DTensor) and all(
+            isinstance(t, DTensor) and t.placements == first.placements
+            for t in leaves)):
+        return torch.stack(leaves)
+    pl = [Shard(p.dim + 1) if p.is_shard() else p for p in first.placements]
+    shape = (len(leaves), *first.shape)
+    return DTensor.from_local(
+        torch.stack([t.to_local() for t in leaves]), first.device_mesh, pl,
+        run_check=False, shape=torch.Size(shape),
+        stride=(first.numel(), *first.stride()))
+
+
 def _stacked(trees: list) -> dict:
-    return tree_map(lambda *a: torch.stack(a), trees[0], *trees[1:])
+    return tree_map(_stack, trees[0], *trees[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -353,21 +372,39 @@ def lm_loss(params: dict, batch: dict, cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype | None = None, *, device=None) -> dict:
+               dtype: torch.dtype | None = None, *, device=None,
+               mesh=None) -> dict:
     """Cache tree mirroring the stacked block layout.  ``device`` None
-    means ``cuda``."""
+    means ``cuda``.  With ``mesh``, a tree of DTensors placed by
+    ``partition.cache_specs``, each rank making only its own shard, filled
+    as ``block_cache_init`` fills it (``blocks.CACHE_FILL``)."""
     dev = resolve_device(device)
     dtype = dtype or layers.cdtype(cfg)
     n = cfg.n_periods
 
-    def stacked(pos):
-        one = blocks.block_cache_init(cfg, pos, batch, max_len, dtype, dev)
-        return tree_map(lambda a: a[None].repeat(n, *(1,) * a.dim()), one)
+    def tree(dev):
+        def stacked(pos):
+            one = blocks.block_cache_init(cfg, pos, batch, max_len, dtype,
+                                          dev)
+            return tree_map(lambda a: a[None].repeat(n, *(1,) * a.dim()),
+                            one)
+        return {"blocks": {f"p{pos}": stacked(pos)
+                           for pos in range(cfg.period)},
+                "tail": [blocks.block_cache_init(
+                    cfg, cfg.n_periods * cfg.period + i, batch, max_len,
+                    dtype, dev) for i in range(cfg.n_tail)]}
 
-    return {"blocks": {f"p{pos}": stacked(pos) for pos in range(cfg.period)},
-            "tail": [blocks.block_cache_init(
-                cfg, cfg.n_periods * cfg.period + i, batch, max_len, dtype,
-                dev) for i in range(cfg.n_tail)]}
+    if mesh is None:
+        return tree(dev)
+    shapes = tree(torch.device("meta"))     # the shapes and dtypes only
+    specs = partition.cache_specs(shapes, mesh, batch)
+
+    def sharded(path, a, spec):
+        fill = blocks.CACHE_FILL[path.rsplit("/", 1)[-1]]
+        return dtensor_full(tuple(a.shape), fill, dtype=a.dtype,
+                            device_mesh=mesh,
+                            placements=partition.placements(spec, mesh))
+    return tree_map_with_path(sharded, shapes, specs)
 
 
 def _run_cached(params: dict, cache: dict, x: torch.Tensor, positions,
@@ -420,7 +457,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, max_len: int):
     enc_out = None
     if cfg.enc_dec:
         enc_out, _ = _encode(params, batch["frames"], cfg)
-    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device)
+    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=x.device,
+                       mesh=x.device_mesh if isinstance(x, DTensor)
+                       else None)
     x, cache = _run_cached(params, cache, x, positions, cfg, enc_out)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logit = layers.logits(_head(params), x[:, -1:], cfg)

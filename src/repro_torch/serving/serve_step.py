@@ -19,7 +19,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 
-from repro_torch.distributed import partition
+from repro_torch.distributed import annotate, partition
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import tree_map
@@ -33,7 +33,7 @@ def serve_decode_step(params, cache, tokens, pos, enc_out=None, *,
     with mesh_context(mesh), torch.no_grad():
         logits, cache = model.decode_step(params, cache, tokens, pos, cfg,
                                           enc_out=enc_out)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = annotate.greedy(logits).to(torch.int32)
         return nxt, logits, cache
 
 
@@ -43,7 +43,7 @@ def serve_prefill(params, batch, *, cfg: ModelConfig, max_len: int,
     ``(next_tokens [B, 1] int32, cache, pos [B, 1])``."""
     with mesh_context(mesh), torch.no_grad():
         logit, cache, pos = model.prefill(params, batch, cfg, max_len)
-        nxt = torch.argmax(logit, dim=-1)[:, None].to(torch.int32)
+        nxt = annotate.greedy(logit)[:, None].to(torch.int32)
         return nxt, cache, pos
 
 

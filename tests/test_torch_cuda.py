@@ -1339,3 +1339,32 @@ def test_zoo_captured_decode_equals_eager(dev, arch):
     (te, le, ce), (tc, lc, cc) = runs
     assert torch.equal(te, tc)
     assert chip_smoke.same_state((lc, cc), (le, ce))
+
+
+def test_fake_cuda_inputs_take_the_shape_only_route(dev):
+    """ROADMAP A16: fake CUDA tensors (the dry run's) go through the scan's
+    operators and the compaction kernels' without a launch, with the
+    kernels' shapes and dtypes; real CUDA tensors launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    args = scan_inputs(np.random.default_rng(3), 2, 16, 64, 16, dev,
+                       torch.bfloat16, True)
+    real = one_launch("selective_scan", lambda: ops.selective_scan(*args))
+    before = ops.launch_counts()
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t).requires_grad_(t.is_floating_point())
+                for t in args]
+        y, h = ops.selective_scan(*fake)
+        grads = torch.autograd.grad(y.sum(), fake)
+        keys = mode.from_tensor(torch.zeros((64, 4), dtype=torch.int32,
+                                            device=dev))
+        count = mode.from_tensor(torch.tensor(64, device=dev))
+        outs = [ops.bitonic_sort(keys), ops.crc32_sections([keys]),
+                *ops.prefix_encode_wire(keys, count),
+                ops.bloom_build(keys.reshape(4, 16, 4), n_words=5,
+                                n_probes=6)]
+    assert ops.launch_counts() == before
+    assert [(t.shape, t.dtype, t.device.type) for t in (y, h)] == [
+        (r.shape, r.dtype, "cuda") for r in real]
+    assert [g.shape for g in grads] == [t.shape for t in args]
+    assert [tuple(t.shape) for t in outs] == [(64, 4), (64,), (64,),
+                                              (64, 4), (4, 5)]

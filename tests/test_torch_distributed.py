@@ -105,6 +105,15 @@ def pipe_inputs():
     return params, x
 
 
+def attn_inputs():
+    """q ``[2, 8, 4, 16]``, k and v ``[2, 8, 2, 16]`` (4 query heads, 2 KV
+    heads: neither divides a model axis of 4) and positions 0-7."""
+    rng = np.random.default_rng(9)
+    qkv = tuple(rng.standard_normal((2, 8, h, 16)).astype(np.float32)
+                for h in (4, 2, 2))
+    return qkv, np.tile(np.arange(8, dtype=np.int32), (2, 1))
+
+
 # ---------------------------------------------------------------------------
 # the world: every check of this file, on each rank
 # ---------------------------------------------------------------------------
@@ -112,7 +121,7 @@ def pipe_inputs():
 
 def _rank_checks(rank, world, inputs):
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.checkpoint.store import CheckpointStore, receive, send
     from repro_torch.distributed import annotate
@@ -193,6 +202,27 @@ def _rank_checks(rank, world, inputs):
         y.full_tensor().detach().numpy(), float(aux.full_tensor()),
         {k: g.full_tensor().numpy() for k, g in zip(params, grads)})
 
+    # -- attention on (1, 4) with heads that do not divide "model": the
+    # query positions sharded over it (the context-parallel route),
+    # forward and gradients
+    from repro_torch.models import attention
+    mesh14 = init_device_mesh("cpu", (1, world), mesh_dim_names=("data",
+                                                                 "model"))
+    qkv, pos = inputs["attn"]
+    for chunk in (None, 4):
+        q, k, v = (distribute_tensor(torch.from_numpy(a), mesh14, pl)
+                   .requires_grad_() for a, pl in zip(
+                       qkv, ([Replicate(), Shard(1)], [Replicate()] * 2,
+                             [Replicate()] * 2)))
+        p_ = torch.from_numpy(pos)
+        with annotate.mesh_annotations(mesh14), \
+                annotate.replicate_plain_tensors():
+            o = attention.mha(q, k, v, p_, p_, causal=True, chunk_kv=chunk)
+            grads = torch.autograd.grad((o.float() ** 2).sum(), [q, k, v])
+        out[f"attn{chunk}"] = (str(tuple(o.placements)),
+                               o.full_tensor().detach().numpy(),
+                               [g.full_tensor().numpy() for g in grads])
+
     # -- the compressed mean over the data axis of a line of 4
     local = inputs["local"][rank]
     mean, err = grad_compress.compressed_grad_mean(
@@ -213,6 +243,17 @@ def _rank_checks(rank, world, inputs):
         ("pipe",), pipe)) for k, v in sp.items()}
     out["pipe_dtensor"] = pipeline.pipeline_apply(
         sharded_sp, torch.from_numpy(xp), stage_fn, pipe).numpy()
+
+    # -- an empty cache built shard by shard on (2, 2): each leaf gathered
+    # whole equals the one-device cache's
+    from repro_torch.models import model as lm
+    from repro_torch.models.convert import tree_leaves as leaves
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    whole = lm.init_cache(cfg, 2, 16, device="cpu")
+    sharded = lm.init_cache(cfg, 2, 16, device="cpu", mesh=mesh)
+    out["init_cache"] = [
+        (str(tuple(a.placements)), torch.equal(a.full_tensor(), b))
+        for a, b in zip(leaves(sharded), leaves(whole))]
 
     # -- the checkpoint store: rank 0 saves whole tensors and restores onto
     # (2, 2) shardings; every rank's shard equals the saved tensor's
@@ -265,6 +306,7 @@ def world(tmp_path_factory):
     for n in (4, 5):
         _, p, x = moe_inputs(n)
         inputs[f"moe{n}"] = (p, x)
+    inputs["attn"] = attn_inputs()
     return inputs, run_world(_rank_checks, SHARDS, inputs, timeout=900,
                              nice=NICE)
 
@@ -490,3 +532,39 @@ def test_save_of_a_sharded_state_writes_the_whole_tensors(world):
     _, results = world
     assert results[0]["streamed"] == (True, True)
     assert all(r["streamed"] is None for r in results[1:])
+
+
+def test_sharded_init_cache_equals_the_one_device_cache(world):
+    """``model.init_cache(mesh=)`` on (2, 2) (jamba's smoke config: KV
+    caches and mamba states): every leaf is sharded somewhere, and each
+    gathered whole equals ``init_cache``'s leaf, an empty slot's position
+    -1 included."""
+    _, results = world
+    for r in results:
+        got = r["init_cache"]
+        assert got and all(same for _, same in got)
+        assert any("Shard" in placements for placements, _ in got)
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_attention_shards_query_positions_when_heads_do_not_divide(world,
+                                                                   chunk):
+    """ROADMAP A16 (the dry run's production meshes): on (1, 4) with 4
+    query and 2 KV heads, ``mha`` of DTensors shards the query positions
+    over "model" (its output stays so placed) and equals the one-device
+    ``mha``, forward and gradients (the keys' and values' partial sums
+    reduced over "model")."""
+    from repro_torch.models import attention
+    inputs, results = world
+    qkv, pos = inputs["attn"]
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkv)
+    p = torch.from_numpy(pos)
+    o = attention.mha(q, k, v, p, p, causal=True, chunk_kv=chunk)
+    want = torch.autograd.grad((o.float() ** 2).sum(), [q, k, v])
+    for r in results:
+        placements, got, grads = r[f"attn{chunk}"]
+        assert placements.endswith(", Shard(dim=1))")   # on "model"
+        np.testing.assert_allclose(got, o.detach().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        for g, w in zip(grads, want):
+            np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, atol=1e-5)

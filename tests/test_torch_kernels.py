@@ -452,6 +452,58 @@ def test_assert_runs_sorted():
         merge_path.assert_runs_sorted(rows, (3, 1))
 
 
+@pytest.mark.parametrize("jobs", [None, 3])
+def test_merge_runs_debug_check_asserts_sorted_runs_as_jax(jobs):
+    """ROADMAP A20: ``ops.merge_runs(..., debug_check=True)`` asserts the
+    sorted-run precondition on the host as JAX's does (``ops.py:136``),
+    each job of a batch on its own."""
+    rng = np.random.default_rng(20)
+    lens = (30, 17)
+    good = _runs(rng, lens, lanes=3)
+    bad = good.copy()
+    bad[:30] = bad[:30][::-1]
+    assert len(np.unique(bad[:30], axis=0)) > 1
+    for rows, sorted_ in ((good, True), (bad, False)):
+        stack = rows if jobs is None else np.stack([good] * (jobs - 1)
+                                                   + [rows])
+        if sorted_:
+            got = u(ops.merge_runs(t(stack), lens, debug_check=True))
+            np.testing.assert_array_equal(got, u(ops.merge_runs(t(stack),
+                                                                lens)))
+            np.testing.assert_array_equal(
+                np.asarray(jops.merge_runs(jnp.asarray(rows), lens,
+                                           backend="ref",
+                                           debug_check=True)),
+                got if jobs is None else got[-1])
+        else:
+            with pytest.raises(AssertionError):
+                ops.merge_runs(t(stack), lens, debug_check=True)
+            with pytest.raises(AssertionError):
+                jops.merge_runs(jnp.asarray(rows), lens, backend="ref",
+                                debug_check=True)
+
+
+def test_value_types_and_multi_probe_are_jaxs_names():
+    """ROADMAP A20: ``formats.VALUE_TYPE`` / ``DELETE_TYPE`` (JAX
+    ``formats.py:116-117``) and ``bloom.multi_probe`` (JAX
+    ``bloom.py:159``), the latter's plain version against JAX's Pallas
+    kernel in interpret mode."""
+    assert (formats.VALUE_TYPE, formats.DELETE_TYPE) == (
+        jformats.VALUE_TYPE, jformats.DELETE_TYPE) == (1, 0)
+    for seq in (0, 7, 2**30):
+        for kind in (formats.VALUE_TYPE, formats.DELETE_TYPE):
+            assert formats.make_meta(seq, kind) == int(
+                jformats.make_meta(seq, kind))
+    assert tbloom.multi_probe is tbloom.bloom_multi_probe
+    rng = np.random.default_rng(21)
+    filters, keys = rand_words(rng, (40, 7)), rand_words(rng, (40, 4))
+    want = np.asarray(jbloom.multi_probe(jnp.asarray(filters),
+                                         jnp.asarray(keys), n_probes=6,
+                                         interpret=True))
+    got = ops.bloom_multi_probe(t(filters), t(keys), n_probes=6).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("lanes,tile", [
     (1, 2048), (6, 2048), (8, 2048), (9, 2048), (10, 2048), (12, 2048),
     (13, 1024), (24, 1024), (100, 128), (12_288, 2)])

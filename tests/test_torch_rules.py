@@ -25,7 +25,7 @@ from repro_torch.data.ycsb import WorkloadSpec
 from repro_torch.lsm.db import DBConfig, LsmDB
 from repro_torch.lsm.sharded import ShardedDB
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.launch import serve, train, ycsb
+from repro_torch.launch import dryrun, serve, train, ycsb
 from repro_torch.lsm.engine import TorchCompactionEngine
 from repro_torch.models import model
 from repro_torch.serving.engine import ServeEngine
@@ -67,6 +67,11 @@ def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"db.py", "engine.py", "compaction.py", "ops.py", "ref.py",
             "sharded.py", "background.py", "chip_smoke.py"} <= names
+    # the roofline and the dry run (ROADMAP A16)
+    rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {f"src/repro_torch/roofline/{m}.py" for m in (
+        "constants", "counts", "memory", "analysis")} | {
+        "src/repro_torch/launch/dryrun.py"} <= rel
 
 
 @pytest.fixture
@@ -110,6 +115,8 @@ def no_cuda(monkeypatch):
     lambda tmp: train.main(["--arch", "falcon-mamba-7b", "--smoke",
                             "--steps", "1", "--ckpt", str(tmp / "db"),
                             "--mesh-shape", "1", "1"]),
+    lambda tmp: dryrun.main(["--arch", "falcon-mamba-7b", "--shape",
+                             "decode_32k", "--out", str(tmp / "db")]),
 ], ids=["LsmDB", "engine", "executor", "default", "cuda", "model.init",
         "model.init_cache", "ServeEngine", "launch.serve", "LsmDB-cpu-engine",
         "ycsb.run", "launch.ycsb", "MemorySessionStore",
@@ -117,7 +124,7 @@ def no_cuda(monkeypatch):
         "LsmDB.open-repair", "ShardedDB.open-repair",
         "crashmatrix.run_cell", "train_step.init_state", "CheckpointStore",
         "Trainer", "launch.train", "make_host_mesh", "make_production_mesh",
-        "build_mesh", "launch.train-mesh"])
+        "build_mesh", "launch.train-mesh", "launch.dryrun"])
 def test_entry_points_refuse_to_run_without_the_card(make, tmp_path,
                                                      no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
